@@ -18,6 +18,13 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    agree within PT_TOL px. Times the kernel's device work (CUDA events
    around a batch of calls queued behind a sleep kernel), one wrapper call
    with the host's time included, and the plain version.
+   Then the batched launch at B = BATCH on the batched path's inputs (the
+   fast quad, the probe, and the safe quad with sequences 1 and 3 masked
+   off): bit for bit against B unbatched launches, and against its plain
+   version under the same rules, per sequence, with one bounded exception
+   for the aliased "checker" texture (see ``compare_kernel``): a
+   knife-edge track that lands elsewhere counts as a status flip unless
+   the float64 plain version sides with the kernel.
 4. Run the main path, ``run_sequence_scan``, at 1241x376: 64 steps of the
    "straight" course and 160 steps of "straight" with the periodic "checker"
    texture (which exercises the adaptive fallback). Assert the bench gates
@@ -27,12 +34,20 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    (TEXTURE_ABLATION_r05.json, adaptive row: 0.834 m of 1.28 m): at 32
    steps the JAX package misses the ATE budget too (0.508 m of 0.256 m on
    the CPU: ``python tests/test_torch_pipeline.py lockstep 32``).
+   Then the batched path, ``run_sequences_batched``: those two courses and
+   160 steps each of "turning" and "stress" in lockstep (B = 4, unequal
+   lengths), each held to the bench gates on its own steps, with
+   LAUNCHES_PER_FRAME batched launches per batched step whatever B is.
 5. Hold the card's step against the port's CPU step (the plain version,
    itself held to the JAX package by the CPU tests) on a small course fed
-   the same RANSAC draws.
+   the same RANSAC draws; and a batched step of two sequences against two
+   single-sequence steps on the card, fed the same draws.
 6. Check that a main-path step never synchronises with the host (CUDA sync
    debug mode "error"), then profile a few frames: device time by kernel,
-   device ops per frame and the device's busy share.
+   device ops per frame and the device's busy share. The same for the
+   batched step at each B of SWEEP_B (the four courses' first
+   SWEEP_STEPS steps, tiled to B sequences), after timing those steps
+   with ``run_sequences_batched``: aggregate frames/s and ms per step.
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -53,10 +68,20 @@ import numpy as np
 H, W = 376, 1241
 STRAIGHT_STEPS = 64
 CHECKER_STEPS = 160
+#: the bench's course length (bench.py), for "turning" and "stress"
+BENCH_STEPS = 160
 CHUNK = 32
+BATCH = 4
+#: B = 11: the KITTI odometry sequences with ground truth, 00-10
+SWEEP_B = (1, 4, 11)
+SWEEP_STEPS = 32
 LAUNCHES_PER_FRAME = 3        # fast quad + probe + safe quad (masked)
 STATUS_MISMATCH_MAX = 2       # hard thresholds can flip a feature or two
 PT_TOL = 1e-3                 # px, on tracks whose statuses agree
+#: px; a track whose plain result moves by PT_TOL or more when the points
+#: shift by +-KNIFE_SHIFT sits on a knife edge (on an aliased texture a
+#: rounding-level change picks another local minimum)
+KNIFE_SHIFT = 1e-5
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -75,7 +100,11 @@ BLOCK = 24
 #: per-feature inputs (pts, flow, disp, valid) and outputs (4 legs, status)
 FEATURE_BYTES = (2 + 2 + 2 + 1) * 4 + (4 * 2 + 1) * 4
 REPLACES = "visual_odom_tpu/ops/lk_pallas.py:299"
+REPLACES_BATCHED = "visual_odom_tpu/ops/lk_pallas.py:798"
 SOURCE = "visual_odom_tpu_torch/csrc/lk_legs.cu"
+#: the batched path's sequences, in batch order: (course, texture family)
+BATCH_COURSES = (("straight", "value"), ("straight", "checker"),
+                 ("turning", "value"), ("stress", "value"))
 
 
 def kitti_intrinsics(height: int, width: int):
@@ -150,21 +179,32 @@ def device_ms(fn, calls: int = 20, rounds: int = 7, warm: int = 3):
     return float(np.median(times))
 
 
+def stacked_frames(frame_lists, n):
+    """The first ``n`` frames of B sequences as (B, H, W) pairs."""
+    return [(np.stack([f[i][0] for f in frame_lists]),
+             np.stack([f[i][1] for f in frame_lists])) for i in range(n)]
+
+
 def quad_inputs(frames, config, intr, dev):
     """The quad inputs the main path gives the kernel on frame 2: state
     after one step, then detection + bucketing, priors clamped as
-    circular_match clamps them."""
+    circular_match clamps them. Frames of (B, H, W) pairs give the batched
+    path's inputs."""
     import torch
 
     from visual_odom_tpu_torch.frontend.bucketing import detect_and_bucket
+    from visual_odom_tpu_torch.parallel import batch
     from visual_odom_tpu_torch.runner import pipeline
 
     step = pipeline.make_step_fn(config, intr, device=dev)
-    state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
+    if frames[0][0].ndim == 3:
+        state = batch.batched_init_state(config, *frames[0], device=dev)
+    else:
+        state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
     state, _ = step(state, torch.from_numpy(frames[1][0]).to(dev),
                     torch.from_numpy(frames[1][1]).to(dev))
     pad = state.lk_l0.pad
-    raw = state.lk_l0.pyramid[0][pad:pad + H, pad:pad + W]
+    raw = state.lk_l0.pyramid[0][..., pad:pad + H, pad:pad + W]
     feats = detect_and_bucket(raw, state.features, config)
     lk_l1 = pipeline._prep_image(frames[2][0], config, dev)
     lk_r1 = pipeline._prep_image(frames[2][1], config, dev)
@@ -205,43 +245,108 @@ def plane_bytes(images, out, pts, valid, sl, win):
 
 
 def compare_kernel(images, pts, valid, flow, disp, params, sl, label):
-    """Kernel vs plain version on one input set; returns a result dict."""
+    """Kernel vs plain version on one input set; returns a result dict.
+
+    Unbatched inputs are held to the rule of the first slice: at most
+    STATUS_MISMATCH_MAX status mismatches, and every track both tracked
+    within PT_TOL px. Inputs with a leading batch dim take the batched
+    launch, which must equal B unbatched launches bit for bit, and are then
+    held per sequence to the same rule with one bounded exception: a
+    knife-edge track (one the plain version itself moves by PT_TOL or more
+    when the points shift by +-KNIFE_SHIFT px) that lands elsewhere is
+    counted as a status flip, unless the kernel's result is no farther
+    (within PT_TOL) from the float64 evaluation of the plain version than
+    the float32 plain version's is. The bound is the sum of the sequences'
+    bounds."""
     import torch
 
     from visual_odom_tpu_torch.ops import lk_cuda
 
+    batched = pts.dim() == 3
+    plain = lk_cuda.lk_quad_plain_batched if batched else lk_cuda.lk_quad_plain
     planes = [im.pyramid for im in images]
     shapes, pad = images[0].shapes, images[0].pad
     args = (planes, shapes, pad, pts, valid, flow, disp, params, sl)
     out_k, st_k = lk_cuda.lk_quad_cuda(*args)
-    out_p, st_p, iters = lk_cuda.lk_quad_plain(*args)
+    out_p, st_p, iters = plain(*args)
     torch.cuda.synchronize()
+    # per sequence: (kernel positions (4, n, 2), valid (n,), pts (n, 2))
+    seqs = ([(out_k[:, b], valid[b], pts[b]) for b in range(pts.shape[0])]
+            if batched else [(out_k, valid, pts)])
+    if batched:
+        for b in range(pts.shape[0]):
+            one = lk_cuda.lk_quad_cuda(
+                [[p[b] for p in im] for im in planes], shapes, pad, pts[b],
+                valid[b], flow[b], disp[b], params, sl)
+            if not (torch.equal(one[0], out_k[:, b])
+                    and torch.equal(one[1], st_k[b])):
+                raise AssertionError(f"{label}: sequence {b} of the batched "
+                                     f"launch differs from its own launch")
+    knife = torch.zeros_like(st_p)
+    for shift in (KNIFE_SHIFT, -KNIFE_SHIFT):
+        o, st, _ = plain(planes, shapes, pad, pts + shift, valid, flow, disp,
+                         params, sl)
+        knife |= (st != st_p) | ((o - out_p).abs().amax(dim=(0, -1)) >= PT_TOL)
     n_valid = int(valid.sum())
-    mismatch = int((st_k != st_p).sum())
     both = st_k & st_p
-    err = float((out_k - out_p).abs()[:, both].max()) if bool(both.any()) else 0.0
+    diff = (out_k - out_p).abs().amax(dim=(0, -1))
+
+    def worst(mask):
+        return float(diff[mask].max()) if bool(mask.any()) else 0.0
+
+    # Diverged knife-edge tracks: the batched inputs' exception.
+    knife_div = (both & knife & (diff >= PT_TOL) if batched
+                 else torch.zeros_like(both))
+    arbitrated = torch.zeros_like(knife_div)
+    tracks = []
+    if bool(knife_div.any()):
+        out_64 = plain([[p.double() for p in im] for im in planes], shapes,
+                       pad, pts.double(), valid, flow.double(), disp.double(),
+                       params, sl)[0]
+        k64 = (out_k.double() - out_64).abs().amax(dim=(0, -1))
+        p64 = (out_p.double() - out_64).abs().amax(dim=(0, -1))
+        arbitrated = knife_div & (k64 <= p64 + PT_TOL)
+        tracks = [dict(seq=b, slot=i, dpt=float(diff[b, i]),
+                       kernel_vs_f64=float(k64[b, i]),
+                       plain_vs_f64=float(p64[b, i]))
+                  for b, i in torch.nonzero(knife_div).tolist()]
+    flips = (st_k != st_p) | (knife_div & ~arbitrated)
+    mismatch = int(flips.sum(dim=-1).max())
+    err = worst(both)
+    err_held = worst(both & ~knife_div)
     # Invalid slots pass through in both.
-    err_inv = float((out_k - out_p).abs()[:, ~valid].max()) if bool((~valid).any()) else 0.0
-    if mismatch > STATUS_MISMATCH_MAX or err >= PT_TOL or err_inv != 0.0:
+    err_inv = worst(~valid)
+    if mismatch > STATUS_MISMATCH_MAX or err_held >= PT_TOL or err_inv != 0.0:
         raise AssertionError(f"{label}: kernel disagrees with plain version: "
-                             f"{mismatch} status mismatches, max |dpt| {err}, "
-                             f"invalid-slot |dpt| {err_inv}")
+                             f"{mismatch} status flips in one sequence, "
+                             f"max |dpt| "
+                             f"{err_held}, invalid-slot |dpt| {err_inv}, "
+                             f"knife-edge tracks {tracks}")
     ms = device_ms(lambda: lk_cuda.lk_quad_cuda(*args))
     call_ms = time_ms(lambda: lk_cuda.lk_quad_cuda(*args), reps=50, warm=5)
     # The plain version syncs once per iteration of its masked loop, so
     # its time is host and device together, as the main path would see it.
-    plain_ms = time_ms(lambda: lk_cuda.lk_quad_plain(*args), reps=5, warm=1)
-    n = pts.shape[0]
+    # The three calls above warmed it up.
+    plain_ms = time_ms(lambda: plain(*args), reps=3 if batched else 5, warm=0)
+    n = pts.shape[-2]
     setups = n_valid * 4 * (sl + 1)
     n_iter = int(iters.sum())
     flops = setups * SETUP_FLOPS + n_iter * ITER_FLOPS
-    nbytes = (plane_bytes(images, out_k, pts, valid, sl, params.window)
-              + n * FEATURE_BYTES)
+    nbytes = sum(plane_bytes(images, ok, p, v, sl, params.window)
+                 + n * FEATURE_BYTES for ok, v, p in seqs)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    res = dict(label=label, start_level=sl, n=n, valid=n_valid,
-               tracked=int(st_k.sum()), status_mismatch=mismatch,
-               max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+    res = dict(label=label, batch=len(seqs), start_level=sl, n=n,
+               valid=n_valid,
+               tracked=int(st_k.sum()),
+               status_mismatch=int((st_k != st_p).sum()),
+               max_abs_err=err, max_abs_err_held=err_held,
+               knife_edge=int((both & knife).sum()),
+               knife_edge_diverged=int(knife_div.sum()),
+               knife_edge_arbitrated=int(arbitrated.sum()),
+               max_abs_err_knife_edge=worst(both & knife),
+               knife_edge_tracks=tracks,
+               ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                updates=n_iter,
                flops=flops, bytes=nbytes, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -249,14 +354,14 @@ def compare_kernel(images, pts, valid, flow, disp, params, sl, label):
     return res
 
 
-def gates(poses, gt, fetched):
-    """The bench's accuracy gates (bench.py:145-150)."""
+def ate_and_budget(poses, gt):
+    """ATE RMSE and the bench's ATE budget, 1% of the course length
+    (bench.py:145-150)."""
     err = np.linalg.norm(poses[:len(gt), :3, 3] - gt[:, :3, 3], axis=1)
     ate = float(np.sqrt(np.mean(err ** 2)))
     course_len = float(np.sum(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0),
                                              axis=1)))
-    accept = float(np.mean(fetched.accept))
-    return accept, ate, 0.01 * course_len
+    return ate, 0.01 * course_len
 
 
 def run_main_path(name, frames, gt, config, intr, dev):
@@ -264,10 +369,15 @@ def run_main_path(name, frames, gt, config, intr, dev):
     from visual_odom_tpu_torch.runner import pipeline
 
     lk_cuda.lk_circular_quad.launches = 0
+    lk_cuda.lk_circular_quad.batched_launches = 0
     poses, fetched, wall, n = pipeline.run_sequence_scan(
         frames, config, intr, chunk=CHUNK, warmup=False, device=dev)
     launches = lk_cuda.lk_circular_quad.launches
-    accept, ate, budget = gates(poses, gt, fetched)
+    if lk_cuda.lk_circular_quad.batched_launches:
+        raise AssertionError(f"{name}: the single-sequence path made "
+                             f"batched launches")
+    accept = float(np.mean(fetched.accept))
+    ate, budget = ate_and_budget(poses, gt)
     res = dict(course=name, steps=n, wall_s=wall, fps=n / wall,
                ms_per_frame=1e3 * wall / n, accept=accept, ate_m=ate,
                ate_budget_m=budget, fallback_frames=int(fetched.fallback.sum()),
@@ -290,18 +400,125 @@ def run_main_path(name, frames, gt, config, intr, dev):
     return res
 
 
-def small_reference(dev):
-    """Card step vs the port's CPU step, same RANSAC draws, 120x160."""
-    import torch
+def run_batched_path(courses, config, intr, dev):
+    """The batched path: BATCH_COURSES in lockstep through
+    ``run_sequences_batched``, each sequence held to the bench gates on its
+    own steps."""
+    from visual_odom_tpu_torch.ops import lk_cuda
+    from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
 
+    seqs = [courses[k][0] for k in BATCH_COURSES]
+    n_steps = max(len(s) for s in seqs) - 1
+    # the last chunk is padded with the final frame
+    steps_run = -(-n_steps // CHUNK) * CHUNK
+    lk_cuda.lk_circular_quad.launches = 0
+    lk_cuda.lk_circular_quad.batched_launches = 0
+    poses, stats, wall = run_sequences_batched(seqs, config, intr,
+                                               chunk=CHUNK, device=dev)
+    launches = lk_cuda.lk_circular_quad.batched_launches
+    unbatched = lk_cuda.lk_circular_quad.launches
+    per_seq = []
+    for (name, family), p, st in zip(BATCH_COURSES, poses, stats):
+        ate, budget = ate_and_budget(p, courses[(name, family)][1])
+        per_seq.append(dict(course=f"{name}_{family}", steps=st["frames"] - 1,
+                            accept=st["accept_ratio"], ate_m=ate,
+                            ate_budget_m=budget,
+                            fallback_frames=st["fallback_frames"],
+                            mean_inliers=st["mean_inliers"]))
+    res = dict(batch=len(seqs), steps=n_steps, steps_run=steps_run, wall_s=wall,
+               ms_per_step=1e3 * wall / n_steps,
+               aggregate_fps=sum(len(s) - 1 for s in seqs) / wall,
+               kernel_launches=launches, unbatched_launches=unbatched,
+               sequences=per_seq)
+    print("batch_path", json.dumps(res))
+    for p, s in zip(poses, seqs):
+        if not (p.shape == (len(s), 4, 4) and np.isfinite(p).all()):
+            raise AssertionError("batch path: poses not finite or of the "
+                                 "wrong shape")
+    if launches != LAUNCHES_PER_FRAME * steps_run or unbatched != 0:
+        raise AssertionError(f"batch path: {launches} batched and {unbatched} "
+                             f"unbatched launches for {steps_run} steps, "
+                             f"expected {LAUNCHES_PER_FRAME} batched per step")
+    for r in per_seq:
+        if not (r["accept"] >= 0.9 and r["ate_m"] <= r["ate_budget_m"]):
+            raise AssertionError(f"batch path: accuracy gates failed: {r}")
+    return res
+
+
+def _small_course():
     from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
-    from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
-    from visual_odom_tpu_torch.runner import pipeline
 
     h, w = 120, 160
     intr = CameraIntrinsics(fx=120.0, fy=120.0, cx=w / 2, cy=h / 2,
                             bf=-120.0 * 0.54, width=w, height=h)
-    cfg = VOConfig.for_image(h, w, ransac_iterations=200)
+    return intr, VOConfig.for_image(h, w, ransac_iterations=200)
+
+
+def _check_step_agreement(ref, got, label):
+    """The card-vs-CPU step rule: bucketed counts equal, matched and inlier
+    counts within 3 %, T^-1 within 2e-3 (rotation) and 2e-2 m."""
+    if int(ref.num_bucketed) != int(got.num_bucketed):
+        raise AssertionError(f"{label}: bucketed counts differ")
+    for k in ("num_matched", "num_inliers"):
+        r, g = int(getattr(ref, k)), int(getattr(got, k))
+        if abs(g - r) > 0.03 * r:
+            raise AssertionError(f"{label}: {k} {g} vs {r}")
+    d = np.abs(np.asarray(got.T_inv) - np.asarray(ref.T_inv))
+    if d[:3, :3].max() >= 2e-3 or d[:3, 3].max() >= 2e-2:
+        raise AssertionError(f"{label}: T_inv differs by {d.max()}")
+    return float(d.max())
+
+
+def small_batched_reference(dev):
+    """A batched step of two sequences vs two single-sequence steps, on the
+    card, fed the same RANSAC draws, 120x160."""
+    import torch
+
+    from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
+    from visual_odom_tpu_torch.parallel import batch
+    from visual_odom_tpu_torch.runner import pipeline
+
+    intr, cfg = _small_course()
+    lists = [[seq.frame(i) for i in range(6)] for seq in
+             (SyntheticStereoSequence(intr, num_frames=6, seed=s, speed=0.5)
+              for s in (0, 1))]
+    frames = stacked_frames(lists, 6)
+    us = [torch.from_numpy(np.random.default_rng(i).random(
+        (2, 200, cfg.padded_features), dtype=np.float32)).to(dev)
+        for i in range(1, 6)]
+    step = pipeline.make_step_fn(cfg, intr, device=dev)
+    st = batch.batched_init_state(cfg, *frames[0], device=dev)
+    batched = []
+    for i in range(1, 6):
+        st, out = step(st, *(torch.from_numpy(x).to(dev) for x in frames[i]),
+                       uniforms=us[i - 1])
+        batched.append(pipeline._fetch(out))
+    worst, equal_counts = 0.0, True
+    for b in range(2):
+        s1 = pipeline.init_vo_state(cfg, intr, *lists[b][0], seed=b, device=dev)
+        for i in range(1, 6):
+            s1, o1 = step(s1, *(torch.from_numpy(x).to(dev) for x in lists[b][i]),
+                          uniforms=us[i - 1][b])
+            ref = pipeline._fetch(o1)
+            got = pipeline.StepOutput(*(x[b] for x in batched[i - 1]))
+            worst = max(worst, _check_step_agreement(ref, got,
+                                                     "small batched reference"))
+            equal_counts &= all(int(getattr(ref, k)) == int(getattr(got, k))
+                                for k in ("num_bucketed", "num_matched",
+                                          "num_inliers"))
+    print("small_batched_reference", json.dumps({
+        "frames": 5, "batch": 2, "max_T_inv_diff": worst,
+        "counts_equal": equal_counts}))
+
+
+def small_reference(dev):
+    """Card step vs the port's CPU step, same RANSAC draws, 120x160."""
+    import torch
+
+    from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
+    from visual_odom_tpu_torch.runner import pipeline
+
+    intr, cfg = _small_course()
     seq = SyntheticStereoSequence(intr, num_frames=6, seed=0, speed=0.5)
     frames = [seq.frame(i) for i in range(6)]
     runs = {}
@@ -316,34 +533,30 @@ def small_reference(dev):
                            torch.from_numpy(frames[i][1]).to(d), uniforms=u)
             outs.append(pipeline.StepOutput(*(x.cpu().numpy() for x in out)))
         runs[str(d)] = outs
-    worst = 0.0
-    for ref, got in zip(runs["cpu"], runs[str(dev)]):
-        if int(ref.num_bucketed) != int(got.num_bucketed):
-            raise AssertionError("small reference: bucketed counts differ")
-        for k in ("num_matched", "num_inliers"):
-            r, g = int(getattr(ref, k)), int(getattr(got, k))
-            if abs(g - r) > 0.03 * r:
-                raise AssertionError(f"small reference: {k} {g} vs {r}")
-        d = np.abs(got.T_inv - ref.T_inv)
-        if d[:3, :3].max() >= 2e-3 or d[:3, 3].max() >= 2e-2:
-            raise AssertionError(f"small reference: T_inv differs by {d.max()}")
-        worst = max(worst, float(d.max()))
+    worst = max(_check_step_agreement(ref, got, "small reference")
+                for ref, got in zip(runs["cpu"], runs[str(dev)]))
     print("small_reference", json.dumps({"frames": 5, "max_T_inv_diff": worst}))
 
 
-def profile_frames(frames, config, intr, dev, steady_ms, n_frames=8):
+def profile_frames(frames, config, intr, dev, steady_ms, n_frames=8,
+                   label="profile"):
     """Device time by kernel over a few main-path frames, under
     torch.profiler, after two steps that must not synchronise with the
     host. The busy share divides it by ``steady_ms``, the main path's
-    ms/frame without the profiler (which slows the host)."""
+    ms/frame without the profiler (which slows the host). Frames of
+    (B, H, W) pairs profile the batched step (per step, not per frame)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from visual_odom_tpu_torch.parallel import batch
     from visual_odom_tpu_torch.runner import pipeline
 
     step = pipeline.make_step_fn(config, intr, device=dev)
-    state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
+    if frames[0][0].ndim == 3:
+        state = batch.batched_init_state(config, *frames[0], device=dev)
+    else:
+        state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
     up = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
           for l, r in frames[1:n_frames + 3]]
     # The step never waits for the device: any synchronising call raises.
@@ -373,8 +586,56 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=8):
            "top_device_ops": [{"name": k[:90], "ms_per_frame": us / 1e3 / n_frames,
                                "calls_per_frame": c / n_frames}
                               for us, k, c in rows[:10]]}
-    print("profile", json.dumps(res))
+    print(label, json.dumps(res))
     return res
+
+
+def batch_sweep(courses, config, intr, dev, n_prof=4):
+    """``run_sequences_batched`` over the first SWEEP_STEPS steps of the
+    batched path's courses, tiled to B sequences, for each B of SWEEP_B:
+    aggregate frames/s and ms per batched step (one chunk, its upload
+    outside the timed wall), then the batched step's sync check and
+    profile. Each B is warmed up on 4 steps first, and timed twice in
+    turns (B ascending, then descending): the host-bound times drift
+    within a run."""
+    from visual_odom_tpu_torch.ops import lk_cuda
+    from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
+
+    full = [courses[k][0] for k in BATCH_COURSES]
+    tiled = {B: [full[b % len(full)] for b in range(B)] for B in SWEEP_B}
+    for B in SWEEP_B:
+        run_sequences_batched([f[:5] for f in tiled[B]], config, intr,
+                              chunk=4, device=dev)
+    walls = {B: [] for B in SWEEP_B}
+    accept = {}
+    for B in SWEEP_B + SWEEP_B[::-1]:
+        lk_cuda.lk_circular_quad.batched_launches = 0
+        _, stats, wall = run_sequences_batched(
+            [f[:SWEEP_STEPS + 1] for f in tiled[B]], config, intr,
+            chunk=SWEEP_STEPS, device=dev)
+        launches = lk_cuda.lk_circular_quad.batched_launches
+        if launches != LAUNCHES_PER_FRAME * SWEEP_STEPS:
+            raise AssertionError(f"sweep B={B}: {launches} batched launches "
+                                 f"for {SWEEP_STEPS} steps")
+        walls[B].append(wall)
+        accept[B] = float(np.mean([s["accept_ratio"] for s in stats]))
+    rows = []
+    for B in SWEEP_B:
+        wall = float(np.mean(walls[B]))
+        step_ms = 1e3 * wall / SWEEP_STEPS
+        prof = profile_frames(stacked_frames(tiled[B], n_prof + 3), config,
+                              intr, dev, step_ms, n_frames=n_prof,
+                              label=f"profile_b{B}")
+        row = dict(batch=B, steps=SWEEP_STEPS, walls_s=walls[B],
+                   ms_per_step=step_ms, aggregate_fps=B * SWEEP_STEPS / wall,
+                   device_ms_per_step=prof["device_ms_per_frame"],
+                   device_ops_per_step=prof["device_ops_per_frame"],
+                   device_busy_share=prof["device_busy_share"],
+                   kernel_launches=launches,
+                   mean_accept=accept[B])
+        print("sweep", json.dumps(row))
+        rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -411,7 +672,9 @@ def main() -> int:
 
     t = time.perf_counter()
     courses = render_courses([("straight", "value", STRAIGHT_STEPS + 1),
-                              ("straight", "checker", CHECKER_STEPS + 1)], H, W)
+                              ("straight", "checker", CHECKER_STEPS + 1),
+                              ("turning", "value", BENCH_STEPS + 1),
+                              ("stress", "value", BENCH_STEPS + 1)], H, W)
     print(f"render: {time.perf_counter() - t:.2f} s")
 
     config = VOConfig.for_image(H, W)
@@ -435,6 +698,18 @@ def main() -> int:
         compare_kernel(images, pts, torch.zeros_like(valid), flow, disp,
                        params, 2, "safe_masked_sl2_n384"),
     ]
+    bframes = stacked_frames([courses[k][0] for k in BATCH_COURSES], 3)
+    images, pts, valid, flow, disp = quad_inputs(bframes, config, intr, dev)
+    some = valid & (torch.arange(BATCH, device=dev) % 2 == 0)[:, None]
+    bquads = [
+        compare_kernel(images, pts, valid, flow, disp, params, 1,
+                       f"fast_sl1_b{BATCH}_n384"),
+        compare_kernel(images, pts[:, probe].contiguous(), valid[:, probe],
+                       flow[:, probe].contiguous(), disp[:, probe].contiguous(),
+                       params, 2, f"probe_sl2_b{BATCH}_n64"),
+        compare_kernel(images, pts, some, flow, disp, params, 2,
+                       f"safe_some_masked_sl2_b{BATCH}_n384"),
+    ]
 
     # ---- phase 4: the main path -----------------------------------------
     runs = [run_main_path("straight", frames, gt, config, intr, dev)]
@@ -442,22 +717,35 @@ def main() -> int:
     runs.append(run_main_path("straight_checker", cframes, cgt, config, intr,
                               dev))
     launches = sum(r["kernel_launches"] for r in runs)
+    batched_run = run_batched_path(courses, config, intr, dev)
 
     # ---- phase 5: small input against the CPU reference -----------------
     small_reference(dev)
+    small_batched_reference(dev)
 
     # ---- phase 6: where the time goes -----------------------------------
     profile_frames(frames, config, intr, dev, runs[0]["ms_per_frame"])
+    batch_sweep(courses, config, intr, dev)
 
-    main_q = quads[0]
+    def row(name, replaces, n_launches, qs):
+        return {"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": max(q["max_abs_err"] for q in qs),
+                "ms": qs[0]["ms"], "plain_ms": qs[0]["plain_ms"],
+                "bound_ms": qs[0]["bound_ms"], "bound_by": qs[0]["bound_by"],
+                "library_ms": None,
+                "max_abs_err_held": max(q["max_abs_err_held"] for q in qs),
+                **{k: sum(q[k] for q in qs) for k in (
+                    "knife_edge", "knife_edge_diverged",
+                    "knife_edge_arbitrated")},
+                "max_abs_err_knife_edge": max(q["max_abs_err_knife_edge"]
+                                              for q in qs)}
+
     print("total:", f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "lk_quad_kernel", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(q["max_abs_err"] for q in quads),
-        "ms": main_q["ms"], "plain_ms": main_q["plain_ms"],
-        "bound_ms": main_q["bound_ms"], "bound_by": main_q["bound_by"],
-        "library_ms": None}]}))
+    print(json.dumps({"kernels": [
+        row("lk_quad_kernel", REPLACES, launches, quads),
+        row("lk_quad_kernel_batched", REPLACES_BATCHED,
+            batched_run["kernel_launches"], bquads)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The CUDA LK kernel on the card, against its plain PyTorch version.
+"""The CUDA LK kernel on the card, against its plain PyTorch version, and
+its batched launch against B unbatched launches.
 
 Every test here needs an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip where there is no card. This file imports neither JAX nor the
@@ -54,12 +55,12 @@ def _shift(img, dx, dy):
             + fy * fx * img[np.ix_(y1, x1)]).astype(np.float32)
 
 
-def _inputs(dev, n=256):
-    img0 = _textured(240, 320, seed=31)
-    img1 = _shift(img0, 2.7, -1.9)
+def _inputs(dev, n=256, instance=0):
+    img0 = _textured(240, 320, seed=31 + instance)
+    img1 = _shift(img0, 2.7 - instance, -1.9 + 0.5 * instance)
     li = prepare_lk_image(torch.from_numpy(img0).to(dev))
     lj = prepare_lk_image(torch.from_numpy(img1).to(dev))
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(instance)
     pts = np.stack([rng.uniform(-10, 330, n), rng.uniform(-10, 250, n)],
                    axis=1).astype(np.float32)
     valid = rng.random(n) < 0.85
@@ -106,3 +107,55 @@ def test_kernel_rejects_what_it_was_not_built_for(cuda_device):
     with pytest.raises(ValueError, match="pts"):
         lk_cuda.lk_quad_cuda(planes, shapes, pad, pts.double(), valid, flow,
                              disp, LKParams(), 1)
+
+
+def _batched_inputs(dev, batch=3, n=128):
+    """``batch`` instances of ``_inputs`` (other textures, shifts and
+    features each), stacked along a leading batch dim."""
+    runs = [_inputs(dev, n, instance=b) for b in range(batch)]
+    shapes, pad = runs[0][1], runs[0][2]
+    planes = [[torch.stack([r[0][im][lv] for r in runs]) for lv in range(4)]
+              for im in range(4)]
+    feats = [torch.stack([r[3][k] for r in runs]) for k in range(4)]
+    # one sequence masked off entirely, as the safe quad is on a frame that
+    # sequence does not fall back on
+    feats[1][1] = False
+    return planes, shapes, pad, feats
+
+
+@pytest.mark.parametrize("start_level", [1, 2])
+def test_batched_launch_equals_unbatched_launches(cuda_device, start_level):
+    """Sequence b of one batched launch is bit for bit an unbatched launch
+    on sequence b."""
+    planes, shapes, pad, (pts, valid, flow, disp) = _batched_inputs(cuda_device)
+    before = (lk_cuda.lk_circular_quad.launches,
+              lk_cuda.lk_circular_quad.batched_launches)
+    out, st = lk_cuda.lk_quad_cuda(planes, shapes, pad, pts, valid, flow,
+                                   disp, LKParams(), start_level)
+    assert (lk_cuda.lk_circular_quad.launches,
+            lk_cuda.lk_circular_quad.batched_launches) == (before[0],
+                                                           before[1] + 1)
+    assert out.shape == (4,) + tuple(pts.shape) and st.shape == valid.shape
+    for b in range(pts.shape[0]):
+        o1, s1 = lk_cuda.lk_quad_cuda(
+            [[p[b].contiguous() for p in im] for im in planes], shapes, pad,
+            pts[b].contiguous(), valid[b].contiguous(), flow[b].contiguous(),
+            disp[b].contiguous(), LKParams(), start_level)
+        assert torch.equal(out[:, b], o1) and torch.equal(st[b], s1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("start_level", [1, 2])
+def test_batched_kernel_matches_plain_batched(cuda_device, start_level):
+    planes, shapes, pad, (pts, valid, flow, disp) = _batched_inputs(cuda_device)
+    args = (planes, shapes, pad, pts, valid, flow, disp, LKParams(),
+            start_level)
+    out_k, st_k = lk_cuda.lk_quad_cuda(*args)
+    out_p, st_p, _ = lk_cuda.lk_quad_plain_batched(*args)
+    torch.cuda.synchronize()
+    for b in range(pts.shape[0]):
+        assert int((st_k[b] != st_p[b]).sum()) <= STATUS_MISMATCH_MAX
+    both = st_k & st_p
+    assert int(both.sum()) > 150 and not bool(st_k[1].any())
+    assert float((out_k - out_p).abs()[:, both].max()) < PT_TOL
+    assert torch.equal(out_k[:, ~valid], pts[~valid][None].expand(4, -1, -1))

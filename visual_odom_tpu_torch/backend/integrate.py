@@ -25,11 +25,12 @@ class PoseGate(NamedTuple):
 
 
 def gate_and_integrate(rvec: torch.Tensor, tvec: torch.Tensor) -> PoseGate:
-    """Apply both reference gates to a solved (rvec, t) frame delta."""
+    """Apply both reference gates to a solved (rvec, t) frame delta, or to
+    (B, 3) batches of them."""
     R = rodrigues(rvec)
     euler = rotation_to_euler(R)
-    rot_ok = torch.all(torch.abs(euler) < 0.1)
-    scale = torch.sqrt((tvec * tvec).sum())
+    rot_ok = torch.all(torch.abs(euler) < 0.1, dim=-1)
+    scale = torch.sqrt((tvec * tvec).sum(dim=-1))
     scale_ok = (scale > 0.05) & (scale < 10.0)
     return PoseGate(T_inv=se3_inverse(se3_matrix(R, tvec)),
                     accept=rot_ok & scale_ok, scale=scale, euler=euler)

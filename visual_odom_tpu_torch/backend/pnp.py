@@ -25,7 +25,7 @@ from visual_odom_tpu_torch.core.linalg import solve_spd
 
 
 class PnPResult(NamedTuple):
-    rvec: torch.Tensor             # (3,) axis-angle, camera(t1) <- world(t0)
+    rvec: torch.Tensor             # ([B,] 3) axis-angle, camera(t1) <- world(t0)
     tvec: torch.Tensor             # (3,)
     inliers: torch.Tensor          # (N,) bool
     num_inliers: torch.Tensor      # () int32
@@ -94,58 +94,91 @@ def _gn_refine(pose6, X, x_obs, w, K, iters: int, damping: float = 1e-3):
 
 def pnp_ransac(points3d: torch.Tensor, points2d: torch.Tensor,
                valid: torch.Tensor, K: torch.Tensor, rvec0: torch.Tensor,
-               tvec0: torch.Tensor, generator: torch.Generator = None,
+               tvec0: torch.Tensor, generator=None,
                iterations: int = 500, reproj_threshold: float = 0.5,
                sample_size: int = 6, refine_iters: int = 10,
                uniforms: torch.Tensor = None) -> PnPResult:
     """Frame-to-frame pose from masked 3D-2D correspondences.
 
     points3d (N, 3) in the t0 left-camera frame, points2d (N, 2) in L(t1),
-    valid (N,), K (3, 3), warm start rvec0/tvec0. Sampling draws from
-    ``generator`` unless ``uniforms`` (iterations, N) is given.
-    """
-    N = points3d.shape[0]
-    dev = points3d.device
-    pose0 = torch.cat([rvec0, tvec0]).to(torch.float32)
-    if uniforms is None:
-        uniforms = torch.rand((iterations, N), generator=generator, device=dev)
-    u = torch.where(valid[None, :], uniforms, torch.full_like(uniforms, -1.0))
-    sample_idx = torch.topk(u, sample_size, dim=1).indices       # (H, k)
-    sample_ok = valid[sample_idx].all(dim=1)
+    valid (N,), K (3, 3), warm start rvec0/tvec0. Sampling draws from the
+    ``torch.Generator`` ``generator`` unless ``uniforms`` (iterations, N) is
+    given.
 
-    starts = torch.where((torch.arange(iterations, device=dev) % 2 == 0)[:, None],
-                         pose0[None, :], torch.zeros_like(pose0)[None, :])
-    poses = _gn_refine(starts, points3d[sample_idx], points2d[sample_idx],
-                       torch.ones((iterations, sample_size), device=dev), K,
-                       refine_iters)                             # (H, 6)
+    Batched (B sequences): points3d (B, N, 3), points2d (B, N, 2), valid
+    (B, N), tvec0 (B, 3), rvec0 (3,) or (B, 3), ``generator`` a sequence of
+    B generators (sequence b draws what an unbatched call with generator b
+    draws) or ``uniforms`` (B, iterations, N); every field of the result
+    gets a leading B. The B * iterations hypotheses are refined as one
+    batch and each sequence picks its best on the device.
+    """
+    if points3d.dim() == 2:
+        res = pnp_ransac(points3d[None], points2d[None], valid[None], K,
+                         rvec0.reshape(1, 3), tvec0[None],
+                         None if generator is None else (generator,),
+                         iterations, reproj_threshold, sample_size,
+                         refine_iters,
+                         None if uniforms is None else uniforms[None])
+        return PnPResult(*(x[0] for x in res))
+    B, N = points3d.shape[:2]
+    dev = points3d.device
+    pose0 = torch.cat([rvec0.expand(B, 3), tvec0], dim=-1).to(torch.float32)
+    if uniforms is None:
+        uniforms = torch.stack([torch.rand((iterations, N), generator=g,
+                                           device=dev) for g in generator])
+    u = torch.where(valid[:, None, :], uniforms, torch.full_like(uniforms, -1.0))
+    sample_idx = torch.topk(u, sample_size, dim=-1).indices       # (B, H, k)
+    sample_ok = torch.take_along_dim(valid[:, None, :], sample_idx,
+                                     dim=2).all(dim=-1)
+
+    even = (torch.arange(iterations, device=dev) % 2 == 0)[:, None]
+    starts = torch.where(even, pose0[:, None, :],
+                         torch.zeros_like(pose0)[:, None, :])     # (B, H, 6)
+    idx = sample_idx[..., None]
+    BH = B * iterations
+    poses = _gn_refine(
+        starts.reshape(BH, 6),
+        torch.take_along_dim(points3d[:, None], idx, dim=2).reshape(
+            BH, sample_size, 3),
+        torch.take_along_dim(points2d[:, None], idx, dim=2).reshape(
+            BH, sample_size, 2),
+        torch.ones((BH, sample_size), device=dev), K,
+        refine_iters).reshape(B, iterations, 6)
 
     thr2 = reproj_threshold * reproj_threshold
 
     def score(pose6):
-        proj = _project(rodrigues(pose6[:, :3]), pose6[:, 3:],
-                        points3d.expand(pose6.shape[0], N, 3), K)
-        err2 = ((proj - points2d) ** 2).sum(dim=-1)
-        inl = (err2 < thr2) & valid
+        """Inlier masks (B, M, N) and counts (B, M) of (B, M, 6) poses."""
+        M = pose6.shape[1]
+        flat = pose6.reshape(B * M, 6)
+        proj = _project(rodrigues(flat[:, :3]), flat[:, 3:],
+                        points3d[:, None].expand(B, M, N, 3).reshape(
+                            B * M, N, 3), K).reshape(B, M, N, 2)
+        err2 = ((proj - points2d[:, None]) ** 2).sum(dim=-1)
+        inl = (err2 < thr2) & valid[:, None, :]
         return inl, inl.sum(dim=-1)
 
     inlier_masks, counts = score(poses)
-    finite = torch.isfinite(poses).all(dim=1) & sample_ok
+    finite = torch.isfinite(poses).all(dim=-1) & sample_ok
     counts = torch.where(finite, counts, torch.zeros_like(counts))
-    # Index with a 1-element tensor: a 0-d index would be read on the host.
-    best = torch.argmax(counts, dim=0, keepdim=True)
-    best_pose = poses[best][0]
-    best_inliers = inlier_masks[best][0]
-    best_count = counts[best][0]
+    # Pick with (B, 1) index tensors: a 0-d index would be read on the host.
+    best = torch.argmax(counts, dim=1, keepdim=True)
+    best_pose = torch.take_along_dim(poses, best[..., None], dim=1)[:, 0]
+    best_inliers = torch.take_along_dim(inlier_masks, best[..., None],
+                                        dim=1)[:, 0]
+    best_count = torch.take_along_dim(counts, best, dim=1)[:, 0]
 
-    polished = _gn_refine(best_pose[None], points3d[None], points2d[None],
-                          best_inliers.to(torch.float32)[None], K,
-                          refine_iters * 2)
-    final_inliers, final_count = score(polished)
-    use_polished = torch.isfinite(polished).all() & (final_count[0] >= best_count)
+    polished = _gn_refine(best_pose, points3d, points2d,
+                          best_inliers.to(torch.float32), K,
+                          refine_iters * 2)                       # (B, 6)
+    final_inliers, final_count = score(polished[:, None])
+    use_polished = (torch.isfinite(polished).all(dim=-1)
+                    & (final_count[:, 0] >= best_count))
+    up = use_polished[:, None]
     return PnPResult(
-        rvec=torch.where(use_polished, polished[0, :3], best_pose[:3]),
-        tvec=torch.where(use_polished, polished[0, 3:], best_pose[3:]),
-        inliers=torch.where(use_polished, final_inliers[0], best_inliers),
-        num_inliers=torch.where(use_polished, final_count[0],
+        rvec=torch.where(up, polished[:, :3], best_pose[:, :3]),
+        tvec=torch.where(up, polished[:, 3:], best_pose[:, 3:]),
+        inliers=torch.where(up, final_inliers[:, 0], best_inliers),
+        num_inliers=torch.where(use_polished, final_count[:, 0],
                                 best_count).to(torch.int32),
-        best_hypothesis=best[0])
+        best_hypothesis=best[:, 0])

@@ -2,9 +2,12 @@
 //
 // Replaces the JAX package's Pallas TPU kernel `_legs_kernel`
 // (visual_odom_tpu/ops/lk_pallas.py), which the TPU launches twice per quad
-// (two 2-leg chains). Here ONE launch runs all four legs of the quad
-// L0 -> R0 -> R1 -> L1 -> L0 for every feature; the per-feature result is
-// the same function: each leg is seeded at chain + sign * (disp | flow)
+// (two 2-leg chains), on grid (feature_blocks,) from `_build_legs_call` and
+// on grid (B, feature_blocks) from `_build_legs_call_batched` when the step
+// is vmapped over B sequences. Here ONE launch runs all four legs of the
+// quad L0 -> R0 -> R1 -> L1 -> L0 for every feature of every sequence
+// (grid (feature_blocks, B); the unbatched call is B = 1). The per-feature
+// result is the same function: each leg is seeded at chain + sign * (disp | flow)
 // scaled to the start level, runs coarse-to-fine from `start_level` to 0,
 // and each level does
 //   - in-kernel Scharr (3,10,3)/16 x (-1,0,1)/2 on a 24x24 superblock of I,
@@ -22,6 +25,10 @@
 //
 // Design: one warp per feature, so features never wait for each other (the
 // TPU's group-of-4 interleave is gone: iteration counts are per feature).
+// Sequence b = blockIdx.y reads its planes at base + b * plane_size[level]
+// and its features at row b of the (B, n, ...) arrays; nothing else depends
+// on b, so a batched launch computes for sequence b exactly what a B = 1
+// launch on that sequence computes.
 // The 24x24 template superblock is staged in shared memory once per
 // (leg, level); the 21x21 template and gradient patches stay in registers
 // (14 pixels a lane) across the iterations; each iteration reads its 22x22
@@ -56,13 +63,15 @@ struct QuadArgs {
   int rows[MAX_LEVELS];
   int cols[MAX_LEVELS];
   int stride[MAX_LEVELS];
+  long long plane_size[MAX_LEVELS];  // elements of one sequence's plane
   const float* pts;
   const float* flow;
   const float* disp;
   const int32_t* valid;
-  float* out_pts;        // (N_LEGS, n, 2)
-  int32_t* out_status;   // (n,)
+  float* out_pts;        // (N_LEGS, B, n, 2)
+  int32_t* out_status;   // (B, n)
   int n;
+  int batch;
   int start_level;
   int pad;
   int max_iters;
@@ -100,17 +109,22 @@ lk_quad_kernel(const QuadArgs args) {
   const int lane = threadIdx.x & 31;
   const int f = blockIdx.x * WARPS + warp;
   if (f >= args.n) return;
+  const int b = blockIdx.y;
+  const size_t bf = (size_t)b * args.n + f;  // row b, slot f of (B, n, ...)
   Shared& sm = smem_all[warp];
+  // out_pts[leg][b][f] for leg 0.. at out + leg * leg_step
+  float* out = args.out_pts + 2 * bf;
+  const size_t leg_step = (size_t)2 * args.batch * args.n;
 
-  const float px0 = args.pts[2 * f], py0 = args.pts[2 * f + 1];
-  if (args.valid[f] == 0) {
+  const float px0 = args.pts[2 * bf], py0 = args.pts[2 * bf + 1];
+  if (args.valid[bf] == 0) {
     // Invalid slots pass their input through, status 0.
     if (lane == 0) {
       for (int leg = 0; leg < N_LEGS; ++leg) {
-        args.out_pts[(leg * args.n + f) * 2] = px0;
-        args.out_pts[(leg * args.n + f) * 2 + 1] = py0;
+        out[leg * leg_step] = px0;
+        out[leg * leg_step + 1] = py0;
       }
-      args.out_status[f] = 0;
+      args.out_status[bf] = 0;
     }
     return;
   }
@@ -126,16 +140,17 @@ lk_quad_kernel(const QuadArgs args) {
     const int i_img = leg, j_img = (leg + 1) % N_IMG;
     const float* seed = (leg % 2 == 0) ? args.disp : args.flow;
     const float sgn = leg < 2 ? 1.0f : -1.0f;
-    float nx = (cx + sgn * seed[2 * f]) / seed_div;
-    float ny = (cy + sgn * seed[2 * f + 1]) / seed_div;
+    float nx = (cx + sgn * seed[2 * bf]) / seed_div;
+    float ny = (cy + sgn * seed[2 * bf + 1]) / seed_div;
     bool ok_leg = true;
 
     for (int level = SL; level >= 0; --level) {
       const int rows = args.rows[level], cols = args.cols[level];
       const int stride = args.stride[level];
       const int Hp = rows + 2 * pad, Wp = cols + 2 * pad;
-      const float* I = args.planes[i_img][level];
-      const float* J = args.planes[j_img][level];
+      const size_t plane_off = (size_t)b * (size_t)args.plane_size[level];
+      const float* I = args.planes[i_img][level] + plane_off;
+      const float* J = args.planes[j_img][level] + plane_off;
       const float scale = (float)(1 << level);
       const float prevx = cx / scale - half, prevy = cy / scale - half;
       if (level != SL) { nx = nx * 2.0f; ny = ny * 2.0f; }
@@ -254,27 +269,30 @@ lk_quad_kernel(const QuadArgs args) {
     cy = ny;
     status = status & ok_leg;
     if (lane == 0) {
-      args.out_pts[(leg * args.n + f) * 2] = cx;
-      args.out_pts[(leg * args.n + f) * 2 + 1] = cy;
+      out[leg * leg_step] = cx;
+      out[leg * leg_step + 1] = cy;
     }
   }
-  if (lane == 0) args.out_status[f] = status ? 1 : 0;
+  if (lane == 0) args.out_status[bf] = status ? 1 : 0;
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Host arrays: plane_ptrs holds
-// N_IMG * (start_level + 1) device pointers, image-major (L0, R0, R1, L1);
-// dims holds (rows, cols, row stride) for levels 0..start_level. Returns
-// cudaGetLastError() after the launch.
+// N_IMG * (start_level + 1) device pointers, image-major (L0, R0, R1, L1),
+// each to a (batch, plane rows, row stride) buffer; dims holds (rows, cols,
+// row stride, plane rows) for levels 0..start_level. pts, flow, disp are
+// (batch, n, 2), valid and out_status (batch, n), out_pts (N_LEGS, batch,
+// n, 2), all contiguous. Returns cudaGetLastError() after the launch.
 extern "C" int lk_quad_launch(const int64_t* plane_ptrs, const int32_t* dims,
                               const float* pts, const float* flow,
                               const float* disp, const int32_t* valid,
                               float* out_pts, int32_t* out_status, int n,
-                              int start_level, int pad, int max_iters,
-                              float eps2, float min_eig_threshold,
-                              void* stream) {
-  if (start_level < 0 || start_level >= MAX_LEVELS || n <= 0) {
+                              int batch, int start_level, int pad,
+                              int max_iters, float eps2,
+                              float min_eig_threshold, void* stream) {
+  if (start_level < 0 || start_level >= MAX_LEVELS || n <= 0 || batch <= 0
+      || batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   QuadArgs args{};
@@ -285,9 +303,10 @@ extern "C" int lk_quad_launch(const int64_t* plane_ptrs, const int32_t* dims,
     }
   }
   for (int lv = 0; lv < nl; ++lv) {
-    args.rows[lv] = dims[3 * lv];
-    args.cols[lv] = dims[3 * lv + 1];
-    args.stride[lv] = dims[3 * lv + 2];
+    args.rows[lv] = dims[4 * lv];
+    args.cols[lv] = dims[4 * lv + 1];
+    args.stride[lv] = dims[4 * lv + 2];
+    args.plane_size[lv] = (long long)dims[4 * lv + 3] * dims[4 * lv + 2];
   }
   args.pts = pts;
   args.flow = flow;
@@ -296,12 +315,13 @@ extern "C" int lk_quad_launch(const int64_t* plane_ptrs, const int32_t* dims,
   args.out_pts = out_pts;
   args.out_status = out_status;
   args.n = n;
+  args.batch = batch;
   args.start_level = start_level;
   args.pad = pad;
   args.max_iters = max_iters;
   args.eps2 = eps2;
   args.min_eig_threshold = min_eig_threshold;
-  const int blocks = (n + WARPS - 1) / WARPS;
-  lk_quad_kernel<<<blocks, 32 * WARPS, 0, static_cast<cudaStream_t>(stream)>>>(args);
+  const dim3 grid((n + WARPS - 1) / WARPS, batch);
+  lk_quad_kernel<<<grid, 32 * WARPS, 0, static_cast<cudaStream_t>(stream)>>>(args);
   return (int)cudaGetLastError();
 }

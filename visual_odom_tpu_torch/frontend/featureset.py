@@ -13,7 +13,8 @@ import torch
 
 
 class FeatureState(NamedTuple):
-    """Per-sequence persistent tracked-feature store.
+    """Per-sequence persistent tracked-feature store. A batched state (B
+    sequences in lockstep) has a leading B on every field.
 
     points:  (N, 2) float32 (x, y) in the current left image.
     ages:    (N,) int32, frames survived.
@@ -41,16 +42,28 @@ class FeatureState(NamedTuple):
         """Live feature count (reference FeatureSet::size())."""
         return self.valid.sum(dim=-1)
 
+    def take(self, idx: torch.Tensor) -> "FeatureState":
+        """The slots ``idx`` of every sequence; the cursor passes through."""
+        return self._replace(points=self.points[..., idx, :],
+                             ages=self.ages[..., idx],
+                             valid=self.valid[..., idx],
+                             ids=self.ids[..., idx],
+                             flow=self.flow[..., idx, :],
+                             disp=self.disp[..., idx, :])
 
-def empty_feature_state(capacity: int, device=None) -> FeatureState:
+
+def empty_feature_state(capacity: int, batch: tuple = (),
+                        device=None) -> FeatureState:
+    """All slots dead; ``batch=(B,)`` gives a batched state."""
     def zeros(*shape, dtype=torch.float32):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(tuple(batch) + shape, dtype=dtype, device=device)
 
     return FeatureState(
         points=zeros(capacity, 2),
         ages=zeros(capacity, dtype=torch.int32),
         valid=zeros(capacity, dtype=torch.bool),
-        ids=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+        ids=torch.full(tuple(batch) + (capacity,), -1, dtype=torch.int32,
+                       device=device),
         next_id=zeros(dtype=torch.int32),
         flow=zeros(capacity, 2),
         disp=zeros(capacity, 2),

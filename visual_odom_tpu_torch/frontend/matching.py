@@ -6,7 +6,10 @@ reference src/feature.cpp:118-148) in one launch of the quad kernel, then
 one fused validity reduction: the four LK statuses, the non-negative
 coordinate checks (src/feature.cpp:96-99) and the Chebyshev round-trip
 closure with the reference's integer truncation (src/visualOdometry.cpp:
-44-61). Ages of every entering feature are incremented.
+44-61). Ages of every entering feature are incremented. Every function
+also takes a batched state (a leading B on every field, B sequences in
+lockstep): the quads are then batched launches, and each sequence makes
+its own adaptive choice.
 """
 
 from __future__ import annotations
@@ -51,9 +54,9 @@ def circular_match(img_l0: LKImage, img_r0: LKImage, img_l1: LKImage,
 
         def clamp(v):
             # Per-axis scalar bounds: no host-to-device copy, so no sync.
-            return torch.stack([v[:, 0].clamp(-cols0 / 4.0, cols0 / 4.0),
-                                v[:, 1].clamp(-rows0 / 4.0, rows0 / 4.0)],
-                               dim=1)
+            return torch.stack([v[..., 0].clamp(-cols0 / 4.0, cols0 / 4.0),
+                                v[..., 1].clamp(-rows0 / 4.0, rows0 / 4.0)],
+                               dim=-1)
 
         flow = clamp(bucketed.flow)
         disp = clamp(bucketed.disp)
@@ -66,14 +69,14 @@ def circular_match(img_l0: LKImage, img_r0: LKImage, img_l1: LKImage,
         flow=flow, disp=disp, start_level=sl)
 
     def nonneg(p):
-        return (p[:, 0] >= 0) & (p[:, 1] >= 0)
+        return (p[..., 0] >= 0) & (p[..., 1] >= 0)
 
     track_ok = (legs_ok & nonneg(pts_l0) & nonneg(pts_r0) & nonneg(pts_r1)
                 & nonneg(pts_l1))
     # checkValidMatch declares `int offset`: the float distance truncates
     # before the `> threshold` comparison.
-    offset = torch.maximum(torch.abs(pts_l0[:, 0] - pts_ret[:, 0]),
-                           torch.abs(pts_l0[:, 1] - pts_ret[:, 1]))
+    offset = torch.maximum(torch.abs(pts_l0[..., 0] - pts_ret[..., 0]),
+                           torch.abs(pts_l0[..., 1] - pts_ret[..., 1]))
     closure_ok = torch.floor(offset) <= circle_threshold
     return CircularMatchResult(
         points_l0=pts_l0, points_r0=pts_r0, points_r1=pts_r1,
@@ -86,7 +89,7 @@ def commit_tracked_state(result: CircularMatchResult) -> FeatureState:
     """New persistent state: survivors at their L(t1) positions, carrying
     the measured flow (l1 - l0) and stereo offset (r1 - l1) as the next
     frame's motion priors."""
-    v = result.valid[:, None]
+    v = result.valid[..., None]
     zero = torch.zeros_like(result.points_l1)
     return FeatureState(
         points=result.points_l1, ages=result.ages, valid=result.valid,
@@ -106,9 +109,11 @@ def skip_mode_match(img_l0, img_r0, img_l1, img_r1, bucketed: FeatureState,
     level. The choice never reaches the host: the safe quad is launched
     every frame with mask ``valid & aliased`` (an all-invalid launch when
     the frame is not aliased, whose warps exit at once) and every output is
-    picked with ``torch.where``.
+    picked with ``torch.where``. In a batched state ``aliased`` is (B,):
+    each sequence picks its own result, as the JAX package's vmapped
+    ``lax.cond`` (a select) does.
 
-    Returns (CircularMatchResult, fallback () bool).
+    Returns (CircularMatchResult, fallback () bool, or (B,) batched).
     """
     sl_safe = (config.lk_levels - config.lk_seed_skip_levels
                if config.lk_seed_skip_levels else None)
@@ -123,24 +128,28 @@ def skip_mode_match(img_l0, img_r0, img_l1, img_r1, bucketed: FeatureState,
             and config.predictive_seeding
             and config.lk_fast_skip_levels > config.lk_seed_skip_levels):
         return (match_at(bucketed, sl_safe),
-                torch.zeros((), dtype=torch.bool, device=bucketed.valid.device))
+                torch.zeros(bucketed.next_id.shape, dtype=torch.bool,
+                            device=bucketed.valid.device))
 
     sl_fast = config.lk_levels - config.lk_fast_skip_levels
     match_fast = match_at(bucketed, sl_fast)
-    P = bucketed.points.shape[0]
+    P = bucketed.capacity
     idx = torch.arange(0, P, max(1, P // 64), device=bucketed.valid.device)[:64]
-    probe_feats = FeatureState(*(a[idx] if a.dim() >= 1 else a
-                                 for a in bucketed))
-    probe = match_at(probe_feats, sl_safe)
-    both = probe.valid & match_fast.valid[idx]
-    d = torch.amax(torch.abs(probe.points_l1 - match_fast.points_l1[idx]),
-                   dim=1)
-    n_both = both.sum()
-    n_bad = (both & (d > config.lk_probe_px)).sum()
+    probe = match_at(bucketed.take(idx), sl_safe)
+    both = probe.valid & match_fast.valid[..., idx]
+    d = torch.amax(torch.abs(probe.points_l1
+                             - match_fast.points_l1[..., idx, :]), dim=-1)
+    n_both = both.sum(dim=-1)
+    n_bad = (both & (d > config.lk_probe_px)).sum(dim=-1)
     aliased = ((n_bad > config.lk_probe_disagree_frac
                 * torch.clamp(n_both, min=1)) | (n_both < 8))
-    match_safe = match_at(bucketed._replace(valid=bucketed.valid & aliased),
-                          sl_safe)
-    picked = CircularMatchResult(*(torch.where(aliased, s, f)
+    match_safe = match_at(
+        bucketed._replace(valid=bucketed.valid & aliased[..., None]), sl_safe)
+
+    def pick(s, f):
+        a = aliased.reshape(aliased.shape + (1,) * (s.dim() - aliased.dim()))
+        return torch.where(a, s, f)
+
+    picked = CircularMatchResult(*(pick(s, f)
                                    for s, f in zip(match_safe, match_fast)))
     return picked, aliased

@@ -14,7 +14,7 @@ import torch
 from visual_odom_tpu_torch import resolve_device
 from visual_odom_tpu_torch.frontend.featureset import FeatureState
 from visual_odom_tpu_torch.ops.lk import LKImage
-from visual_odom_tpu_torch.runner.pipeline import VOState
+from visual_odom_tpu_torch.runner.pipeline import VOState, seeded_generator
 
 
 def state_from_numpy(d: dict, seed: int = 0, device=None) -> VOState:
@@ -27,7 +27,8 @@ def state_from_numpy(d: dict, seed: int = 0, device=None) -> VOState:
         planes, level 0 first), "shapes" ((rows, cols) per level) and "pad";
       - "tvec": (3,) warm-start translation.
     The RANSAC generator is seeded with ``seed`` (the JAX key has no
-    counterpart).
+    counterpart). A batched JAX state (a leading B on every array) gives a
+    batched port state whose sequence b draws from ``seed + b``.
     """
     dev = resolve_device(device)
 
@@ -47,8 +48,11 @@ def state_from_numpy(d: dict, seed: int = 0, device=None) -> VOState:
             shapes=tuple((int(r), int(c)) for r, c in m["shapes"]),
             pad=int(m["pad"]))
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    if features.points.dim() == 3:
+        gen = tuple(seeded_generator(seed + b, dev)
+                    for b in range(features.points.shape[0]))
+    else:
+        gen = seeded_generator(seed, dev)
     return VOState(features=features, lk_l0=image(d["lk_l0"]),
                    lk_r0=image(d["lk_r0"]), tvec=t(d["tvec"], torch.float32),
                    generator=gen)

@@ -29,19 +29,24 @@ _BORDER = 3
 
 def _shifted(padded: torch.Tensor, H: int, W: int, dy: int,
              dx: int) -> torch.Tensor:
-    """out[y, x] = img[y + dy, x + dx] from an edge-padded (by _BORDER) img."""
-    return padded[_BORDER + dy:_BORDER + dy + H, _BORDER + dx:_BORDER + dx + W]
+    """out[..., y, x] = img[..., y + dy, x + dx] from an edge-padded (by
+    _BORDER) img."""
+    return padded[..., _BORDER + dy:_BORDER + dy + H,
+                  _BORDER + dx:_BORDER + dx + W]
 
 
 def _edge_pad(x: torch.Tensor) -> torch.Tensor:
-    return F.pad(x[None, None], (_BORDER,) * 4, mode="replicate")[0, 0]
+    h, w = x.shape[-2:]
+    p = F.pad(x.reshape(-1, 1, h, w), (_BORDER,) * 4, mode="replicate")
+    return p.reshape(x.shape[:-2] + p.shape[-2:])
 
 
 def fast_score_map(img: torch.Tensor, threshold: int = 20,
                    nonmax: bool = True) -> torch.Tensor:
-    """(H, W) float32 map; score > 0 exactly at detected corners."""
+    """(H, W) float32 map of an (H, W) image, or (B, H, W) of a batch;
+    score > 0 exactly at detected corners."""
     x = img.to(torch.float32)
-    H, W = x.shape
+    H, W = x.shape[-2:]
     xp = _edge_pad(x)
     d = torch.stack([_shifted(xp, H, W, dy, dx) for dy, dx in _CIRCLE]) - x
     d_wrap = torch.cat([d, d[:_ARC - 1]], dim=0)        # (24, H, W)
@@ -53,7 +58,7 @@ def fast_score_map(img: torch.Tensor, threshold: int = 20,
     score = torch.where(is_corner, torch.maximum(v_bright, v_dark) - 1.0,
                         torch.zeros_like(x))
     inner = torch.zeros_like(score)
-    inner[_BORDER:H - _BORDER, _BORDER:W - _BORDER] = 1.0
+    inner[..., _BORDER:H - _BORDER, _BORDER:W - _BORDER] = 1.0
     score = score * inner
 
     if nonmax:

@@ -35,24 +35,27 @@ class LKImage(NamedTuple):
     """Padded pyramid of one grayscale image, shared by every LK leg that
     reads the image."""
 
-    pyramid: tuple   # level -> (aligned rows, aligned cols) float32 plane
+    pyramid: tuple   # level -> ([B,] aligned rows, aligned cols) float32 plane
     shapes: tuple    # level -> (H_l, W_l) unpadded
     pad: int
 
 
 def _pad_reflect(img: torch.Tensor, pad: int) -> torch.Tensor:
-    """REFLECT_101 pad by ``pad``, then the zero alignment tail."""
-    h, w = img.shape
-    p = F.pad(img[None, None], (pad, pad, pad, pad), mode="reflect")[0, 0]
-    return F.pad(p, (0, aligned_extent(w, pad, 1) - (w + 2 * pad),
-                     0, aligned_extent(h, pad, 0) - (h + 2 * pad)))
+    """REFLECT_101 pad of the last two dims by ``pad``, then the zero
+    alignment tail."""
+    h, w = img.shape[-2:]
+    p = F.pad(img.reshape(-1, 1, h, w), (pad, pad, pad, pad), mode="reflect")
+    p = F.pad(p, (0, aligned_extent(w, pad, 1) - (w + 2 * pad),
+                  0, aligned_extent(h, pad, 0) - (h + 2 * pad)))
+    return p.reshape(img.shape[:-2] + p.shape[-2:])
 
 
 def prepare_lk_image(img: torch.Tensor,
                      params: LKParams = LKParams()) -> LKImage:
-    """Build the padded pyramid (levels 0..params.levels) of one image."""
+    """Build the padded pyramid (levels 0..params.levels) of one (H, W)
+    image, or of a (B, H, W) batch: every plane then has the leading B."""
     pad = params.window + 3
-    h, w = img.shape
+    h, w = img.shape[-2:]
     p = _pad_reflect(img.to(torch.float32), pad)
     planes, shapes = [], []
     for level in range(params.levels + 1):

@@ -8,6 +8,13 @@ legs. Here the four legs are one chain in one launch of ``lk_quad_kernel``
 warp, chain B starting where chain A ended, which is exactly
 ``where(valid, r1, pts)`` for every slot the kernel computes.
 
+Batched form: with a leading batch dim on every operand (planes
+``(B, Hp, Wp)``, features ``(B, n, ...)``) one launch covers B sequences,
+as ``_build_legs_call_batched`` does for the JAX package's vmapped step;
+the unbatched call is its B = 1 case. The JAX rule also broadcasts
+operands that carry no batch dim; the port's batched step batches every
+operand, so the batched form here takes only fully batched inputs.
+
 Per feature, each leg is seeded at chain + sign * (disp | flow) (legs 1-4:
 +disp, +flow, -disp, -flow), divided by 2**start_level, and refined
 coarse-to-fine from ``start_level`` down to 0. Each level derives Scharr
@@ -18,10 +25,11 @@ status fails only at level 0. Invalid slots pass their input through with
 status False.
 
 Routing: ``lk_circular_quad`` launches the kernel for CUDA tensors and uses
-``lk_quad_plain`` (vectorised over features, a bounded masked loop) only for
-CPU tensors; there is no fallback from one to the other. The kernel's
-source note says what bounds it on the H100 and what the design does about
-it. ``lk_circular_quad.launches`` counts kernel launches.
+``lk_quad_plain`` (vectorised over features, a bounded masked loop) or
+``lk_quad_plain_batched`` only for CPU tensors; there is no fallback from
+one to the other. The kernel's source note says what bounds it on the H100
+and what the design does about it. ``lk_circular_quad.launches`` counts
+unbatched launches and ``lk_circular_quad.batched_launches`` batched ones.
 """
 
 from __future__ import annotations
@@ -225,6 +233,24 @@ def lk_quad_plain(planes, shapes, pad: int, pts: torch.Tensor,
     return torch.stack(outs), status, torch.stack(iters)
 
 
+def lk_quad_plain_batched(planes, shapes, pad: int, pts: torch.Tensor,
+                          valid: torch.Tensor, flow: torch.Tensor,
+                          disp: torch.Tensor, params: LKParams,
+                          start_level: int):
+    """Plain version of the batched launch: ``lk_quad_plain`` on each
+    sequence b of planes[image][level] (B, Hp, Wp) and features (B, n, ...).
+
+    Returns (out (4, B, n, 2), status (B, n), iters (B, 4, start_level + 1,
+    n)).
+    """
+    runs = [lk_quad_plain([[p[b] for p in im] for im in planes], shapes, pad,
+                          pts[b], valid[b], flow[b], disp[b], params,
+                          start_level)
+            for b in range(pts.shape[0])]
+    outs, status, iters = zip(*runs)
+    return torch.stack(outs, dim=1), torch.stack(status), torch.stack(iters)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
@@ -238,7 +264,7 @@ def _library():
     lib = _nvcc.load("lk_legs")
     fn = lib.lk_quad_launch
     fn.argtypes = ([ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -256,20 +282,28 @@ def lk_quad_cuda(planes, shapes, pad: int, pts: torch.Tensor,
                  valid: torch.Tensor, flow: torch.Tensor, disp: torch.Tensor,
                  params: LKParams, start_level: int):
     """Launch ``lk_quad_kernel`` on the current stream. Same contract as
-    ``lk_quad_plain`` minus the iteration counts. Raises if the kernel does
-    not take the inputs or the launch fails."""
+    ``lk_quad_plain`` minus the iteration counts, or, given a leading batch
+    dim on every operand, as ``lk_quad_plain_batched``: one launch for all
+    B sequences. Raises if the kernel does not take the inputs or the
+    launch fails."""
     dev = pts.device
-    n = pts.shape[0]
+    lead = tuple(pts.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"pts: expected (n, 2) or (B, n, 2), got "
+                         f"{tuple(pts.shape)}")
+    batch = lead[0] if lead else 1
+    n = pts.shape[-2]
     if params.window != _KERNEL_WINDOW:
         raise ValueError(f"the CUDA LK kernel is built for window "
                          f"{_KERNEL_WINDOW}, got {params.window}")
-    if not 0 <= start_level < _KERNEL_MAX_LEVELS or n == 0:
-        raise ValueError(f"unsupported start_level {start_level} / n {n}")
-    _check(pts, "pts", torch.float32, (n, 2), dev)
-    _check(flow, "flow", torch.float32, (n, 2), dev)
-    _check(disp, "disp", torch.float32, (n, 2), dev)
+    if not 0 <= start_level < _KERNEL_MAX_LEVELS or n == 0 or batch == 0:
+        raise ValueError(f"unsupported start_level {start_level} / n {n} / "
+                         f"batch {batch}")
+    _check(pts, "pts", torch.float32, lead + (n, 2), dev)
+    _check(flow, "flow", torch.float32, lead + (n, 2), dev)
+    _check(disp, "disp", torch.float32, lead + (n, 2), dev)
     valid_i = valid.to(torch.int32).contiguous()
-    _check(valid_i, "valid", torch.int32, (n,), dev)
+    _check(valid_i, "valid", torch.int32, lead + (n,), dev)
     ptrs, dims = [], []
     for im in range(4):
         for lv in range(start_level + 1):
@@ -277,29 +311,34 @@ def lk_quad_cuda(planes, shapes, pad: int, pts: torch.Tensor,
             if p.dtype != torch.float32 or p.device != dev or not p.is_contiguous():
                 raise ValueError(f"plane [{im}][{lv}] must be contiguous "
                                  f"float32 on {dev}")
-            if p.shape != planes[0][lv].shape:
-                raise ValueError("quad images must share plane shapes")
+            if p.shape != planes[0][lv].shape or tuple(p.shape[:-2]) != lead:
+                raise ValueError(f"quad images must share plane shapes with "
+                                 f"the features' batch {lead}")
             rows, cols = shapes[lv]
-            if p.shape[0] < rows + 2 * pad or p.shape[1] < cols + 2 * pad:
+            if p.shape[-2] < rows + 2 * pad or p.shape[-1] < cols + 2 * pad:
                 raise ValueError(f"plane [{im}][{lv}] smaller than its padded "
                                  f"level {rows}x{cols} + 2*{pad}")
             ptrs.append(p.data_ptr())
     for lv in range(start_level + 1):
-        dims += [shapes[lv][0], shapes[lv][1], planes[0][lv].shape[1]]
-    out = torch.empty((4, n, 2), dtype=torch.float32, device=dev)
-    status = torch.empty((n,), dtype=torch.int32, device=dev)
+        plane_rows, stride = planes[0][lv].shape[-2:]
+        dims += [shapes[lv][0], shapes[lv][1], stride, plane_rows]
+    out = torch.empty((4,) + lead + (n, 2), dtype=torch.float32, device=dev)
+    status = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
     ptr_arr = np.asarray(ptrs, dtype=np.int64)
     dim_arr = np.asarray(dims, dtype=np.int32)
     fn = _library()
     err = fn(ptr_arr.ctypes.data, dim_arr.ctypes.data, pts.data_ptr(),
              flow.data_ptr(), disp.data_ptr(), valid_i.data_ptr(),
-             out.data_ptr(), status.data_ptr(), n, start_level, pad,
+             out.data_ptr(), status.data_ptr(), n, batch, start_level, pad,
              params.max_iters, float(params.eps * params.eps),
              float(params.min_eig_threshold),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lk_quad_kernel launch failed: CUDA error {err}")
-    lk_circular_quad.launches += 1
+    if lead:
+        lk_circular_quad.batched_launches += 1
+    else:
+        lk_circular_quad.launches += 1
     return out, status > 0
 
 
@@ -311,7 +350,10 @@ def lk_circular_quad(img_l0: LKImage, img_r0: LKImage, img_r1: LKImage,
 
     Returns (pts_r0, pts_r1, pts_l1, pts_l0_return, status), as
     ``lk_circular_quad_pallas``: status is the AND of the four legs'
-    statuses and ``valid``; invalid slots pass ``pts`` through.
+    statuses and ``valid``; invalid slots pass ``pts`` through. With a
+    leading batch dim on the images' planes and on ``pts`` / ``valid`` /
+    ``flow`` / ``disp`` it is ``vmap(lk_circular_quad_pallas)``: B
+    sequences in one launch.
     """
     shapes = img_l0.shapes
     for im in (img_r0, img_r1, img_l1):
@@ -327,11 +369,13 @@ def lk_circular_quad(img_l0: LKImage, img_r0: LKImage, img_r1: LKImage,
         out, status = lk_quad_cuda(planes, shapes, img_l0.pad, pts, valid,
                                    flow, disp, params, sl)
     elif pts.device.type == "cpu":
-        out, status, _ = lk_quad_plain(planes, shapes, img_l0.pad, pts, valid,
-                                       flow, disp, params, sl)
+        plain = lk_quad_plain_batched if pts.dim() == 3 else lk_quad_plain
+        out, status, _ = plain(planes, shapes, img_l0.pad, pts, valid, flow,
+                               disp, params, sl)
     else:
         raise ValueError(f"no LK implementation for device {pts.device}")
     return out[0], out[1], out[2], out[3], status
 
 
 lk_circular_quad.launches = 0
+lk_circular_quad.batched_launches = 0

@@ -79,7 +79,8 @@ def padded_pyr_down(p: torch.Tensor, n_rows: int, n_cols: int,
                     pad: int) -> torch.Tensor:
     """One pyramid level step directly in the padded aligned layout.
 
-    ``p``: (row_tot, col_tot) padded buffer for a (n_rows, n_cols) level.
+    ``p``: (row_tot, col_tot) padded buffer for a (n_rows, n_cols) level,
+    or a (B, row_tot, col_tot) batch of them (the products broadcast).
     Returns the padded buffer for the (ceil(n_rows/2), ceil(n_cols/2))
     level.
     """

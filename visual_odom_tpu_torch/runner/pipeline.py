@@ -9,6 +9,13 @@ triangulation, PnP-RANSAC, and the rotation / scale / inlier-floor gates.
 Everything stays on the device; the runner fetches outputs once per chunk
 and chains poses in float64 on the host.
 
+The step is written over an optional leading batch dim: given a batched
+state (``parallel.batch.batched_init_state``) and (B, H, W) frames it
+advances B sequences in lockstep, the counterpart of the JAX package's
+``jax.vmap`` of its step (``parallel/batch.py``); a single sequence is the
+case without that dim. Each module keeps the batch dim through to the LK
+kernel, which covers all B sequences in one launch.
+
 The entry points run on CUDA unless ``device="cpu"`` is passed, and raise
 when CUDA is asked for and absent.
 """
@@ -36,17 +43,19 @@ from visual_odom_tpu_torch.ops.lk import LKImage, LKParams, prepare_lk_image
 
 
 class VOState(NamedTuple):
-    """Device-resident state carried across frames."""
+    """Device-resident state carried across frames. A batched state has a
+    leading B on every tensor and one generator per sequence."""
 
     features: FeatureState     # tracked features, positions in L(t0)
     lk_l0: LKImage             # prepared pyramid of L(t0)
     lk_r0: LKImage             # prepared pyramid of R(t0)
-    tvec: torch.Tensor         # (3,) warm-start translation
-    generator: torch.Generator  # RANSAC sampling
+    tvec: torch.Tensor         # ([B,] 3) warm-start translation
+    generator: object          # RANSAC sampling: a torch.Generator, or a
+                               # tuple of B of them
 
 
 class StepOutput(NamedTuple):
-    """Small per-frame outputs."""
+    """Small per-frame outputs (a leading B on each for a batched step)."""
 
     T_inv: torch.Tensor         # (4, 4) frame delta inverse (f32)
     accept: torch.Tensor        # () bool
@@ -71,25 +80,31 @@ def _prep_image(img, config: VOConfig, device: torch.device) -> LKImage:
     return prepare_lk_image(img, _lk_params(config))
 
 
+def seeded_generator(seed: int, device: torch.device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def init_vo_state(config: VOConfig, intrinsics: CameraIntrinsics, left0,
                   right0, seed: int = 0, device=None) -> VOState:
     """State from frame 0: no features, frame 0's pyramids, zero warm start
     and a RANSAC generator seeded with ``seed``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
     return VOState(
         features=empty_feature_state(config.padded_features, device=dev),
         lk_l0=_prep_image(left0, config, dev),
         lk_r0=_prep_image(right0, config, dev),
         tvec=torch.zeros(3, dtype=torch.float32, device=dev),
-        generator=gen)
+        generator=seeded_generator(seed, dev))
 
 
 def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics, device=None):
     """Build the per-frame step ``step(state, left_t1, right_t1,
     uniforms=None) -> (new_state, StepOutput)``. ``uniforms`` (iterations,
-    padded_features) replaces the RANSAC draw (parity tests)."""
+    padded_features) replaces the RANSAC draw (parity tests). Given a
+    batched state, (B, H, W) frames and (B, iterations, padded_features)
+    uniforms, it is the batched step."""
     dev = resolve_device(device)
     if config.mono_rotation:
         raise NotImplementedError("mono_rotation is not ported")
@@ -107,14 +122,14 @@ def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics, device=None):
 
         pad = state.lk_l0.pad
         h, w = state.lk_l0.shapes[0]
-        raw_l0 = state.lk_l0.pyramid[0][pad:pad + h, pad:pad + w]
+        raw_l0 = state.lk_l0.pyramid[0][..., pad:pad + h, pad:pad + w]
         bucketed = detect_and_bucket(raw_l0, state.features, config)
 
         match, fallback = skip_mode_match(state.lk_l0, state.lk_r0, lk_l1,
                                           lk_r1, bucketed, params, config)
 
         pts3d = triangulate_points(P_l, P_r, match.points_l0, match.points_r0)
-        pts3d = torch.where(match.valid[:, None], pts3d, safe3d)
+        pts3d = torch.where(match.valid[..., None], pts3d, safe3d)
 
         pnp = pnp_ransac(pts3d, match.points_l1, match.valid, K, zero3,
                          state.tvec, generator=state.generator,
@@ -132,14 +147,15 @@ def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics, device=None):
         # Only an accepted solution may seed the next solve.
         keep = accept & config.use_extrinsic_guess
         new_state = VOState(features=commit_tracked_state(match), lk_l0=lk_l1,
-                            lk_r0=lk_r1, tvec=torch.where(keep, pnp.tvec, zero3),
+                            lk_r0=lk_r1,
+                           tvec=torch.where(keep[..., None], pnp.tvec, zero3),
                             generator=state.generator)
         out = StepOutput(
             T_inv=gate.T_inv, accept=accept, scale=gate.scale,
             euler=gate.euler, rvec=pnp.rvec, tvec=pnp.tvec,
             num_inliers=pnp.num_inliers,
-            num_matched=match.valid.sum().to(torch.int32),
-            num_bucketed=bucketed.valid.sum().to(torch.int32),
+            num_matched=match.valid.sum(dim=-1).to(torch.int32),
+            num_bucketed=bucketed.valid.sum(dim=-1).to(torch.int32),
             fallback=fallback)
         return new_state, out
 
@@ -172,9 +188,10 @@ def _frame_chunks(it, chunk: int):
 
 
 def _run_chunk(step, state: VOState, lefts, rights, device):
-    """Step over one uploaded chunk; outputs stay on the device, stacked."""
-    dl = torch.from_numpy(lefts).to(device)
-    dr = torch.from_numpy(rights).to(device)
+    """Step over one chunk of frames (numpy or tensors, uploaded in one copy
+    each); outputs stay on the device, stacked."""
+    dl = torch.as_tensor(lefts).to(device)
+    dr = torch.as_tensor(rights).to(device)
     outs = []
     for i in range(dl.shape[0]):
         state, out = step(state, dl[i], dr[i])
