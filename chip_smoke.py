@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Phases (each raises on failure; nothing is caught):
 
 1. Print the card's name and power limit (nvidia-smi).
-2. Build the CUDA kernel from ``visual_odom_tpu_torch/csrc`` with nvcc and
-   print the build seconds and the ptxas report.
+2. Build the CUDA kernels (one source, one library) from
+   ``visual_odom_tpu_torch/csrc`` with nvcc and print the build seconds,
+   the ptxas report and each kernel's update loop as compiled (``sass``).
 3. Hold the LK quad kernel against its plain PyTorch version at KITTI size
    (1241x376) on the inputs the main path gives it: the fast quad (start
    level 1, 384 slots), the probe (start level 2, 64 slots), the safe quad
@@ -25,6 +26,16 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    for the aliased "checker" texture (see ``compare_kernel``): a
    knife-edge track that lands elsewhere counts as a status flip unless
    the float64 plain version sides with the kernel.
+   The level kernel of the per-leg route (``lk_backend="xla"``) under the
+   same rules, on every level launch that ``lk_track_pyramid`` makes for
+   leg L0 -> R0 seeded as ``circular_match`` seeds it: the fast leg (start
+   level 1), the safe leg, the probe and the masked safe leg (start level
+   2), and at B = BATCH the fast leg and the safe leg with sequences 1 and
+   3 masked off. Then one leg L0 -> L1 from the pyramid top on the same
+   content, kernel against plain under the JAX bench's one-leg parity rule
+   (bench.py:307-316), and four chained ``lk_track_pyramid`` legs on the
+   card against one quad launch on the same inputs, at start levels 1 and
+   2, single and batched: equal bit for bit.
 4. Run the main path, ``run_sequence_scan``, at 1241x376: 64 steps of the
    "straight" course and 160 steps of "straight" with the periodic "checker"
    texture (which exercises the adaptive fallback). Assert the bench gates
@@ -38,13 +49,18 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    160 steps each of "turning" and "stress" in lockstep (B = 4, unequal
    lengths), each held to the bench gates on its own steps, with
    LAUNCHES_PER_FRAME batched launches per batched step whatever B is.
+   Then the same three runs on the per-leg route: the level kernel must
+   run LEVEL_LAUNCHES_PER_FRAME times per frame or batched step and the
+   quad kernel not at all; each run prints its max |delta pose| against
+   the quad route's run of the same course.
 5. Hold the card's step against the port's CPU step (the plain version,
    itself held to the JAX package by the CPU tests) on a small course fed
    the same RANSAC draws; and a batched step of two sequences against two
    single-sequence steps on the card, fed the same draws.
 6. Check that a main-path step never synchronises with the host (CUDA sync
    debug mode "error"), then profile a few frames: device time by kernel,
-   device ops per frame and the device's busy share. The same for the
+   device ops per frame and the device's busy share; the same for the
+   per-leg route's step. The same for the
    batched step at each B of SWEEP_B (the four courses' first
    SWEEP_STEPS steps, tiled to B sequences), after timing those steps
    with ``run_sequences_batched``: aggregate frames/s and ms per step.
@@ -57,11 +73,13 @@ the port is not beside this script.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -76,6 +94,8 @@ BATCH = 4
 SWEEP_B = (1, 4, 11)
 SWEEP_STEPS = 32
 LAUNCHES_PER_FRAME = 3        # fast quad + probe + safe quad (masked)
+#: per-leg route: 4 legs x (2 fast + 3 probe + 3 safe) levels
+LEVEL_LAUNCHES_PER_FRAME = 32
 STATUS_MISMATCH_MAX = 2       # hard thresholds can flip a feature or two
 PT_TOL = 1e-3                 # px, on tracks whose statuses agree
 #: px; a track whose plain result moves by PT_TOL or more when the points
@@ -97,10 +117,23 @@ SETUP_FLOPS = 8 * 22 * 24 + 8 * 22 * 22 + 441 * (3 * 7 + 6) + 30
 ITER_FLOPS = 441 * 12 + 100
 #: side of the template superblock (21x21 window + bilinear + Scharr support)
 BLOCK = 24
+#: global loads of one update per lane: the 2x2 bilinear support of each of
+#: its 14 window pixels
+WIN_LOADS = 4 * 14
 #: per-feature inputs (pts, flow, disp, valid) and outputs (4 legs, status)
 FEATURE_BYTES = (2 + 2 + 2 + 1) * 4 + (4 * 2 + 1) * 4
+#: level kernel, per feature: prev, init, valid in; out, ok out
+LEVEL_FEATURE_BYTES = (2 + 2 + 1) * 4 + (2 + 1) * 4
 REPLACES = "visual_odom_tpu/ops/lk_pallas.py:299"
 REPLACES_BATCHED = "visual_odom_tpu/ops/lk_pallas.py:798"
+REPLACES_LEVEL = "visual_odom_tpu/ops/lk_pallas.py:90"
+#: `_build_level_call`, the call that jax.vmap batches for the vmapped step
+REPLACES_LEVEL_BATCHED = "visual_odom_tpu/ops/lk_pallas.py:271"
+#: bench.py:307-316, the one-leg parity check on real content: statuses
+#: agree on more than this share of the tracks, agreed tracks within
+#: REAL_LEG_PX
+REAL_LEG_AGREE = 0.8
+REAL_LEG_PX = 0.05
 SOURCE = "visual_odom_tpu_torch/csrc/lk_legs.cu"
 #: the batched path's sequences, in batch order: (course, texture family)
 BATCH_COURSES = (("straight", "value"), ("straight", "checker"),
@@ -135,6 +168,50 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def sass_loops(lib: str) -> dict:
+    """Per kernel of the built library, its update loop as compiled: the
+    innermost loop that holds all WIN_LOADS window loads, counted in
+    cuobjdump's SASS (instructions, and how many of them are integer adds
+    and address arithmetic). Empty where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    kernels, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s+Function : \S*?(lk_(?:quad|level)_kernel)", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and name:
+            kernels[name].append((int(m.group(1), 16), m.group(2).strip()))
+    out = {}
+    for name, ins in kernels.items():
+        index = {a: i for i, (a, _) in enumerate(ins)}
+        loop = None
+        for i, (a, text) in enumerate(ins):
+            m = re.search(r"BRA.*?0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < a:  # a backward branch closes a loop
+                body = [t for _, t in ins[index.get(int(m.group(1), 16), 0):i + 1]]
+                if (sum("LDG" in t for t in body) == WIN_LOADS
+                        and (loop is None or len(body) < len(loop))):
+                    loop = body
+        if loop:
+            ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
+                   for t in loop]
+            out[name] = {"update_loop_instructions": len(loop),
+                         "integer_and_address_ops": sum(
+                             o in ("IADD3", "LEA", "IMAD") for o in ops)}
+    return out
 
 
 def time_ms(fn, reps: int, warm: int):
@@ -215,6 +292,28 @@ def quad_inputs(frames, config, intr, dev):
     return images, feats.points.contiguous(), feats.valid, flow, disp
 
 
+def block_pixels(hp, wp, pad, corners, win, template=True):
+    """Distinct plane pixels of the regions the kernels read at window
+    corners ``corners`` (m, 2) of one level, placed as the kernels place
+    them: the BLOCK x BLOCK template superblock, or (``template`` False)
+    the (win + 1)-square J window of an update."""
+    import torch
+
+    ix = torch.floor(corners).clamp(-1e9, 1e9).long() + pad
+    if template:
+        size = BLOCK
+        x0 = ix[:, 0].clamp(1, wp - win - 2) - 1
+        y0 = ix[:, 1].clamp(1, hp - win - 2) - 1
+    else:
+        size = win + 1
+        x0 = ix[:, 0].clamp(0, wp - win - 1)
+        y0 = ix[:, 1].clamp(0, hp - win - 1)
+    r = torch.arange(size, device=corners.device)
+    seen = torch.zeros((hp, wp), dtype=torch.bool, device=corners.device)
+    seen[(y0[:, None] + r)[:, :, None], (x0[:, None] + r)[:, None, :]] = True
+    return int(seen.sum())
+
+
 def plane_bytes(images, out, pts, valid, sl, win):
     """Bytes of the pyramid planes the quad must read, each pixel once: the
     union over valid features of the BLOCK x BLOCK template superblocks,
@@ -224,28 +323,117 @@ def plane_bytes(images, out, pts, valid, sl, win):
     (leg 4's returns to leg 1's), inside that superblock to within the
     finer levels' sub-pixel corrections, so it is not counted again: the
     count is a lower bound."""
-    import torch
-
     pad = images[0].pad
     half = (win - 1) * 0.5
-    r = torch.arange(BLOCK, device=pts.device)
     total = 0
     for k, chain in enumerate([pts] + [out[j] for j in range(3)]):
         c = chain[valid]
         for lv in range(sl + 1):
             rows, cols = images[k].shapes[lv]
-            hp, wp = rows + 2 * pad, cols + 2 * pad
-            ix = torch.floor(c / 2.0 ** lv - half).clamp(-1e9, 1e9).long() + pad
-            sx = ix[:, 0].clamp(1, wp - win - 2) - 1
-            sy = ix[:, 1].clamp(1, hp - win - 2) - 1
-            seen = torch.zeros((hp, wp), dtype=torch.bool, device=pts.device)
-            seen[(sy[:, None] + r)[:, :, None], (sx[:, None] + r)[:, None, :]] = True
-            total += int(seen.sum())
+            total += block_pixels(rows + 2 * pad, cols + 2 * pad, pad,
+                                  c / 2.0 ** lv - half, win)
     return total * 4
 
 
-def compare_kernel(images, pts, valid, flow, disp, params, sl, label):
-    """Kernel vs plain version on one input set; returns a result dict.
+def quad_check(images, pts, valid, flow, disp, params, sl):
+    """``compare_kernel``'s view of one lk_quad_kernel input set: outputs
+    (4 legs, [B,] n, 2)."""
+    from visual_odom_tpu_torch.ops import lk_cuda
+
+    planes = [im.pyramid for im in images]
+    shapes, pad = images[0].shapes, images[0].pad
+    batched = pts.dim() == 3
+    plain = lk_cuda.lk_quad_plain_batched if batched else lk_cuda.lk_quad_plain
+
+    def kernel():
+        return lk_cuda.lk_quad_cuda(planes, shapes, pad, pts, valid, flow,
+                                    disp, params, sl)
+
+    def plain_at(shift=0.0, double=False):
+        pl, p, f, d = planes, pts, flow, disp
+        if double:
+            pl = [[x.double() for x in im] for im in planes]
+            p, f, d = p.double(), f.double(), d.double()
+        return plain(pl, shapes, pad, p + shift, valid, f, d, params, sl)
+
+    def sequence(b):
+        return lk_cuda.lk_quad_cuda([[p[b] for p in im] for im in planes],
+                                    shapes, pad, pts[b], valid[b], flow[b],
+                                    disp[b], params, sl)
+
+    def work(out_k, st_k, iters):
+        setups = int(valid.sum()) * 4 * (sl + 1)
+        flops = setups * SETUP_FLOPS + int(iters.sum()) * ITER_FLOPS
+        seqs = ([(out_k[:, b], valid[b], pts[b]) for b in range(pts.shape[0])]
+                if batched else [(out_k, valid, pts)])
+        nbytes = sum(plane_bytes(images, o, p, v, sl, params.window)
+                     + pts.shape[-2] * FEATURE_BYTES for o, v, p in seqs)
+        return flops, nbytes
+
+    return types.SimpleNamespace(tag="quad", info={"start_level": sl},
+                                 valid=valid, kernel=kernel, plain=plain_at,
+                                 sequence=sequence, work=work,
+                                 chains=lambda iters: iters.sum(dim=(-3, -2)))
+
+
+def level_check(args, level):
+    """``compare_kernel``'s view of one lk_level_cuda call at ``level``,
+    given the arguments ``lk_track_pyramid`` passed it: outputs (1, [B,] n,
+    2). The kernel gets the route's int32 mask, the plain version its
+    bool."""
+    from visual_odom_tpu_torch.ops import lk_cuda
+
+    I, J, rows, cols, pad, prev, init, mask, params, finest = args
+    valid = mask > 0
+    batched = prev.dim() == 3
+    plain = (lk_cuda.lk_level_plain_batched if batched
+             else lk_cuda.lk_level_plain)
+
+    def kernel():
+        out, ok = lk_cuda.lk_level_cuda(I, J, rows, cols, pad, prev, init,
+                                        mask, params, finest)
+        return out[None], ok
+
+    def plain_at(shift=0.0, double=False):
+        i, j, p, s = (I, J, prev, init)
+        if double:
+            i, j, p, s = (x.double() for x in (I, J, prev, init))
+        out, ok, iters = plain(i, j, rows, cols, pad, p + shift, s + shift,
+                               valid, params, finest)
+        return out[None], ok, iters
+
+    def sequence(b):
+        out, ok = lk_cuda.lk_level_cuda(I[b], J[b], rows, cols, pad, prev[b],
+                                        init[b], mask[b], params, finest)
+        return out[None], ok
+
+    def work(out_k, st_k, iters):
+        """Template superblocks of I at prev for valid features, J windows
+        at the refined estimates of the features the level tracked."""
+        flops = int(valid.sum()) * SETUP_FLOPS + int(iters.sum()) * ITER_FLOPS
+        hp, wp = rows + 2 * pad, cols + 2 * pad
+        pix = 0
+        for b in range(prev.shape[0]) if batched else [None]:
+            sel = (lambda t: t) if b is None else (lambda t: t[b])
+            pix += block_pixels(hp, wp, pad, sel(prev)[sel(valid)],
+                                params.window)
+            pix += block_pixels(hp, wp, pad, sel(out_k[0])[sel(st_k)],
+                                params.window, template=False)
+        return flops, pix * 4 + valid.numel() * LEVEL_FEATURE_BYTES
+
+    return types.SimpleNamespace(tag="level",
+                                 info={"level": level, "finest": finest},
+                                 valid=valid, kernel=kernel, plain=plain_at,
+                                 sequence=sequence, work=work,
+                                 chains=lambda iters: iters)
+
+
+def compare_kernel(check, label):
+    """Kernel vs plain version on one input set (``quad_check`` or
+    ``level_check``); returns a result dict. Its ``longest_chain`` is the
+    most updates one feature makes in the launch (``check.chains``: per
+    feature, over its legs and levels): one warp runs them one after
+    another, and the launch lasts at least that long.
 
     Unbatched inputs are held to the rule of the first slice: at most
     STATUS_MISMATCH_MAX status mismatches, and every track both tracked
@@ -260,32 +448,21 @@ def compare_kernel(images, pts, valid, flow, disp, params, sl, label):
     bounds."""
     import torch
 
-    from visual_odom_tpu_torch.ops import lk_cuda
-
-    batched = pts.dim() == 3
-    plain = lk_cuda.lk_quad_plain_batched if batched else lk_cuda.lk_quad_plain
-    planes = [im.pyramid for im in images]
-    shapes, pad = images[0].shapes, images[0].pad
-    args = (planes, shapes, pad, pts, valid, flow, disp, params, sl)
-    out_k, st_k = lk_cuda.lk_quad_cuda(*args)
-    out_p, st_p, iters = plain(*args)
+    valid = check.valid
+    batched = valid.dim() == 2
+    out_k, st_k = check.kernel()
+    out_p, st_p, iters = check.plain()
     torch.cuda.synchronize()
-    # per sequence: (kernel positions (4, n, 2), valid (n,), pts (n, 2))
-    seqs = ([(out_k[:, b], valid[b], pts[b]) for b in range(pts.shape[0])]
-            if batched else [(out_k, valid, pts)])
     if batched:
-        for b in range(pts.shape[0]):
-            one = lk_cuda.lk_quad_cuda(
-                [[p[b] for p in im] for im in planes], shapes, pad, pts[b],
-                valid[b], flow[b], disp[b], params, sl)
+        for b in range(valid.shape[0]):
+            one = check.sequence(b)
             if not (torch.equal(one[0], out_k[:, b])
                     and torch.equal(one[1], st_k[b])):
                 raise AssertionError(f"{label}: sequence {b} of the batched "
                                      f"launch differs from its own launch")
     knife = torch.zeros_like(st_p)
     for shift in (KNIFE_SHIFT, -KNIFE_SHIFT):
-        o, st, _ = plain(planes, shapes, pad, pts + shift, valid, flow, disp,
-                         params, sl)
+        o, st, _ = check.plain(shift)
         knife |= (st != st_p) | ((o - out_p).abs().amax(dim=(0, -1)) >= PT_TOL)
     n_valid = int(valid.sum())
     both = st_k & st_p
@@ -300,9 +477,7 @@ def compare_kernel(images, pts, valid, flow, disp, params, sl, label):
     arbitrated = torch.zeros_like(knife_div)
     tracks = []
     if bool(knife_div.any()):
-        out_64 = plain([[p.double() for p in im] for im in planes], shapes,
-                       pad, pts.double(), valid, flow.double(), disp.double(),
-                       params, sl)[0]
+        out_64 = check.plain(double=True)[0]
         k64 = (out_k.double() - out_64).abs().amax(dim=(0, -1))
         p64 = (out_p.double() - out_64).abs().amax(dim=(0, -1))
         arbitrated = knife_div & (k64 <= p64 + PT_TOL)
@@ -322,22 +497,17 @@ def compare_kernel(images, pts, valid, flow, disp, params, sl, label):
                              f"max |dpt| "
                              f"{err_held}, invalid-slot |dpt| {err_inv}, "
                              f"knife-edge tracks {tracks}")
-    ms = device_ms(lambda: lk_cuda.lk_quad_cuda(*args))
-    call_ms = time_ms(lambda: lk_cuda.lk_quad_cuda(*args), reps=50, warm=5)
+    ms = device_ms(check.kernel)
+    call_ms = time_ms(check.kernel, reps=50, warm=5)
     # The plain version syncs once per iteration of its masked loop, so
     # its time is host and device together, as the main path would see it.
     # The three calls above warmed it up.
-    plain_ms = time_ms(lambda: plain(*args), reps=3 if batched else 5, warm=0)
-    n = pts.shape[-2]
-    setups = n_valid * 4 * (sl + 1)
-    n_iter = int(iters.sum())
-    flops = setups * SETUP_FLOPS + n_iter * ITER_FLOPS
-    nbytes = sum(plane_bytes(images, ok, p, v, sl, params.window)
-                 + n * FEATURE_BYTES for ok, v, p in seqs)
+    plain_ms = time_ms(check.plain, reps=3 if batched else 5, warm=0)
+    flops, nbytes = check.work(out_k, st_k, iters)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    res = dict(label=label, batch=len(seqs), start_level=sl, n=n,
-               valid=n_valid,
+    res = dict(label=label, batch=valid.shape[0] if batched else 1,
+               **check.info, n=valid.shape[-1], valid=n_valid,
                tracked=int(st_k.sum()),
                status_mismatch=int((st_k != st_p).sum()),
                max_abs_err=err, max_abs_err_held=err_held,
@@ -347,10 +517,102 @@ def compare_kernel(images, pts, valid, flow, disp, params, sl, label):
                max_abs_err_knife_edge=worst(both & knife),
                knife_edge_tracks=tracks,
                ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-               updates=n_iter,
+               updates=int(iters.sum()),
+               longest_chain=int(check.chains(iters).max()) if n_valid else 0,
                flops=flops, bytes=nbytes, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print("quad", json.dumps(res))
+    print(check.tag, json.dumps(res))
+    return res
+
+
+@contextlib.contextmanager
+def recorded_levels():
+    """Record the arguments of every ``lk_level_cuda`` call made inside the
+    block: the level inputs the per-leg route gives the kernel."""
+    from visual_odom_tpu_torch.ops import lk_cuda
+
+    real = lk_cuda.lk_level_cuda
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    lk_cuda.lk_level_cuda = record
+    try:
+        yield calls
+    finally:
+        lk_cuda.lk_level_cuda = real
+
+
+def compare_leg(images, pts, valid, disp, params, sl, label):
+    """Each level launch of leg L0 -> R0, seeded at pts + disp as
+    ``circular_match`` seeds it, against the plain version on the inputs
+    ``lk_track_pyramid`` gives it."""
+    from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
+
+    with recorded_levels() as calls:
+        lk_track_pyramid(images[0], images[1], pts, valid, params,
+                         init_pts=pts + disp, start_level=sl)
+    return [compare_kernel(level_check(args, sl - k), f"{label}_l{sl - k}")
+            for k, args in enumerate(calls)]
+
+
+def real_leg(images, pts, valid, params):
+    """One leg L0 -> L1 (the temporal pair) from the pyramid top on the
+    main path's content, the kernel's route against the plain version's
+    on CPU copies, under the JAX bench's one-leg parity rule (bench.py:
+    307-316)."""
+    from visual_odom_tpu_torch.ops.lk import LKImage, lk_track_pyramid
+
+    l0, l1 = images[0], images[3]
+    pk, sk = lk_track_pyramid(l0, l1, pts, valid, params)
+    cpu = [LKImage(tuple(p.cpu() for p in im.pyramid), im.shapes, im.pad)
+           for im in (l0, l1)]
+    pp, sp = lk_track_pyramid(*cpu, pts.cpu(), valid.cpu(), params)
+    pk, sk, v = pk.cpu(), sk.cpu(), valid.cpu()
+    agree = sk & sp
+    share = int(agree.sum()) / max(1, int(v.sum()))
+    dmax = float((pk - pp).abs()[agree].max()) if bool(agree.any()) else 0.0
+    res = dict(valid=int(v.sum()), tracked_kernel=int(sk.sum()),
+               tracked_plain=int(sp.sum()),
+               status_mismatch=int((sk != sp).sum()), agree_share=share,
+               max_abs_err=dmax, within_pt_tol=bool(dmax < PT_TOL))
+    print("real_leg", json.dumps(res))
+    if not (share > REAL_LEG_AGREE and dmax < REAL_LEG_PX):
+        raise AssertionError(f"real-content leg: kernel vs plain {res}")
+    return res
+
+
+def route_vs_quad(images, pts, valid, flow, disp, params, sl, label):
+    """Four chained ``lk_track_pyramid`` legs on the card, seeded as
+    ``circular_match`` seeds them, against one lk_quad_kernel launch on
+    the same inputs: positions and statuses equal bit for bit."""
+    import torch
+
+    from visual_odom_tpu_torch.ops import lk_cuda
+    from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
+
+    out_q, st_q = lk_cuda.lk_quad_cuda([im.pyramid for im in images],
+                                       images[0].shapes, images[0].pad, pts,
+                                       valid, flow, disp, params, sl)
+    p, status, legs = pts, valid, []
+    for leg, (src, sgn) in enumerate(lk_cuda.QUAD_SEEDS):
+        seed = disp if src == "disp" else flow
+        p, ok = lk_track_pyramid(images[leg], images[(leg + 1) % 4], p, valid,
+                                 params, init_pts=p + seed if sgn > 0 else p - seed,
+                                 start_level=sl)
+        legs.append(p)
+        status = status & ok
+    out_l = torch.stack(legs)
+    res = dict(label=label, start_level=sl, tracked=int(st_q.sum()),
+               positions_differing=int((out_l != out_q).any(dim=-1).sum()),
+               statuses_differing=int((status != st_q).sum()),
+               max_abs_diff=float((out_l - out_q).abs().max()))
+    print("route_vs_quad", json.dumps(res))
+    if res["positions_differing"] or res["statuses_differing"]:
+        raise AssertionError(f"{label}: per-leg route differs from the quad "
+                             f"launch: {res}")
     return res
 
 
@@ -364,21 +626,58 @@ def ate_and_budget(poses, gt):
     return ate, 0.01 * course_len
 
 
-def run_main_path(name, frames, gt, config, intr, dev):
+def reset_counts():
+    """Both kernels' launch counts to 0, just before a run they measure:
+    the quad's on ``lk_circular_quad``, the level kernel's on
+    ``lk_track_pyramid``."""
     from visual_odom_tpu_torch.ops import lk_cuda
+    from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
+
+    for fn in (lk_cuda.lk_circular_quad, lk_track_pyramid):
+        fn.launches = 0
+        fn.batched_launches = 0
+
+
+def read_counts() -> dict:
+    from visual_odom_tpu_torch.ops import lk_cuda
+    from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
+
+    return {"quad": lk_cuda.lk_circular_quad.launches,
+            "quad_batched": lk_cuda.lk_circular_quad.batched_launches,
+            "level": lk_track_pyramid.launches,
+            "level_batched": lk_track_pyramid.batched_launches}
+
+
+def check_counts(label, config, counts, steps, batched):
+    """The route's kernel ran its launches per step, and no other kernel
+    launch was made. Returns the route's count."""
+    kernel, per_step = (("quad", LAUNCHES_PER_FRAME)
+                        if config.resolved_lk_backend() == "pallas"
+                        else ("level", LEVEL_LAUNCHES_PER_FRAME))
+    if batched:
+        kernel += "_batched"
+    expected = dict.fromkeys(counts, 0)
+    expected[kernel] = per_step * steps
+    if counts != expected:
+        raise AssertionError(f"{label}: kernel launches {counts} for {steps} "
+                             f"steps, expected {expected}")
+    return counts[kernel]
+
+
+def run_main_path(name, frames, gt, config, intr, dev, ref_poses=None):
+    """``run_sequence_scan`` on one course, held to the bench gates; with
+    ``ref_poses`` (the quad route's run of the course) it reports the
+    largest pose difference. Returns (result dict, poses)."""
     from visual_odom_tpu_torch.runner import pipeline
 
-    lk_cuda.lk_circular_quad.launches = 0
-    lk_cuda.lk_circular_quad.batched_launches = 0
+    reset_counts()
     poses, fetched, wall, n = pipeline.run_sequence_scan(
         frames, config, intr, chunk=CHUNK, warmup=False, device=dev)
-    launches = lk_cuda.lk_circular_quad.launches
-    if lk_cuda.lk_circular_quad.batched_launches:
-        raise AssertionError(f"{name}: the single-sequence path made "
-                             f"batched launches")
+    counts = read_counts()
     accept = float(np.mean(fetched.accept))
     ate, budget = ate_and_budget(poses, gt)
-    res = dict(course=name, steps=n, wall_s=wall, fps=n / wall,
+    res = dict(course=name, route=config.resolved_lk_backend(), steps=n,
+               wall_s=wall, fps=n / wall,
                ms_per_frame=1e3 * wall / n, accept=accept, ate_m=ate,
                ate_budget_m=budget, fallback_frames=int(fetched.fallback.sum()),
                rejected_frames=[int(i) + 1 for i in
@@ -386,37 +685,34 @@ def run_main_path(name, frames, gt, config, intr, dev):
                mean_bucketed=float(fetched.num_bucketed.mean()),
                mean_matched=float(fetched.num_matched.mean()),
                mean_inliers=float(fetched.num_inliers.mean()),
-               kernel_launches=launches)
+               launch_counts=counts)
+    if ref_poses is not None:
+        res["max_abs_dpose_vs_quad"] = float(np.abs(poses - ref_poses).max())
     print("main_path", json.dumps(res))
     if not (np.isfinite(fetched.T_inv).all() and fetched.T_inv.shape == (n, 4, 4)
             and len(poses) == n + 1 and np.isfinite(poses).all()):
         raise AssertionError(f"{name}: outputs not finite or of the wrong shape")
-    if launches != LAUNCHES_PER_FRAME * n:
-        raise AssertionError(f"{name}: {launches} kernel launches for {n} "
-                             f"frames, expected {LAUNCHES_PER_FRAME} per frame")
+    res["kernel_launches"] = check_counts(name, config, counts, n, False)
     if not (accept >= 0.9 and ate <= budget):
         raise AssertionError(f"{name}: accuracy gates failed: accept {accept}, "
                              f"ATE {ate} m > budget {budget} m")
-    return res
+    return res, poses
 
 
-def run_batched_path(courses, config, intr, dev):
+def run_batched_path(courses, config, intr, dev, ref_poses=None):
     """The batched path: BATCH_COURSES in lockstep through
     ``run_sequences_batched``, each sequence held to the bench gates on its
-    own steps."""
-    from visual_odom_tpu_torch.ops import lk_cuda
+    own steps. Returns (result dict, poses per sequence)."""
     from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
 
     seqs = [courses[k][0] for k in BATCH_COURSES]
     n_steps = max(len(s) for s in seqs) - 1
     # the last chunk is padded with the final frame
     steps_run = -(-n_steps // CHUNK) * CHUNK
-    lk_cuda.lk_circular_quad.launches = 0
-    lk_cuda.lk_circular_quad.batched_launches = 0
+    reset_counts()
     poses, stats, wall = run_sequences_batched(seqs, config, intr,
                                                chunk=CHUNK, device=dev)
-    launches = lk_cuda.lk_circular_quad.batched_launches
-    unbatched = lk_cuda.lk_circular_quad.launches
+    counts = read_counts()
     per_seq = []
     for (name, family), p, st in zip(BATCH_COURSES, poses, stats):
         ate, budget = ate_and_budget(p, courses[(name, family)][1])
@@ -425,24 +721,25 @@ def run_batched_path(courses, config, intr, dev):
                             ate_budget_m=budget,
                             fallback_frames=st["fallback_frames"],
                             mean_inliers=st["mean_inliers"]))
-    res = dict(batch=len(seqs), steps=n_steps, steps_run=steps_run, wall_s=wall,
+    res = dict(route=config.resolved_lk_backend(), batch=len(seqs),
+               steps=n_steps, steps_run=steps_run, wall_s=wall,
                ms_per_step=1e3 * wall / n_steps,
                aggregate_fps=sum(len(s) - 1 for s in seqs) / wall,
-               kernel_launches=launches, unbatched_launches=unbatched,
-               sequences=per_seq)
+               launch_counts=counts, sequences=per_seq)
+    if ref_poses is not None:
+        res["max_abs_dpose_vs_quad"] = max(float(np.abs(p - r).max())
+                                           for p, r in zip(poses, ref_poses))
     print("batch_path", json.dumps(res))
     for p, s in zip(poses, seqs):
         if not (p.shape == (len(s), 4, 4) and np.isfinite(p).all()):
             raise AssertionError("batch path: poses not finite or of the "
                                  "wrong shape")
-    if launches != LAUNCHES_PER_FRAME * steps_run or unbatched != 0:
-        raise AssertionError(f"batch path: {launches} batched and {unbatched} "
-                             f"unbatched launches for {steps_run} steps, "
-                             f"expected {LAUNCHES_PER_FRAME} batched per step")
+    res["kernel_launches"] = check_counts("batch path", config, counts,
+                                          steps_run, True)
     for r in per_seq:
         if not (r["accept"] >= 0.9 and r["ate_m"] <= r["ate_budget_m"]):
             raise AssertionError(f"batch path: accuracy gates failed: {r}")
-    return res
+    return res, poses
 
 
 def _small_course():
@@ -598,7 +895,6 @@ def batch_sweep(courses, config, intr, dev, n_prof=4):
     profile. Each B is warmed up on 4 steps first, and timed twice in
     turns (B ascending, then descending): the host-bound times drift
     within a run."""
-    from visual_odom_tpu_torch.ops import lk_cuda
     from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
 
     full = [courses[k][0] for k in BATCH_COURSES]
@@ -609,14 +905,12 @@ def batch_sweep(courses, config, intr, dev, n_prof=4):
     walls = {B: [] for B in SWEEP_B}
     accept = {}
     for B in SWEEP_B + SWEEP_B[::-1]:
-        lk_cuda.lk_circular_quad.batched_launches = 0
+        reset_counts()
         _, stats, wall = run_sequences_batched(
             [f[:SWEEP_STEPS + 1] for f in tiled[B]], config, intr,
             chunk=SWEEP_STEPS, device=dev)
-        launches = lk_cuda.lk_circular_quad.batched_launches
-        if launches != LAUNCHES_PER_FRAME * SWEEP_STEPS:
-            raise AssertionError(f"sweep B={B}: {launches} batched launches "
-                                 f"for {SWEEP_STEPS} steps")
+        launches = check_counts(f"sweep B={B}", config, read_counts(),
+                                SWEEP_STEPS, True)
         walls[B].append(wall)
         accept[B] = float(np.mean([s["accept_ratio"] for s in stats]))
     rows = []
@@ -669,6 +963,7 @@ def main() -> int:
         for line in f:
             if "registers" in line or "spill" in line:
                 print("ptxas:", line.strip())
+    print("sass", json.dumps(sass_loops(path)))
 
     t = time.perf_counter()
     courses = render_courses([("straight", "value", STRAIGHT_STEPS + 1),
@@ -684,40 +979,67 @@ def main() -> int:
                       min_eig_threshold=config.lk_min_eig_threshold)
     frames, gt = courses[("straight", "value")]
 
-    # ---- phase 3: kernel vs plain at KITTI shapes ------------------------
+    # ---- phase 3: kernels vs plain at KITTI shapes -----------------------
     images, pts, valid, flow, disp = quad_inputs(frames, config, intr, dev)
     probe = torch.arange(0, pts.shape[0], pts.shape[0] // 64, device=dev)[:64]
+    masked = torch.zeros_like(valid)
+
+    def probe_of(*xs):
+        return [x[..., probe, :].contiguous() if x.dim() > valid.dim()
+                else x[..., probe] for x in xs]
+
     quads = [
-        compare_kernel(images, pts, valid, flow, disp, params, 1,
+        compare_kernel(quad_check(images, pts, valid, flow, disp, params, 1),
                        "fast_sl1_n384"),
-        compare_kernel(images, pts[probe].contiguous(), valid[probe],
-                       flow[probe].contiguous(), disp[probe].contiguous(),
-                       params, 2, "probe_sl2_n64"),
-        compare_kernel(images, pts, valid, flow, disp, params, 2,
+        compare_kernel(quad_check(images, *probe_of(pts, valid, flow, disp),
+                                  params, 2), "probe_sl2_n64"),
+        compare_kernel(quad_check(images, pts, valid, flow, disp, params, 2),
                        "safe_sl2_n384"),
-        compare_kernel(images, pts, torch.zeros_like(valid), flow, disp,
-                       params, 2, "safe_masked_sl2_n384"),
+        compare_kernel(quad_check(images, pts, masked, flow, disp, params, 2),
+                       "safe_masked_sl2_n384"),
     ]
+    levels = (compare_leg(images, pts, valid, disp, params, 1, "fast_leg_sl1_n384")
+              + compare_leg(images, pts, valid, disp, params, 2, "safe_leg_sl2_n384")
+              + compare_leg(images, *probe_of(pts, valid, disp), params, 2,
+                            "probe_leg_sl2_n64")
+              + compare_leg(images, pts, masked, disp, params, 2,
+                            "safe_masked_leg_sl2_n384"))
+    real_leg(images, pts, valid, params)
+    for sl in (1, 2):
+        route_vs_quad(images, pts, valid, flow, disp, params, sl,
+                      f"sl{sl}_n384")
     bframes = stacked_frames([courses[k][0] for k in BATCH_COURSES], 3)
     images, pts, valid, flow, disp = quad_inputs(bframes, config, intr, dev)
     some = valid & (torch.arange(BATCH, device=dev) % 2 == 0)[:, None]
     bquads = [
-        compare_kernel(images, pts, valid, flow, disp, params, 1,
+        compare_kernel(quad_check(images, pts, valid, flow, disp, params, 1),
                        f"fast_sl1_b{BATCH}_n384"),
-        compare_kernel(images, pts[:, probe].contiguous(), valid[:, probe],
-                       flow[:, probe].contiguous(), disp[:, probe].contiguous(),
-                       params, 2, f"probe_sl2_b{BATCH}_n64"),
-        compare_kernel(images, pts, some, flow, disp, params, 2,
+        compare_kernel(quad_check(images, *probe_of(pts, valid, flow, disp),
+                                  params, 2), f"probe_sl2_b{BATCH}_n64"),
+        compare_kernel(quad_check(images, pts, some, flow, disp, params, 2),
                        f"safe_some_masked_sl2_b{BATCH}_n384"),
     ]
+    blevels = (compare_leg(images, pts, valid, disp, params, 1,
+                           f"fast_leg_sl1_b{BATCH}_n384")
+               + compare_leg(images, pts, some, disp, params, 2,
+                             f"safe_some_masked_leg_sl2_b{BATCH}_n384"))
+    for sl in (1, 2):
+        route_vs_quad(images, pts, valid, flow, disp, params, sl,
+                      f"sl{sl}_b{BATCH}_n384")
 
-    # ---- phase 4: the main path -----------------------------------------
-    runs = [run_main_path("straight", frames, gt, config, intr, dev)]
+    # ---- phase 4: the main path, on both routes --------------------------
+    xconfig = VOConfig.for_image(H, W, lk_backend="xla")
     cframes, cgt = courses[("straight", "checker")]
-    runs.append(run_main_path("straight_checker", cframes, cgt, config, intr,
-                              dev))
-    launches = sum(r["kernel_launches"] for r in runs)
-    batched_run = run_batched_path(courses, config, intr, dev)
+    runs, xruns = [], []
+    for name, fr, g in (("straight", frames, gt),
+                        ("straight_checker", cframes, cgt)):
+        res, poses = run_main_path(name, fr, g, config, intr, dev)
+        runs.append(res)
+        xruns.append(run_main_path(name, fr, g, xconfig, intr, dev,
+                                   ref_poses=poses)[0])
+    batched_run, bposes = run_batched_path(courses, config, intr, dev)
+    xbatched_run = run_batched_path(courses, xconfig, intr, dev,
+                                    ref_poses=bposes)[0]
 
     # ---- phase 5: small input against the CPU reference -----------------
     small_reference(dev)
@@ -725,15 +1047,19 @@ def main() -> int:
 
     # ---- phase 6: where the time goes -----------------------------------
     profile_frames(frames, config, intr, dev, runs[0]["ms_per_frame"])
+    profile_frames(frames, xconfig, intr, dev, xruns[0]["ms_per_frame"],
+                   label="profile_xla")
     batch_sweep(courses, config, intr, dev)
 
-    def row(name, replaces, n_launches, qs):
+    def row(name, replaces, n_launches, qs, lead):
+        """The kernel's row; ``lead`` is the check whose launch stands for
+        the kernel's time and bound."""
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": max(q["max_abs_err"] for q in qs),
-                "ms": qs[0]["ms"], "plain_ms": qs[0]["plain_ms"],
-                "bound_ms": qs[0]["bound_ms"], "bound_by": qs[0]["bound_by"],
-                "library_ms": None,
+                "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+                "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+                "library_ms": None, "timed": lead["label"],
                 "max_abs_err_held": max(q["max_abs_err_held"] for q in qs),
                 **{k: sum(q[k] for q in qs) for k in (
                     "knife_edge", "knife_edge_diverged",
@@ -741,11 +1067,19 @@ def main() -> int:
                 "max_abs_err_knife_edge": max(q["max_abs_err_knife_edge"]
                                               for q in qs)}
 
+    def finest(qs):
+        return next(q for q in qs if q["level"] == 0)
+
     print("total:", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
-        row("lk_quad_kernel", REPLACES, launches, quads),
+        row("lk_quad_kernel", REPLACES,
+            sum(r["kernel_launches"] for r in runs), quads, quads[0]),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
-            batched_run["kernel_launches"], bquads)]}))
+            batched_run["kernel_launches"], bquads, bquads[0]),
+        row("lk_level_kernel", REPLACES_LEVEL,
+            sum(r["kernel_launches"] for r in xruns), levels, finest(levels)),
+        row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
+            xbatched_run["kernel_launches"], blevels, finest(blevels))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""The CUDA LK kernel on the card, against its plain PyTorch version, and
-its batched launch against B unbatched launches.
+"""The CUDA LK kernels on the card: each against its plain PyTorch version,
+each batched launch against B unbatched launches, and four chained legs of
+level launches (the per-leg route) against one quad launch, bit for bit.
 
 Every test here needs an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip where there is no card. This file imports neither JAX nor the
@@ -13,7 +14,8 @@ import pytest
 import torch
 
 from visual_odom_tpu_torch.ops import lk_cuda
-from visual_odom_tpu_torch.ops.lk import LKParams, prepare_lk_image
+from visual_odom_tpu_torch.ops.lk import (LKImage, LKParams, lk_track_pyramid,
+                                          prepare_lk_image)
 
 #: |delta pt| bound on tracks whose statuses agree (px); statuses may differ
 #: on at most STATUS_MISMATCH_MAX features (hard min-eig / closure
@@ -159,3 +161,102 @@ def test_batched_kernel_matches_plain_batched(cuda_device, start_level):
     assert int(both.sum()) > 150 and not bool(st_k[1].any())
     assert float((out_k - out_p).abs()[:, both].max()) < PT_TOL
     assert torch.equal(out_k[:, ~valid], pts[~valid][None].expand(4, -1, -1))
+
+
+def _level_args(planes, shapes, pad, feats, level, finest=None):
+    """One level of leg L0 -> R0 at ``level``: template corners at the
+    points, start estimates at points + disp, both in the level's
+    coordinates (window corner)."""
+    pts, valid, _, disp = feats
+    half = (LKParams().window - 1) * 0.5
+    scale = 2.0 ** level
+    rows, cols = shapes[level]
+    return (planes[0][level], planes[1][level], rows, cols, pad,
+            pts / scale - half, (pts + disp) / scale - half, valid, LKParams(),
+            level == 0 if finest is None else finest)
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_level_kernel_matches_plain(cuda_device, level):
+    planes, shapes, pad, feats = _inputs(cuda_device)
+    args = _level_args(planes, shapes, pad, feats, level)
+    out_k, ok_k = lk_cuda.lk_level_cuda(*args)
+    out_p, ok_p, _ = lk_cuda.lk_level_plain(*args)
+    torch.cuda.synchronize()
+    assert int((ok_k != ok_p).sum()) <= STATUS_MISMATCH_MAX
+    both = ok_k & ok_p
+    assert int(both.sum()) > 50
+    assert float((out_k - out_p).abs()[both].max()) < PT_TOL
+    # invalid slots fail the level: init passes through, status 0
+    valid, init = feats[1], args[6]
+    assert not bool(ok_k[~valid].any())
+    assert torch.equal(out_k[~valid], init[~valid])
+
+
+@pytest.mark.parametrize("level", [0, 2])
+def test_batched_level_launch_equals_unbatched_launches(cuda_device, level):
+    planes, shapes, pad, feats = _batched_inputs(cuda_device)
+    args = _level_args(planes, shapes, pad, feats, level)
+    before = (lk_track_pyramid.launches,
+              lk_track_pyramid.batched_launches)
+    out, ok = lk_cuda.lk_level_cuda(*args)
+    assert (lk_track_pyramid.launches,
+            lk_track_pyramid.batched_launches) == (before[0],
+                                                        before[1] + 1)
+    assert out.shape == args[5].shape and ok.shape == feats[1].shape
+    for b in range(out.shape[0]):
+        one = [a[b].contiguous() if torch.is_tensor(a) else a for a in args]
+        o1, k1 = lk_cuda.lk_level_cuda(*one)
+        assert torch.equal(out[b], o1) and torch.equal(ok[b], k1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("start_level", [1, 2])
+def test_chained_level_legs_equal_quad_kernel(cuda_device, start_level,
+                                              batched):
+    """Four lk_track_pyramid legs seeded as circular_match seeds them give
+    one lk_quad_kernel launch's positions and status bit for bit."""
+    planes, shapes, pad, (pts, valid, flow, disp) = (
+        _batched_inputs(cuda_device) if batched else _inputs(cuda_device))
+    imgs = [LKImage(tuple(p), shapes, pad) for p in planes]
+    out_q, st_q = lk_cuda.lk_quad_cuda(planes, shapes, pad, pts, valid, flow,
+                                       disp, LKParams(), start_level)
+    p, status = pts, valid
+    for leg, (seed, sgn) in enumerate(lk_cuda.QUAD_SEEDS):
+        s = disp if seed == "disp" else flow
+        p, ok = lk_track_pyramid(imgs[leg], imgs[(leg + 1) % 4], p, valid,
+                                 LKParams(), init_pts=p + s if sgn > 0 else p - s,
+                                 start_level=start_level)
+        assert torch.equal(p, out_q[leg]), f"leg {leg}"
+        status = status & ok
+    assert torch.equal(status, st_q)
+    torch.cuda.synchronize()
+
+
+def test_level_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    planes, shapes, pad, feats = _inputs(cuda_device, n=32)
+    args = list(_level_args(planes, shapes, pad, feats, 0))
+    for i, bad, match in ((5, args[5].double(), "prev"),
+                          (6, args[6][:-1].contiguous(), "init"),
+                          (5, args[5].cpu(), "CUDA tensors"),
+                          (0, args[0].cpu(), "^I: "),
+                          (8, LKParams(window=15), "window")):
+        wrong = list(args)
+        wrong[i] = bad
+        with pytest.raises(ValueError, match=match):
+            lk_cuda.lk_level_cuda(*wrong)
+
+
+@pytest.mark.parametrize("start_level", [1, 2, None])
+def test_leg_on_cuda_counts_one_launch_per_level(cuda_device, start_level):
+    planes, shapes, pad, (pts, valid, _, disp) = _inputs(cuda_device, n=64)
+    li, lj = LKImage(planes[0], shapes, pad), LKImage(planes[1], shapes, pad)
+    before = lk_track_pyramid.launches
+    out, status = lk_track_pyramid(li, lj, pts, valid, LKParams(),
+                                   init_pts=pts + disp,
+                                   start_level=start_level)
+    torch.cuda.synchronize()
+    levels = LKParams().levels if start_level is None else start_level
+    assert lk_track_pyramid.launches == before + levels + 1
+    assert out.is_cuda and status.is_cuda and int(status.sum()) > 20

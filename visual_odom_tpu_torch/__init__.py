@@ -2,9 +2,10 @@
 
 The package mirrors ``visual_odom_tpu`` module for module (``config``,
 ``ops``, ``frontend``, ``core``, ``backend``, ``runner``, ``io``) but imports
-only ``torch`` and ``numpy``. Plain tensor code is PyTorch; the circular-quad
-LK solve (the JAX package's Pallas ``_legs_kernel``) is a CUDA C++ kernel for
-Hopper (``csrc/lk_legs.cu``), built from source at first use.
+only ``torch`` and ``numpy``. Plain tensor code is PyTorch; the LK solves
+(the JAX package's Pallas ``_legs_kernel``, the circular quad, and
+``_level_kernel``, one level of one leg) are CUDA C++ kernels for Hopper
+(``csrc/lk_legs.cu``), built from source at first use.
 
 Precision is fixed here, once for the whole package: float32 everywhere, and
 TF32 off for both matmuls and cuDNN convolutions (the JAX reference computes

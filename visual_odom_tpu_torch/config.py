@@ -1,8 +1,11 @@
 """Configuration for the stereo VO pipeline (PyTorch/CUDA port).
 
-A copy of ``visual_odom_tpu/config.py`` without the LK backend switch: in
-the port the tensors' device chooses, the CUDA kernel for CUDA tensors and
-its plain PyTorch version for CPU tensors.
+A copy of ``visual_odom_tpu/config.py``. Its LK backend switch
+(``lk_backend``) picks the route of a circular match: ``"pallas"``, the
+circular quad in one kernel launch (the port's default on every device), or
+``"xla"``, four chained per-leg trackers of one level-kernel launch per
+level. The tensors' device picks the implementation on either route: the
+CUDA kernel for CUDA tensors, its plain PyTorch version for CPU tensors.
 
 All numeric defaults reproduce the reference's hard-coded constants exactly
 (see SURVEY.md fidelity ledger):
@@ -28,6 +31,10 @@ from __future__ import annotations
 
 import dataclasses
 import re
+from typing import Optional
+
+#: the values ``VOConfig.lk_backend`` resolves to (the JAX package's names)
+LK_BACKENDS = ("pallas", "xla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,6 +206,12 @@ class VOConfig:
     # --- precision ---
     compute_dtype: str = "float32"
 
+    # --- LK route: "pallas" (the circular quad, one lk_quad_kernel launch),
+    # "xla" (four chained lk_track_pyramid legs, one lk_level_kernel launch
+    # per level), or None = "pallas" on every device. Both routes give the
+    # same bits. ---
+    lk_backend: Optional[str] = None
+
     # --- motion-prior LK seeding (beyond-reference): start each LK leg
     # from the feature's previous flow/disparity instead of the identity.
     # Same converged minima, roughly half the solver iterations; the
@@ -238,6 +251,9 @@ class VOConfig:
     lk_probe_disagree_frac: float = 0.05
 
     def __post_init__(self):
+        if self.lk_backend is not None and self.lk_backend not in LK_BACKENDS:
+            raise ValueError(f"lk_backend must be None or one of "
+                             f"{LK_BACKENDS}, got {self.lk_backend!r}")
         if self.detector not in ("fast", "shi-tomasi"):
             raise ValueError(
                 f"detector must be 'fast' or 'shi-tomasi', got "
@@ -256,6 +272,10 @@ class VOConfig:
             raise ValueError(
                 f"lk_fast_skip_levels must be in [0, lk_levels="
                 f"{self.lk_levels}], got {self.lk_fast_skip_levels}")
+
+    def resolved_lk_backend(self) -> str:
+        """The LK route: ``lk_backend``, or "pallas" when it is None."""
+        return "pallas" if self.lk_backend is None else self.lk_backend
 
     # ------------------------------------------------------------------
     @property

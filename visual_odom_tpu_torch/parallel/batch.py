@@ -4,7 +4,8 @@ Port of ``visual_odom_tpu/parallel/batch.py``. The JAX package vmaps its
 step over a leading batch axis and shards that axis over a device mesh;
 here the step is written over the batch dim (``runner.pipeline``), so the
 batched step is ``make_step_fn`` given a batched state, and all B sequences
-share each launch: 3 LK kernel launches per batched step, whatever B is.
+share each launch: 3 quad launches per batched step whatever B is, or 32
+level launches on the per-leg route (``VOConfig.lk_backend="xla"``).
 Under vmap the JAX step's adaptive ``lax.cond`` becomes a select; here,
 too, the fast and the safe quad run for every sequence and each sequence
 picks its own result, so sequence b gets what a single-sequence run of it

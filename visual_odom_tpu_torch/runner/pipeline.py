@@ -4,7 +4,8 @@ Port of ``visual_odom_tpu/runner/pipeline.py`` (``VOState``,
 ``StepOutput``, ``make_step_fn``, ``init_vo_state``, ``run_sequence_scan``,
 ``chain_poses_host``). One step takes the new stereo pair to the 4x4 frame
 delta: pyramids of the new pair (reused as t0 next frame), FAST + bucketing
-on L(t0), the circular LK quad under the adaptive skip policy,
+on L(t0), the circular LK match under the adaptive skip policy (on the
+route ``config.lk_backend`` picks: quad launches or per-leg level launches),
 triangulation, PnP-RANSAC, and the rotation / scale / inlier-floor gates.
 Everything stays on the device; the runner fetches outputs once per chunk
 and chains poses in float64 on the host.
@@ -14,7 +15,7 @@ state (``parallel.batch.batched_init_state``) and (B, H, W) frames it
 advances B sequences in lockstep, the counterpart of the JAX package's
 ``jax.vmap`` of its step (``parallel/batch.py``); a single sequence is the
 case without that dim. Each module keeps the batch dim through to the LK
-kernel, which covers all B sequences in one launch.
+kernels, each launch covering all B sequences.
 
 The entry points run on CUDA unless ``device="cpu"`` is passed, and raise
 when CUDA is asked for and absent.
