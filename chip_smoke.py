@@ -9,14 +9,21 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
 1. Print the card's name and power limit (nvidia-smi).
 2. Build the CUDA kernels (one source, one library) from
    ``visual_odom_tpu_torch/csrc`` with nvcc and print the build seconds,
-   the ptxas report and each kernel's update loop as compiled (``sass``).
-3. Hold the LK quad kernel against its plain PyTorch version at KITTI size
-   (1241x376) on the inputs the main path gives it: the fast quad (start
+   the ptxas report, each kernel instance's update loop as compiled
+   (``sass``) and its resources as the runtime reports them (``instance``:
+   registers, shared memory, features resident on the card).
+3. Every check of this phase runs each of the four instances (doublestep x
+   packed) of the kernel it checks, the plain version once for all four,
+   and requires doublestep on and off to agree bit for bit (packed held
+   fixed). Hold the LK quad kernel against its plain PyTorch version at
+   KITTI size (1241x376) on the inputs the main path gives it: the fast quad (start
    level 1, 384 slots), the probe (start level 2, 64 slots), the safe quad
    (start level 2, 384 slots) and the safe quad as the adaptive policy
    launches it on a frame that is not aliased (all slots masked off).
    Statuses may differ on at most STATUS_MISMATCH_MAX features, tracks that
-   agree within PT_TOL px. Times the kernel's device work (CUDA events
+   agree within PT_TOL px (the packed instances, which sum in another
+   order, under the knife-edge rule below on every label). Times the
+   kernel's device work (CUDA events
    around a batch of calls queued behind a sleep kernel), one wrapper call
    with the host's time included, and the plain version.
    Then the batched launch at B = BATCH on the batched path's inputs (the
@@ -33,10 +40,13 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    2), and at B = BATCH the fast leg and the safe leg with sequences 1 and
    3 masked off. Then one leg L0 -> L1 from the pyramid top on the same
    content, kernel against plain under the JAX bench's one-leg parity rule
-   (bench.py:307-316), and four chained ``lk_track_pyramid`` legs on the
-   card against one quad launch on the same inputs, at start levels 1 and
-   2, single and batched: equal bit for bit.
-4. Run the main path, ``run_sequence_scan``, at 1241x376: 64 steps of the
+   (bench.py:307-316), and, for each instance, four chained
+   ``lk_track_pyramid`` legs on the card against one quad launch on the
+   same inputs, at start levels 1 and 2, single and batched: equal bit for
+   bit. Last, the fast quad and the fast leg at B = WIDE_B, where the card
+   fills, to time the instances there.
+4. Run the main path (the default instance), ``run_sequence_scan``, at
+   1241x376: 64 steps of the
    "straight" course and 160 steps of "straight" with the periodic "checker"
    texture (which exercises the adaptive fallback). Assert the bench gates
    (accept >= 0.9, ATE <= 1% of course length) and that the kernel ran
@@ -92,6 +102,8 @@ CHUNK = 32
 BATCH = 4
 #: B = 11: the KITTI odometry sequences with ground truth, 00-10
 SWEEP_B = (1, 4, 11)
+#: the batch at which the instances are timed again, where the card fills
+WIDE_B = 11
 SWEEP_STEPS = 32
 LAUNCHES_PER_FRAME = 3        # fast quad + probe + safe quad (masked)
 #: per-leg route: 4 legs x (2 fast + 3 probe + 3 safe) levels
@@ -117,14 +129,23 @@ SETUP_FLOPS = 8 * 22 * 24 + 8 * 22 * 22 + 441 * (3 * 7 + 6) + 30
 ITER_FLOPS = 441 * 12 + 100
 #: side of the template superblock (21x21 window + bilinear + Scharr support)
 BLOCK = 24
-#: global loads of one update per lane: the 2x2 bilinear support of each of
-#: its 14 window pixels
-WIN_LOADS = 4 * 14
+#: window pixels of a lane: 441 over 32 lanes, or over 8 when packed
+PIXELS_PER_LANE = {False: 14, True: 56}
 #: per-feature inputs (pts, flow, disp, valid) and outputs (4 legs, status)
 FEATURE_BYTES = (2 + 2 + 2 + 1) * 4 + (4 * 2 + 1) * 4
 #: level kernel, per feature: prev, init, valid in; out, ok out
 LEVEL_FEATURE_BYTES = (2 + 2 + 1) * 4 + (2 + 1) * 4
 REPLACES = "visual_odom_tpu/ops/lk_pallas.py:299"
+#: every instance (doublestep, packed) of both kernels, and the body of the
+#: TPU kernel each quad instance stands for: the default body, the
+#: VO_LK_DOUBLESTEP update (lk_pallas.py:638-651), the VO_LK_PACKED solve
+#: (:486-579; the TPU's packed body has no double step)
+INSTANCES = ((False, False), (True, False), (False, True), (True, True))
+INSTANCE_REPLACES = {
+    (False, False): REPLACES,
+    (True, False): "visual_odom_tpu/ops/lk_pallas.py:638",
+    (False, True): "visual_odom_tpu/ops/lk_pallas.py:486",
+    (True, True): "visual_odom_tpu/ops/lk_pallas.py:486"}
 REPLACES_BATCHED = "visual_odom_tpu/ops/lk_pallas.py:798"
 REPLACES_LEVEL = "visual_odom_tpu/ops/lk_pallas.py:90"
 #: `_build_level_call`, the call that jax.vmap batches for the vmapped step
@@ -170,11 +191,17 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
+def instance_name(inst) -> str:
+    return f"doublestep={int(inst[0])},packed={int(inst[1])}"
+
+
 def sass_loops(lib: str) -> dict:
-    """Per kernel of the built library, its update loop as compiled: the
-    innermost loop that holds all WIN_LOADS window loads, counted in
-    cuobjdump's SASS (instructions, and how many of them are integer adds
-    and address arithmetic). Empty where the toolkit has no cuobjdump."""
+    """Per kernel instance of the built library, its update loop as
+    compiled: the innermost loop that holds the update's window loads (4 per
+    window pixel of a lane: global loads without window reuse, shared loads
+    with it), counted in cuobjdump's SASS (instructions, and how many of
+    them are integer adds and address arithmetic). Empty where the toolkit
+    has no cuobjdump."""
     import re
     import shutil
 
@@ -186,31 +213,41 @@ def sass_loops(lib: str) -> dict:
                           capture_output=True, text=True).stdout
     kernels, name = {}, None
     for line in sass.splitlines():
-        m = re.match(r"\s+Function : \S*?(lk_(?:quad|level)_kernel)", line)
+        m = re.match(r"\s+Function : \S*?(lk_(?:quad|level)_kernel)ILi(\d+)ELb([01])E",
+                     line)
         if m:
-            name = m.group(1)
-            kernels[name] = []
+            inst = (m.group(3) == "1", m.group(2) == "8")
+            name = f"{m.group(1)}[{instance_name(inst)}]"
+            kernels[name] = (4 * PIXELS_PER_LANE[inst[1]], [])
             continue
         m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if m and name:
-            kernels[name].append((int(m.group(1), 16), m.group(2).strip()))
+            kernels[name][1].append((int(m.group(1), 16), m.group(2).strip()))
+
+    def opcode(text):
+        # "@!PT" guards an instruction that never runs (ptxas pads
+        # asynchronous copies with such loads)
+        if text.startswith("@!PT "):
+            return "NOP"
+        return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
+
     out = {}
-    for name, ins in kernels.items():
+    for name, (window_loads, ins) in kernels.items():
         index = {a: i for i, (a, _) in enumerate(ins)}
         loop = None
         for i, (a, text) in enumerate(ins):
             m = re.search(r"BRA.*?0x([0-9a-f]+)", text)
             if m and int(m.group(1), 16) < a:  # a backward branch closes a loop
-                body = [t for _, t in ins[index.get(int(m.group(1), 16), 0):i + 1]]
-                if (sum("LDG" in t for t in body) == WIN_LOADS
+                body = [opcode(t) for _, t in
+                        ins[index.get(int(m.group(1), 16), 0):i + 1]]
+                if (sum(o in ("LDG", "LDS") for o in body) == window_loads
                         and (loop is None or len(body) < len(loop))):
                     loop = body
         if loop:
-            ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
-                   for t in loop]
             out[name] = {"update_loop_instructions": len(loop),
                          "integer_and_address_ops": sum(
-                             o in ("IADD3", "LEA", "IMAD") for o in ops)}
+                             o in ("IADD3", "LEA", "IMAD") for o in loop),
+                         "window_loads": window_loads}
     return out
 
 
@@ -345,9 +382,10 @@ def quad_check(images, pts, valid, flow, disp, params, sl):
     batched = pts.dim() == 3
     plain = lk_cuda.lk_quad_plain_batched if batched else lk_cuda.lk_quad_plain
 
-    def kernel():
+    def kernel(doublestep=None, packed=None):
         return lk_cuda.lk_quad_cuda(planes, shapes, pad, pts, valid, flow,
-                                    disp, params, sl)
+                                    disp, params, sl, doublestep=doublestep,
+                                    packed=packed)
 
     def plain_at(shift=0.0, double=False):
         pl, p, f, d = planes, pts, flow, disp
@@ -356,10 +394,11 @@ def quad_check(images, pts, valid, flow, disp, params, sl):
             p, f, d = p.double(), f.double(), d.double()
         return plain(pl, shapes, pad, p + shift, valid, f, d, params, sl)
 
-    def sequence(b):
+    def sequence(b, doublestep=None, packed=None):
         return lk_cuda.lk_quad_cuda([[p[b] for p in im] for im in planes],
                                     shapes, pad, pts[b], valid[b], flow[b],
-                                    disp[b], params, sl)
+                                    disp[b], params, sl, doublestep=doublestep,
+                                    packed=packed)
 
     def work(out_k, st_k, iters):
         setups = int(valid.sum()) * 4 * (sl + 1)
@@ -389,9 +428,10 @@ def level_check(args, level):
     plain = (lk_cuda.lk_level_plain_batched if batched
              else lk_cuda.lk_level_plain)
 
-    def kernel():
+    def kernel(doublestep=None, packed=None):
         out, ok = lk_cuda.lk_level_cuda(I, J, rows, cols, pad, prev, init,
-                                        mask, params, finest)
+                                        mask, params, finest,
+                                        doublestep=doublestep, packed=packed)
         return out[None], ok
 
     def plain_at(shift=0.0, double=False):
@@ -402,9 +442,10 @@ def level_check(args, level):
                                valid, params, finest)
         return out[None], ok, iters
 
-    def sequence(b):
+    def sequence(b, doublestep=None, packed=None):
         out, ok = lk_cuda.lk_level_cuda(I[b], J[b], rows, cols, pad, prev[b],
-                                        init[b], mask[b], params, finest)
+                                        init[b], mask[b], params, finest,
+                                        doublestep=doublestep, packed=packed)
         return out[None], ok
 
     def work(out_k, st_k, iters):
@@ -428,101 +469,128 @@ def level_check(args, level):
                                  chains=lambda iters: iters)
 
 
-def compare_kernel(check, label):
-    """Kernel vs plain version on one input set (``quad_check`` or
-    ``level_check``); returns a result dict. Its ``longest_chain`` is the
-    most updates one feature makes in the launch (``check.chains``: per
-    feature, over its legs and levels): one warp runs them one after
-    another, and the launch lasts at least that long.
+def compare_kernel(check, label, time_plain=True):
+    """Every instance of the kernel (INSTANCES) vs the plain version on one
+    input set (``quad_check`` or ``level_check``); returns {instance: result
+    dict}. The plain version runs once for all instances. Its
+    ``longest_chain`` is the most updates one feature makes in the launch
+    (``check.chains``: per feature, over its legs and levels): one lane group
+    runs them one after another, and the launch lasts at least that long;
+    ``us_per_update`` is the launch's time over it.
 
     Unbatched inputs are held to the rule of the first slice: at most
     STATUS_MISMATCH_MAX status mismatches, and every track both tracked
     within PT_TOL px. Inputs with a leading batch dim take the batched
     launch, which must equal B unbatched launches bit for bit, and are then
-    held per sequence to the same rule with one bounded exception: a
+    held per sequence to the same rule with one bounded exception, which
+    the packed instances (another order of the sums) take on every label: a
     knife-edge track (one the plain version itself moves by PT_TOL or more
     when the points shift by +-KNIFE_SHIFT px) that lands elsewhere is
     counted as a status flip, unless the kernel's result is no farther
     (within PT_TOL) from the float64 evaluation of the plain version than
     the float32 plain version's is. The bound is the sum of the sequences'
-    bounds."""
+    bounds. With ``packed`` held fixed, doublestep on and off must agree bit
+    for bit."""
     import torch
+
+    from visual_odom_tpu_torch.ops import lk_cuda
 
     valid = check.valid
     batched = valid.dim() == 2
-    out_k, st_k = check.kernel()
     out_p, st_p, iters = check.plain()
-    torch.cuda.synchronize()
-    if batched:
-        for b in range(valid.shape[0]):
-            one = check.sequence(b)
-            if not (torch.equal(one[0], out_k[:, b])
-                    and torch.equal(one[1], st_k[b])):
-                raise AssertionError(f"{label}: sequence {b} of the batched "
-                                     f"launch differs from its own launch")
     knife = torch.zeros_like(st_p)
     for shift in (KNIFE_SHIFT, -KNIFE_SHIFT):
         o, st, _ = check.plain(shift)
         knife |= (st != st_p) | ((o - out_p).abs().amax(dim=(0, -1)) >= PT_TOL)
     n_valid = int(valid.sum())
-    both = st_k & st_p
-    diff = (out_k - out_p).abs().amax(dim=(0, -1))
+    out_64 = None
+    default = lk_cuda.variant()
+    outs, results = {}, {}
+    for inst in INSTANCES:
+        name = f"{label}[{instance_name(inst)}]"
+        out_k, st_k = check.kernel(*inst)
+        torch.cuda.synchronize()
+        outs[inst] = (out_k, st_k)
+        if batched:
+            for b in range(valid.shape[0]):
+                one = check.sequence(b, *inst)
+                if not (torch.equal(one[0], out_k[:, b])
+                        and torch.equal(one[1], st_k[b])):
+                    raise AssertionError(f"{name}: sequence {b} of the "
+                                         f"batched launch differs from its "
+                                         f"own launch")
+        both = st_k & st_p
+        diff = (out_k - out_p).abs().amax(dim=(0, -1))
 
-    def worst(mask):
-        return float(diff[mask].max()) if bool(mask.any()) else 0.0
+        def worst(mask):
+            return float(diff[mask].max()) if bool(mask.any()) else 0.0
 
-    # Diverged knife-edge tracks: the batched inputs' exception.
-    knife_div = (both & knife & (diff >= PT_TOL) if batched
-                 else torch.zeros_like(both))
-    arbitrated = torch.zeros_like(knife_div)
-    tracks = []
-    if bool(knife_div.any()):
-        out_64 = check.plain(double=True)[0]
-        k64 = (out_k.double() - out_64).abs().amax(dim=(0, -1))
-        p64 = (out_p.double() - out_64).abs().amax(dim=(0, -1))
-        arbitrated = knife_div & (k64 <= p64 + PT_TOL)
-        tracks = [dict(seq=b, slot=i, dpt=float(diff[b, i]),
-                       kernel_vs_f64=float(k64[b, i]),
-                       plain_vs_f64=float(p64[b, i]))
-                  for b, i in torch.nonzero(knife_div).tolist()]
-    flips = (st_k != st_p) | (knife_div & ~arbitrated)
-    mismatch = int(flips.sum(dim=-1).max())
-    err = worst(both)
-    err_held = worst(both & ~knife_div)
-    # Invalid slots pass through in both.
-    err_inv = worst(~valid)
-    if mismatch > STATUS_MISMATCH_MAX or err_held >= PT_TOL or err_inv != 0.0:
-        raise AssertionError(f"{label}: kernel disagrees with plain version: "
-                             f"{mismatch} status flips in one sequence, "
-                             f"max |dpt| "
-                             f"{err_held}, invalid-slot |dpt| {err_inv}, "
-                             f"knife-edge tracks {tracks}")
-    ms = device_ms(check.kernel)
-    call_ms = time_ms(check.kernel, reps=50, warm=5)
+        # Diverged knife-edge tracks: the exception of the batched inputs
+        # and of the packed instances.
+        knife_div = (both & knife & (diff >= PT_TOL) if batched or inst[1]
+                     else torch.zeros_like(both))
+        arbitrated = torch.zeros_like(knife_div)
+        tracks = []
+        if bool(knife_div.any()):
+            if out_64 is None:
+                out_64 = check.plain(double=True)[0]
+            k64 = (out_k.double() - out_64).abs().amax(dim=(0, -1))
+            p64 = (out_p.double() - out_64).abs().amax(dim=(0, -1))
+            arbitrated = knife_div & (k64 <= p64 + PT_TOL)
+            tracks = [dict(seq=at[0] if batched else 0, slot=at[-1],
+                           dpt=float(diff[tuple(at)]),
+                           kernel_vs_f64=float(k64[tuple(at)]),
+                           plain_vs_f64=float(p64[tuple(at)]))
+                      for at in torch.nonzero(knife_div).tolist()]
+        flips = (st_k != st_p) | (knife_div & ~arbitrated)
+        mismatch = int(flips.sum(dim=-1).max())
+        err_held = worst(both & ~knife_div)
+        # Invalid slots pass through in both.
+        err_inv = worst(~valid)
+        if (mismatch > STATUS_MISMATCH_MAX or err_held >= PT_TOL
+                or err_inv != 0.0):
+            raise AssertionError(f"{name}: kernel disagrees with plain "
+                                 f"version: {mismatch} status flips in one "
+                                 f"sequence, max |dpt| {err_held}, "
+                                 f"invalid-slot |dpt| {err_inv}, knife-edge "
+                                 f"tracks {tracks}")
+        results[inst] = dict(
+            label=label, instance=instance_name(inst), default=inst == default,
+            batch=valid.shape[0] if batched else 1, **check.info,
+            n=valid.shape[-1], valid=n_valid, tracked=int(st_k.sum()),
+            status_mismatch=int((st_k != st_p).sum()),
+            max_abs_err=worst(both), max_abs_err_held=err_held,
+            knife_edge=int((both & knife).sum()),
+            knife_edge_diverged=int(knife_div.sum()),
+            knife_edge_arbitrated=int(arbitrated.sum()),
+            max_abs_err_knife_edge=worst(both & knife),
+            knife_edge_tracks=tracks,
+            ms=device_ms(lambda: check.kernel(*inst)),
+            call_ms=time_ms(lambda: check.kernel(*inst), reps=50, warm=5))
+    for packed in (False, True):
+        (oa, sa), (ob, sb) = outs[False, packed], outs[True, packed]
+        if not (torch.equal(oa, ob) and torch.equal(sa, sb)):
+            raise AssertionError(f"{label}: doublestep on and off differ "
+                                 f"(packed={packed})")
     # The plain version syncs once per iteration of its masked loop, so
     # its time is host and device together, as the main path would see it.
-    # The three calls above warmed it up.
-    plain_ms = time_ms(check.plain, reps=3 if batched else 5, warm=0)
-    flops, nbytes = check.work(out_k, st_k, iters)
+    # The calls above warmed it up.
+    plain_ms = (time_ms(check.plain, reps=3 if batched else 5, warm=0)
+                if time_plain else None)
+    flops, nbytes = check.work(*outs[default], iters)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    res = dict(label=label, batch=valid.shape[0] if batched else 1,
-               **check.info, n=valid.shape[-1], valid=n_valid,
-               tracked=int(st_k.sum()),
-               status_mismatch=int((st_k != st_p).sum()),
-               max_abs_err=err, max_abs_err_held=err_held,
-               knife_edge=int((both & knife).sum()),
-               knife_edge_diverged=int(knife_div.sum()),
-               knife_edge_arbitrated=int(arbitrated.sum()),
-               max_abs_err_knife_edge=worst(both & knife),
-               knife_edge_tracks=tracks,
-               ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-               updates=int(iters.sum()),
-               longest_chain=int(check.chains(iters).max()) if n_valid else 0,
-               flops=flops, bytes=nbytes, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print(check.tag, json.dumps(res))
-    return res
+    chain = int(check.chains(iters).max()) if n_valid else 0
+    for inst, res in results.items():
+        res.update(plain_ms=plain_ms, updates=int(iters.sum()),
+                   longest_chain=chain, flops=flops, bytes=nbytes,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   share_of_bound=max(t_bytes, t_ops) / res["ms"],
+                   us_per_update=1e3 * res["ms"] / chain if chain else None,
+                   doublestep_bit_exact=True)
+        print(check.tag, json.dumps(res))
+    return results
 
 
 @contextlib.contextmanager
@@ -534,9 +602,9 @@ def recorded_levels():
     real = lk_cuda.lk_level_cuda
     calls = []
 
-    def record(*args):
+    def record(*args, **kwargs):
         calls.append(args)
-        return real(*args)
+        return real(*args, **kwargs)
 
     lk_cuda.lk_level_cuda = record
     try:
@@ -545,17 +613,32 @@ def recorded_levels():
         lk_cuda.lk_level_cuda = real
 
 
-def compare_leg(images, pts, valid, disp, params, sl, label):
+def compare_leg(images, pts, valid, disp, params, sl, label, **kw):
     """Each level launch of leg L0 -> R0, seeded at pts + disp as
     ``circular_match`` seeds it, against the plain version on the inputs
-    ``lk_track_pyramid`` gives it."""
+    ``lk_track_pyramid`` gives it (``compare_kernel``, every instance)."""
     from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
 
     with recorded_levels() as calls:
         lk_track_pyramid(images[0], images[1], pts, valid, params,
                          init_pts=pts + disp, start_level=sl)
-    return [compare_kernel(level_check(args, sl - k), f"{label}_l{sl - k}")
+    return [compare_kernel(level_check(args, sl - k), f"{label}_l{sl - k}",
+                           **kw)
             for k, args in enumerate(calls)]
+
+
+@contextlib.contextmanager
+def instance_defaults(inst):
+    """Both kernels' default instance set to ``inst`` (doublestep, packed)
+    inside the block, so that the routes, which name none, run it."""
+    from visual_odom_tpu_torch.ops import lk_cuda
+
+    saved = lk_cuda.DEFAULT_DOUBLESTEP, lk_cuda.DEFAULT_PACKED
+    lk_cuda.DEFAULT_DOUBLESTEP, lk_cuda.DEFAULT_PACKED = inst
+    try:
+        yield
+    finally:
+        lk_cuda.DEFAULT_DOUBLESTEP, lk_cuda.DEFAULT_PACKED = saved
 
 
 def real_leg(images, pts, valid, params):
@@ -605,7 +688,8 @@ def route_vs_quad(images, pts, valid, flow, disp, params, sl, label):
         legs.append(p)
         status = status & ok
     out_l = torch.stack(legs)
-    res = dict(label=label, start_level=sl, tracked=int(st_q.sum()),
+    res = dict(label=label, instance=instance_name(lk_cuda.variant()),
+               start_level=sl, tracked=int(st_q.sum()),
                positions_differing=int((out_l != out_q).any(dim=-1).sum()),
                statuses_differing=int((status != st_q).sum()),
                max_abs_diff=float((out_l - out_q).abs().max()))
@@ -946,7 +1030,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from visual_odom_tpu_torch.config import VOConfig
-    from visual_odom_tpu_torch.ops import _nvcc
+    from visual_odom_tpu_torch.ops import _nvcc, lk_cuda
     from visual_odom_tpu_torch.ops.lk import LKParams
 
     t_start = time.perf_counter()
@@ -964,6 +1048,20 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("ptxas:", line.strip())
     print("sass", json.dumps(sass_loops(path)))
+    # Resources of each instance, and how many features the card holds at
+    # once: the waves a launch of WIDE_B sequences of 384 slots takes.
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    infos = {}
+    for level in (False, True):
+        for inst in INSTANCES:
+            info = lk_cuda.kernel_info(level, *inst)
+            resident = info["blocks_per_sm"] * info["features_per_block"] * n_sm
+            info.update(features_resident=resident,
+                        waves_at_wide_b=-(-WIDE_B * 384 // resident))
+            infos[level, inst] = info
+            print("instance", json.dumps(dict(
+                kernel="lk_level_kernel" if level else "lk_quad_kernel",
+                instance=instance_name(inst), sms=n_sm, **info)))
 
     t = time.perf_counter()
     courses = render_courses([("straight", "value", STRAIGHT_STEPS + 1),
@@ -980,6 +1078,7 @@ def main() -> int:
     frames, gt = courses[("straight", "value")]
 
     # ---- phase 3: kernels vs plain at KITTI shapes -----------------------
+    t = time.perf_counter()
     images, pts, valid, flow, disp = quad_inputs(frames, config, intr, dev)
     probe = torch.arange(0, pts.shape[0], pts.shape[0] // 64, device=dev)[:64]
     masked = torch.zeros_like(valid)
@@ -1005,9 +1104,11 @@ def main() -> int:
               + compare_leg(images, pts, masked, disp, params, 2,
                             "safe_masked_leg_sl2_n384"))
     real_leg(images, pts, valid, params)
-    for sl in (1, 2):
-        route_vs_quad(images, pts, valid, flow, disp, params, sl,
-                      f"sl{sl}_n384")
+    for inst in INSTANCES:
+        with instance_defaults(inst):
+            for sl in (1, 2):
+                route_vs_quad(images, pts, valid, flow, disp, params, sl,
+                              f"sl{sl}_n384")
     bframes = stacked_frames([courses[k][0] for k in BATCH_COURSES], 3)
     images, pts, valid, flow, disp = quad_inputs(bframes, config, intr, dev)
     some = valid & (torch.arange(BATCH, device=dev) % 2 == 0)[:, None]
@@ -1023,11 +1124,26 @@ def main() -> int:
                            f"fast_leg_sl1_b{BATCH}_n384")
                + compare_leg(images, pts, some, disp, params, 2,
                              f"safe_some_masked_leg_sl2_b{BATCH}_n384"))
-    for sl in (1, 2):
-        route_vs_quad(images, pts, valid, flow, disp, params, sl,
-                      f"sl{sl}_b{BATCH}_n384")
+    for inst in INSTANCES:
+        with instance_defaults(inst):
+            for sl in (1, 2):
+                route_vs_quad(images, pts, valid, flow, disp, params, sl,
+                              f"sl{sl}_b{BATCH}_n384")
+    # The instances again at WIDE_B sequences, where the card fills (the
+    # plain version is not timed here).
+    wframes = stacked_frames([courses[BATCH_COURSES[b % BATCH]][0]
+                              for b in range(WIDE_B)], 3)
+    images, pts, valid, flow, disp = quad_inputs(wframes, config, intr, dev)
+    wquad = compare_kernel(quad_check(images, pts, valid, flow, disp, params,
+                                      1), f"fast_sl1_b{WIDE_B}_n384",
+                           time_plain=False)
+    wlevels = compare_leg(images, pts, valid, disp, params, 1,
+                          f"fast_leg_sl1_b{WIDE_B}_n384", time_plain=False)
+    del images, pts, valid, flow, disp
+    print(f"phase 3: {time.perf_counter() - t:.1f} s")
 
     # ---- phase 4: the main path, on both routes --------------------------
+    t = time.perf_counter()
     xconfig = VOConfig.for_image(H, W, lk_backend="xla")
     cframes, cgt = courses[("straight", "checker")]
     runs, xruns = [], []
@@ -1041,7 +1157,10 @@ def main() -> int:
     xbatched_run = run_batched_path(courses, xconfig, intr, dev,
                                     ref_poses=bposes)[0]
 
+    print(f"phase 4: {time.perf_counter() - t:.1f} s")
+
     # ---- phase 5: small input against the CPU reference -----------------
+    t = time.perf_counter()
     small_reference(dev)
     small_batched_reference(dev)
 
@@ -1050,36 +1169,60 @@ def main() -> int:
     profile_frames(frames, xconfig, intr, dev, xruns[0]["ms_per_frame"],
                    label="profile_xla")
     batch_sweep(courses, config, intr, dev)
+    print(f"phases 5-6: {time.perf_counter() - t:.1f} s")
 
-    def row(name, replaces, n_launches, qs, lead):
-        """The kernel's row; ``lead`` is the check whose launch stands for
-        the kernel's time and bound."""
+    default = lk_cuda.variant()
+
+    def row(name, replaces, n_launches, qs, lead, level, wide=None):
+        """The kernel's row, at the default instance; ``lead`` is the check
+        whose launch stands for the kernel's time and bound. ``instances``
+        gives every instance's numbers on the same check (and on ``wide``,
+        the same check at WIDE_B sequences)."""
+        d = [q[default] for q in qs]
+        lead_d = lead[default]
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": replaces, "launches": n_launches,
-                "max_abs_err": max(q["max_abs_err"] for q in qs),
-                "ms": lead["ms"], "plain_ms": lead["plain_ms"],
-                "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
-                "library_ms": None, "timed": lead["label"],
-                "max_abs_err_held": max(q["max_abs_err_held"] for q in qs),
-                **{k: sum(q[k] for q in qs) for k in (
+                "max_abs_err": max(q["max_abs_err"] for q in d),
+                "ms": lead_d["ms"], "plain_ms": lead_d["plain_ms"],
+                "bound_ms": lead_d["bound_ms"], "bound_by": lead_d["bound_by"],
+                "library_ms": None, "timed": lead_d["label"],
+                "instance": instance_name(default),
+                "max_abs_err_held": max(q["max_abs_err_held"] for q in d),
+                **{k: sum(q[k] for q in d) for k in (
                     "knife_edge", "knife_edge_diverged",
                     "knife_edge_arbitrated")},
                 "max_abs_err_knife_edge": max(q["max_abs_err_knife_edge"]
-                                              for q in qs)}
+                                              for q in d),
+                "instances": [dict(
+                    instance=instance_name(i), default=i == default,
+                    replaces=replaces if level else INSTANCE_REPLACES[i],
+                    ms=lead[i]["ms"], bound_ms=lead[i]["bound_ms"],
+                    share_of_bound=lead[i]["share_of_bound"],
+                    longest_chain=lead[i]["longest_chain"],
+                    us_per_update=lead[i]["us_per_update"],
+                    max_abs_err=max(q[i]["max_abs_err"] for q in qs),
+                    **({f"ms_b{WIDE_B}": wide[i]["ms"],
+                        f"us_per_update_b{WIDE_B}": wide[i]["us_per_update"]}
+                       if wide else {}),
+                    **{k: infos[level, i][k] for k in (
+                        "registers", "local_bytes", "features_resident")})
+                    for i in INSTANCES]}
 
     def finest(qs):
-        return next(q for q in qs if q["level"] == 0)
+        return next(q for q in qs if q[default]["level"] == 0)
 
     print("total:", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         row("lk_quad_kernel", REPLACES,
-            sum(r["kernel_launches"] for r in runs), quads, quads[0]),
+            sum(r["kernel_launches"] for r in runs), quads, quads[0], False),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
-            batched_run["kernel_launches"], bquads, bquads[0]),
+            batched_run["kernel_launches"], bquads, bquads[0], False, wquad),
         row("lk_level_kernel", REPLACES_LEVEL,
-            sum(r["kernel_launches"] for r in xruns), levels, finest(levels)),
+            sum(r["kernel_launches"] for r in xruns), levels, finest(levels),
+            True),
         row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
-            xbatched_run["kernel_launches"], blevels, finest(blevels))]}))
+            xbatched_run["kernel_launches"], blevels, finest(blevels), True,
+            finest(wlevels))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

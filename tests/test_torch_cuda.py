@@ -1,6 +1,8 @@
 """The CUDA LK kernels on the card: each against its plain PyTorch version,
 each batched launch against B unbatched launches, and four chained legs of
 level launches (the per-leg route) against one quad launch, bit for bit.
+Every instance (doublestep x packed) is held to the plain version, and
+doublestep on equals doublestep off bit for bit.
 
 Every test here needs an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip where there is no card. This file imports neither JAX nor the
@@ -22,8 +24,18 @@ from visual_odom_tpu_torch.ops.lk import (LKImage, LKParams, lk_track_pyramid,
 #: thresholds)
 PT_TOL = 1e-3
 STATUS_MISMATCH_MAX = 1
+#: px; a track the plain version moves by PT_TOL or more when its points
+#: shift by +-KNIFE_SHIFT sits on a knife edge
+KNIFE_SHIFT = 1e-5
 
 pytestmark = pytest.mark.cuda
+
+#: (doublestep, packed) of each built instance
+INSTANCES = [(d, p) for p in (False, True) for d in (False, True)]
+
+
+def _instance_id(inst):
+    return f"doublestep{int(inst[0])}-packed{int(inst[1])}"
 
 
 @pytest.fixture
@@ -211,12 +223,17 @@ def test_batched_level_launch_equals_unbatched_launches(cuda_device, level):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("instance", INSTANCES, ids=_instance_id)
 @pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
 @pytest.mark.parametrize("start_level", [1, 2])
 def test_chained_level_legs_equal_quad_kernel(cuda_device, start_level,
-                                              batched):
+                                              batched, instance, monkeypatch):
     """Four lk_track_pyramid legs seeded as circular_match seeds them give
-    one lk_quad_kernel launch's positions and status bit for bit."""
+    one lk_quad_kernel launch's positions and status bit for bit, with both
+    kernels on the same instance (the module's defaults, as on the main
+    path)."""
+    monkeypatch.setattr(lk_cuda, "DEFAULT_DOUBLESTEP", instance[0])
+    monkeypatch.setattr(lk_cuda, "DEFAULT_PACKED", instance[1])
     planes, shapes, pad, (pts, valid, flow, disp) = (
         _batched_inputs(cuda_device) if batched else _inputs(cuda_device))
     imgs = [LKImage(tuple(p), shapes, pad) for p in planes]
@@ -260,3 +277,114 @@ def test_leg_on_cuda_counts_one_launch_per_level(cuda_device, start_level):
     levels = LKParams().levels if start_level is None else start_level
     assert lk_track_pyramid.launches == before + levels + 1
     assert out.is_cuda and status.is_cuda and int(status.sum()) > 20
+
+
+def _quad_or_level(kernel, dev, batched, n=256):
+    """(launch, plain, valid) for one kernel on the inputs above: the quad
+    at start level 2, or level 0 of leg L0 -> R0. ``plain(shift)`` runs the
+    plain version with the points moved by ``shift`` px."""
+    planes, shapes, pad, feats = (_batched_inputs(dev, n=n // 2) if batched
+                                  else _inputs(dev, n))
+    if kernel == "quad":
+        args = (planes, shapes, pad) + tuple(feats) + (LKParams(), 2)
+        plain = (lk_cuda.lk_quad_plain_batched if batched
+                 else lk_cuda.lk_quad_plain)
+        return (lambda **kw: lk_cuda.lk_quad_cuda(*args, **kw),
+                lambda shift=0.0: plain(args[0], args[1], args[2],
+                                        args[3] + shift, *args[4:])[:2],
+                feats[1])
+    args = _level_args(planes, shapes, pad, feats, 0)
+    plain = (lk_cuda.lk_level_plain_batched if batched
+             else lk_cuda.lk_level_plain)
+    return (lambda **kw: lk_cuda.lk_level_cuda(*args, **kw),
+            lambda shift=0.0: plain(*args[:5], args[5] + shift,
+                                    args[6] + shift, *args[7:])[:2],
+            feats[1])
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("kernel", ["quad", "level"])
+def test_doublestep_is_bit_exact(cuda_device, kernel, packed, batched):
+    """The window-reuse instance reads the same pixels into the same
+    arithmetic in the same order as the instance that reads global memory:
+    equal bit for bit."""
+    launch, _, _ = _quad_or_level(kernel, cuda_device, batched)
+    out_a, st_a = launch(doublestep=False, packed=packed)
+    out_b, st_b = launch(doublestep=True, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, out_b) and torch.equal(st_a, st_b)
+    assert int(st_a.sum()) > 50
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("instance", INSTANCES, ids=_instance_id)
+@pytest.mark.parametrize("kernel", ["quad", "level"])
+def test_instance_matches_plain(cuda_device, kernel, instance, batched):
+    """Every instance against the plain version: agreed tracks within
+    PT_TOL and invalid slots untouched. A packed instance sums in another
+    order, which can move a knife-edge track (one the plain version itself
+    moves by PT_TOL or more when its points shift by KNIFE_SHIFT px): such a
+    track counts as a status flip. Flips: at most STATUS_MISMATCH_MAX per
+    sequence."""
+    launch, plain, valid = _quad_or_level(kernel, cuda_device, batched)
+    out_k, st_k = launch(doublestep=instance[0], packed=instance[1])
+    out_p, st_p = plain()
+    both = st_k & st_p
+    err = (out_k - out_p).abs().amax(dim=-1)
+    if kernel == "quad":
+        err = err.amax(dim=0)
+    diverged = both & (err >= PT_TOL)
+    if instance[1]:
+        knife = torch.zeros_like(st_p)
+        for shift in (KNIFE_SHIFT, -KNIFE_SHIFT):
+            o, st = plain(shift)
+            d = (o - out_p).abs().amax(dim=-1)
+            knife |= (st != st_p) | ((d.amax(dim=0) if kernel == "quad" else d)
+                                     >= PT_TOL)
+        assert not bool((diverged & ~knife).any())
+        flips = (st_k != st_p) | diverged
+    else:
+        assert not bool(diverged.any()), float(err[both].max())
+        flips = st_k != st_p
+    torch.cuda.synchronize()
+    assert int(flips.sum(dim=-1).max()) <= STATUS_MISMATCH_MAX
+    assert int(both.sum()) > 50
+    assert not bool(st_k[~valid].any())
+    # invalid slots pass their input (quad) or init (level) through
+    inv = (lambda t: t[:, ~valid]) if kernel == "quad" else (lambda t: t[~valid])
+    assert torch.equal(inv(out_k), inv(out_p))
+
+
+def test_wrappers_reject_flags_they_were_not_built_for(cuda_device):
+    launch_q, _, _ = _quad_or_level("quad", cuda_device, False, n=32)
+    launch_l, _, _ = _quad_or_level("level", cuda_device, False, n=32)
+    for launch in (launch_q, launch_l):
+        for bad in ({"packed": 2}, {"doublestep": "yes"}, {"packed": 1},
+                    {"doublestep": None, "packed": np.bool_(True)}):
+            with pytest.raises(ValueError, match="built for True or False"):
+                launch(**bad)
+
+
+def test_doublestep_rejects_planes_it_cannot_stage(cuda_device):
+    """The window-reuse instance stages 16-byte copies: a plane whose rows
+    are not a multiple of 4 floats is refused, the other instance takes
+    it."""
+    planes, shapes, pad, feats = _inputs(cuda_device, n=32)
+    args = list(_level_args(planes, shapes, pad, feats, 0))
+    stride = args[1].shape[-1]
+    args[0] = args[0][:, :stride - 2].contiguous()
+    args[1] = args[1][:, :stride - 2].contiguous()
+    with pytest.raises(ValueError, match="doublestep"):
+        lk_cuda.lk_level_cuda(*args, doublestep=True)
+    lk_cuda.lk_level_cuda(*args, doublestep=False)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("instance", INSTANCES, ids=_instance_id)
+def test_kernel_info_reports_resources(cuda_device, instance):
+    for level in (False, True):
+        info = lk_cuda.kernel_info(level, *instance)
+        assert info["features_per_block"] == (4 if instance[1] else 2)
+        assert info["blocks_per_sm"] >= 1 and info["registers"] > 0
+        assert info["shared_bytes"] == info["features_per_block"] * 6560

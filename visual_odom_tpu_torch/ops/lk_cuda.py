@@ -38,6 +38,16 @@ the unbatched call is its B = 1 case. The JAX rule also broadcasts
 operands that carry no batch dim; the port's batched step batches every
 operand, so the batched form here takes only fully batched inputs.
 
+Instances: each kernel is built in four instances, which the wrappers'
+``doublestep`` and ``packed`` flags pick per call (``variant``; ``None``
+takes ``DEFAULT_DOUBLESTEP`` / ``DEFAULT_PACKED``, and nothing reads the
+environment). ``doublestep``, the counterpart of the TPU kernel's
+``VO_LK_DOUBLESTEP`` body, reads each update's J window from a superblock
+staged in shared memory and equals ``doublestep=False`` bit for bit.
+``packed``, the counterpart of ``VO_LK_PACKED``, runs four features a warp;
+its sums reduce in another order. The plain versions compute the same
+function for every instance.
+
 Devices: each wrapper launches its kernel for CUDA tensors; the plain
 versions (``lk_quad_plain``, ``lk_level_plain``, vectorised over features,
 a bounded masked loop, and their ``_batched`` twins) run only for CPU
@@ -64,6 +74,19 @@ _DF0, _DF2 = -0.5, 0.5
 _D_EPS = 1.19209e-07 * (1024.0 ** 2)
 _KERNEL_WINDOW = 21
 _KERNEL_MAX_LEVELS = 4
+#: J superblock of the window-reuse instances (``JB_ROWS``, ``JB_COLS`` in
+#: csrc/lk_legs.cu): a plane must be at least this large
+_SUPERBLOCK = (32, 36)
+
+#: The instance both kernels run when a caller names none (the main path
+#: never does, so its two routes run the same instance). Chosen by
+#: chip_smoke.py's device times on an NVIDIA H100 80GB HBM3 at 700 W, ms per
+#: launch with doublestep / without (LANES 32): fast quad at 384 slots
+#: 0.1071 / 0.1046, at B = 4 0.1570 / 0.1584, at B = 11 0.3011 / 0.3320;
+#: level launch, fast leg level 0, 0.0254 / 0.0272. Packed, with doublestep:
+#: 0.4109, 0.5300, 0.6937 and 0.0647.
+DEFAULT_DOUBLESTEP = True
+DEFAULT_PACKED = False
 
 #: (seed source, sign) per leg of the quad; leg k tracks image k -> k+1 of
 #: (L0, R0, R1, L1) cyclically.
@@ -309,17 +332,19 @@ def lk_level_plain_batched(I, J, rows: int, cols: int, pad: int,
 @functools.lru_cache(maxsize=None)
 def _library():
     """The kernels' library, built and loaded once, with the C signatures
-    of ``lk_quad_launch`` and ``lk_level_launch``."""
+    of ``lk_quad_launch``, ``lk_level_launch`` and ``lk_kernel_info``."""
     from visual_odom_tpu_torch.ops import _nvcc
 
     lib = _nvcc.load("lk_legs")
     lib.lk_quad_launch.argtypes = ([ctypes.c_void_p] * 8
                                    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                                   + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.lk_level_launch.argtypes = ([ctypes.c_void_p] * 7
                                     + [ctypes.c_int] * 9
-                                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    for fn in (lib.lk_quad_launch, lib.lk_level_launch):
+                                    + [ctypes.c_float] * 2
+                                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.lk_kernel_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    for fn in (lib.lk_quad_launch, lib.lk_level_launch, lib.lk_kernel_info):
         fn.restype = ctypes.c_int
     return lib
 
@@ -345,14 +370,56 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def variant(doublestep=None, packed=None) -> tuple:
+    """The kernel instance (doublestep, packed) a wrapper launches: ``None``
+    takes ``DEFAULT_DOUBLESTEP`` / ``DEFAULT_PACKED``. The kernels are built
+    for the four combinations of two bools and for nothing else."""
+    flags = (DEFAULT_DOUBLESTEP if doublestep is None else doublestep,
+             DEFAULT_PACKED if packed is None else packed)
+    for name, flag in zip(("doublestep", "packed"), flags):
+        if not isinstance(flag, bool):
+            raise ValueError(f"{name}: the LK kernels are built for True or "
+                             f"False, got {flag!r}")
+    return flags
+
+
+def _check_superblock(plane: torch.Tensor, name: str):
+    """A plane the window-reuse instances stage from: 16-byte aligned rows
+    (cp.async copies 16 bytes) and room for one superblock."""
+    rows, stride = plane.shape[-2:]
+    if (plane.data_ptr() % 16 or stride % 4 or rows < _SUPERBLOCK[0]
+            or stride < _SUPERBLOCK[1]):
+        raise ValueError(f"{name}: the doublestep instances need 16-byte "
+                         f"aligned planes with a row stride of a multiple of "
+                         f"4 and at least {_SUPERBLOCK[0]}x{_SUPERBLOCK[1]}, "
+                         f"got {rows}x{stride}")
+
+
+def kernel_info(level: bool, doublestep: bool, packed: bool) -> dict:
+    """Resources of one built instance on the current device, as the CUDA
+    runtime reports them: registers a thread, static shared bytes a block,
+    local (spill) bytes a thread, threads and features a block, and the
+    blocks an SM holds at once."""
+    info = np.zeros(6, dtype=np.int32)
+    err = _library().lk_kernel_info(int(level), int(doublestep), int(packed),
+                                    info.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"lk_kernel_info failed: CUDA error {err}")
+    keys = ("registers", "shared_bytes", "local_bytes", "threads",
+            "features_per_block", "blocks_per_sm")
+    return dict(zip(keys, (int(v) for v in info)))
+
+
 def lk_quad_cuda(planes, shapes, pad: int, pts: torch.Tensor,
                  valid: torch.Tensor, flow: torch.Tensor, disp: torch.Tensor,
-                 params: LKParams, start_level: int):
+                 params: LKParams, start_level: int, *, doublestep=None,
+                 packed=None):
     """Launch ``lk_quad_kernel`` on the current stream. Same contract as
     ``lk_quad_plain`` minus the iteration counts, or, given a leading batch
     dim on every operand, as ``lk_quad_plain_batched``: one launch for all
-    B sequences. Raises if the kernel does not take the inputs or the
-    launch fails."""
+    B sequences. ``doublestep`` / ``packed`` pick the instance (``variant``).
+    Raises if the kernel does not take the inputs or the launch fails."""
+    doublestep, packed = variant(doublestep, packed)
     dev = _cuda_device(pts, "pts")
     lead = tuple(pts.shape[:-2])
     if len(lead) > 1:
@@ -383,6 +450,8 @@ def lk_quad_cuda(planes, shapes, pad: int, pts: torch.Tensor,
             if p.shape[-2] < rows + 2 * pad or p.shape[-1] < cols + 2 * pad:
                 raise ValueError(f"plane [{im}][{lv}] smaller than its padded "
                                  f"level {rows}x{cols} + 2*{pad}")
+            if doublestep:
+                _check_superblock(p, f"plane [{im}][{lv}]")
             ptrs.append(p.data_ptr())
     for lv in range(start_level + 1):
         plane_rows, stride = planes[0][lv].shape[-2:]
@@ -396,7 +465,7 @@ def lk_quad_cuda(planes, shapes, pad: int, pts: torch.Tensor,
         flow.data_ptr(), disp.data_ptr(), valid_i.data_ptr(),
         out.data_ptr(), status.data_ptr(), n, batch, start_level, pad,
         params.max_iters, float(params.eps * params.eps),
-        float(params.min_eig_threshold),
+        float(params.min_eig_threshold), int(doublestep), int(packed),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lk_quad_kernel launch failed: CUDA error {err}")
@@ -409,12 +478,15 @@ def lk_quad_cuda(planes, shapes, pad: int, pts: torch.Tensor,
 
 def lk_level_cuda(I: torch.Tensor, J: torch.Tensor, rows: int, cols: int,
                   pad: int, prev: torch.Tensor, init: torch.Tensor,
-                  valid: torch.Tensor, params: LKParams, finest: bool):
+                  valid: torch.Tensor, params: LKParams, finest: bool, *,
+                  doublestep=None, packed=None):
     """Launch ``lk_level_kernel`` on the current stream. Same contract as
     ``lk_level_plain`` minus the iteration counts, or, given a leading
     batch dim on the planes and the features, as ``lk_level_plain_batched``:
-    one launch for all B sequences. Raises if the kernel does not take the
-    inputs or the launch fails."""
+    one launch for all B sequences. ``doublestep`` / ``packed`` pick the
+    instance (``variant``). Raises if the kernel does not take the inputs
+    or the launch fails."""
+    doublestep, packed = variant(doublestep, packed)
     dev = _cuda_device(prev, "prev")
     lead = tuple(prev.shape[:-2])
     if len(lead) > 1:
@@ -435,6 +507,9 @@ def lk_level_cuda(I: torch.Tensor, J: torch.Tensor, rows: int, cols: int,
     if plane_rows < rows + 2 * pad or stride < cols + 2 * pad:
         raise ValueError(f"planes {tuple(I.shape[-2:])} smaller than their "
                          f"padded level {rows}x{cols} + 2*{pad}")
+    if doublestep:
+        _check_superblock(I, "I")
+        _check_superblock(J, "J")
     out = torch.empty(lead + (n, 2), dtype=torch.float32, device=dev)
     ok = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
     err = _library().lk_level_launch(
@@ -442,7 +517,7 @@ def lk_level_cuda(I: torch.Tensor, J: torch.Tensor, rows: int, cols: int,
         valid_i.data_ptr(), out.data_ptr(), ok.data_ptr(), rows, cols, stride,
         plane_rows, pad, n, batch, int(finest), params.max_iters,
         float(params.eps * params.eps), float(params.min_eig_threshold),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(doublestep), int(packed), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lk_level_kernel launch failed: CUDA error {err}")
     if lead:
