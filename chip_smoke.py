@@ -43,8 +43,12 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    (bench.py:307-316), and, for each instance, four chained
    ``lk_track_pyramid`` legs on the card against one quad launch on the
    same inputs, at start levels 1 and 2, single and batched: equal bit for
-   bit. Last, the fast quad and the fast leg at B = WIDE_B, where the card
-   fills, to time the instances there.
+   bit. Then the same three checks (quad, every level launch of leg L0 ->
+   R0, four chained legs against the quad) at start level 3 on the inputs a
+   loop-edge measurement gives the kernels (``full_sl3_n384``): fresh
+   bucketed points of frame 0, frame 1's pyramids, zero flow and
+   disparity. Last, the fast quad and the fast leg at B = WIDE_B, where the
+   card fills, to time the instances there.
 4. Run the main path (the default instance), ``run_sequence_scan``, at
    1241x376: 64 steps of the
    "straight" course and 160 steps of "straight" with the periodic "checker"
@@ -73,7 +77,23 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    per-leg route's step. The same for the
    batched step at each B of SWEEP_B (the four courses' first
    SWEEP_STEPS steps, tiled to B sequences), after timing those steps
-   with ``run_sequences_batched``: aggregate frames/s and ms per step.
+   with ``run_sequences_batched``: aggregate frames/s and ms per step. The
+   sync check also runs one step made ``with_tracks``.
+7. The back end (one ``backend`` line per part), on LOOP_STEPS steps of the
+   "loop" course: (a) ``run_sequence_scan(collect_tracks=True)`` under the
+   bench gates, one snapshot per step whose valid count is the step's
+   ``num_matched``, and its first TRACKS_COST_STEPS steps timed without and
+   with collection in turns (the same chain bit for bit); (b) ``smooth_trajectory_ba`` with the CLI's defaults,
+   gated as the JAX package behaves on this course (within the bench's ATE
+   budget: JAX itself does not bring it below the chain's here), and with
+   the km-scale config (reported); (c) ``close_loops`` on the raw chain as
+   bench.py:220-222 calls it: at least one edge, the closure shrinks, ATE
+   at most LOOP_ATE_FACTOR x the chain's, two quad launches per
+   measurement, all from the pyramid top, and on the per-leg route the
+   same edges, graph and poses bit for bit with 2 x LEG_STEP_LAUNCHES level
+   launches per measurement; (d) the first window's BA problem and the
+   loop run's pose graph solved on the card and on the CPU, within
+   BA_CARD_CPU_TOL and NODE_CARD_CPU_TOL.
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -159,6 +179,26 @@ SOURCE = "visual_odom_tpu_torch/csrc/lk_legs.cu"
 #: the batched path's sequences, in batch order: (course, texture family)
 BATCH_COURSES = (("straight", "value"), ("straight", "checker"),
                  ("turning", "value"), ("stress", "value"))
+#: the back end's course: "loop" closes its square at frame 320 (~256 m)
+LOOP_STEPS = 320
+#: steps timed without and with snapshot collection
+TRACKS_COST_STEPS = 32
+#: one loop-edge step (full pyramid, lk_skip_mode "fixed"): one quad, or 4
+#: legs x 4 levels on the per-leg route
+LEG_STEP_LAUNCHES = 16
+#: windowed BA, the CLI's defaults for a short course (cli.py:473-484) and
+#: the km-scale config (SOAK_r05.json "ba")
+BA_SHORT = dict(window=8, iterations=8, max_landmarks=256, min_track_len=3,
+                huber_delta=1.5)
+BA_KM = dict(window=16, iterations=8, max_landmarks=384, min_track_len=5,
+             huber_delta=0.8)
+#: close_loops' ATE bar (tests/test_posegraph.py:168-169)
+LOOP_ATE_FACTOR = 1.05
+#: card against CPU: poses, the JAX package's ring-vs-single bound
+#: (tests/test_ba_window.py:122); nodes, its sharded-vs-single bound
+#: (tests/test_posegraph.py:106)
+BA_CARD_CPU_TOL = 5e-4
+NODE_CARD_CPU_TOL = 2e-4
 
 
 def kitti_intrinsics(height: int, width: int):
@@ -327,6 +367,27 @@ def quad_inputs(frames, config, intr, dev):
     disp = torch.maximum(torch.minimum(feats.disp, lim), -lim).contiguous()
     images = (state.lk_l0, state.lk_r0, lk_r1, lk_l1)   # quad order
     return images, feats.points.contiguous(), feats.valid, flow, disp
+
+
+def full_pyramid_inputs(frames, config, intr, dev):
+    """The quad inputs of a loop-edge measurement (``runner.loopclosure``):
+    a state fresh from ``init_vo_state`` on frame 0 (no features), so the
+    bucketed points are all fresh, frame 1's pyramids, and zero flow and
+    disparity: the quad starts at the top of the pyramid."""
+    import torch
+
+    from visual_odom_tpu_torch.frontend.bucketing import detect_and_bucket
+    from visual_odom_tpu_torch.runner import pipeline
+
+    state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
+    pad = state.lk_l0.pad
+    raw = state.lk_l0.pyramid[0][..., pad:pad + H, pad:pad + W]
+    feats = detect_and_bucket(raw, state.features, config)
+    lk_l1 = pipeline._prep_image(frames[1][0], config, dev)
+    lk_r1 = pipeline._prep_image(frames[1][1], config, dev)
+    zero = torch.zeros_like(feats.points)
+    images = (state.lk_l0, state.lk_r0, lk_r1, lk_l1)   # quad order
+    return images, feats.points.contiguous(), feats.valid, zero, zero
 
 
 def block_pixels(hp, wp, pad, corners, win, template=True):
@@ -594,32 +655,32 @@ def compare_kernel(check, label, time_plain=True):
 
 
 @contextlib.contextmanager
-def recorded_levels():
-    """Record the arguments of every ``lk_level_cuda`` call made inside the
-    block: the level inputs the per-leg route gives the kernel."""
-    from visual_odom_tpu_torch.ops import lk_cuda
-
-    real = lk_cuda.lk_level_cuda
+def recorded_calls(module, name):
+    """Record the positional arguments of every call of ``module.name``
+    made inside the block (e.g. the level inputs the per-leg route gives
+    ``lk_cuda.lk_level_cuda``)."""
+    real = getattr(module, name)
     calls = []
 
     def record(*args, **kwargs):
         calls.append(args)
         return real(*args, **kwargs)
 
-    lk_cuda.lk_level_cuda = record
+    setattr(module, name, record)
     try:
         yield calls
     finally:
-        lk_cuda.lk_level_cuda = real
+        setattr(module, name, real)
 
 
 def compare_leg(images, pts, valid, disp, params, sl, label, **kw):
     """Each level launch of leg L0 -> R0, seeded at pts + disp as
     ``circular_match`` seeds it, against the plain version on the inputs
     ``lk_track_pyramid`` gives it (``compare_kernel``, every instance)."""
+    from visual_odom_tpu_torch.ops import lk_cuda
     from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
 
-    with recorded_levels() as calls:
+    with recorded_calls(lk_cuda, "lk_level_cuda") as calls:
         lk_track_pyramid(images[0], images[1], pts, valid, params,
                          init_pts=pts + disp, start_level=sl)
     return [compare_kernel(level_check(args, sl - k), f"{label}_l{sl - k}",
@@ -940,11 +1001,14 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=8,
         state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
     up = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
           for l, r in frames[1:n_frames + 3]]
-    # The step never waits for the device: any synchronising call raises.
+    tracks_step = pipeline.make_step_fn(config, intr, with_tracks=True,
+                                        device=dev)
+    # The step never waits for the device, nor does it when it also returns
+    # its track snapshot: any synchronising call raises.
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for l, r in up[:2]:
-            state, _ = step(state, l, r)
+        state, _ = step(state, *up[0])
+        state, _, _ = tracks_step(state, *up[1])
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -1016,6 +1080,217 @@ def batch_sweep(courses, config, intr, dev, n_prof=4):
     return rows
 
 
+def backend_scan(frames, gt, config, intr, dev):
+    """Phase 7 (a): ``run_sequence_scan(collect_tracks=True)`` on the quad
+    route under the bench gates; one snapshot per step, its valid count the
+    step's ``num_matched``. Returns (result dict, poses, snapshots)."""
+    from visual_odom_tpu_torch.runner import pipeline
+
+    reset_counts()
+    poses, fetched, wall, n, snaps = pipeline.run_sequence_scan(
+        frames, config, intr, chunk=CHUNK, warmup=False, collect_tracks=True,
+        device=dev)
+    counts = read_counts()
+    accept = float(np.mean(fetched.accept))
+    ate, budget = ate_and_budget(poses, gt)
+    valid = np.array([int(s.valid.sum()) for s in snaps])
+    res = dict(part="scan_with_tracks", course="loop", steps=n, wall_s=wall,
+               fps=n / wall, ms_per_frame=1e3 * wall / n, accept=accept,
+               ate_m=ate, ate_budget_m=budget, snapshots=len(snaps),
+               valid_equals_matched=bool(np.array_equal(valid,
+                                                        fetched.num_matched)),
+               launch_counts=counts)
+    print("backend", json.dumps(res))
+    if not (len(snaps) == n and res["valid_equals_matched"]
+            and all(s.points_l1.shape == (config.padded_features, 2)
+                    for s in snaps) and np.isfinite(poses).all()):
+        raise AssertionError(f"backend scan: snapshots or poses wrong: {res}")
+    res["kernel_launches"] = check_counts("backend scan", config, counts, n,
+                                          False)
+    if not (accept >= 0.9 and ate <= budget):
+        raise AssertionError(f"backend scan: accuracy gates failed: {res}")
+    return res, poses, snaps
+
+
+def tracks_cost(frames, config, intr, dev):
+    """Phase 7 (a), the cost of collecting snapshots: the first
+    TRACKS_COST_STEPS steps of the course through ``run_sequence_scan``
+    without and with ``collect_tracks``, in turns (without, with, with,
+    without; the host's speed drifts within a run). The chains must be
+    equal bit for bit: collecting changes no result."""
+    from visual_odom_tpu_torch.runner import pipeline
+
+    part = frames[:TRACKS_COST_STEPS + 1]
+    walls = {False: [], True: []}
+    poses = {}
+    for tracks in (False, True, True, False):
+        out = pipeline.run_sequence_scan(part, config, intr, chunk=CHUNK,
+                                         warmup=False, collect_tracks=tracks,
+                                         device=dev)
+        walls[tracks].append(1e3 * out[2] / out[3])
+        poses.setdefault(tracks, out[0])
+    res = dict(part="tracks_cost", steps=TRACKS_COST_STEPS,
+               ms_per_frame_without=walls[False], ms_per_frame_with=walls[True],
+               ratio=float(np.mean(walls[True]) / np.mean(walls[False])),
+               same_chain=bool(np.array_equal(poses[False], poses[True])))
+    print("backend", json.dumps(res))
+    if not res["same_chain"]:
+        raise AssertionError("collecting snapshots changed the chain")
+    return res
+
+
+def backend_ba(snaps, poses, gt, intr, dev):
+    """Phase 7 (b) and the BA half of (d): ``smooth_trajectory_ba`` with the
+    CLI's short-course defaults and with the km-scale config; the first
+    window's problem solved on the card and on the CPU; one GN iteration
+    and one 8-iteration solve timed on the card."""
+    from visual_odom_tpu_torch.ba import schur, window
+
+    ate_chain, budget = ate_and_budget(poses, gt)
+    rows = {}
+    for name, kw in (("ba", BA_SHORT), ("ba_km", BA_KM)):
+        solved = []
+
+        def solver(problem, kw=kw):
+            solved.append(problem.mask.shape)
+            return schur.ba_solve(problem, iterations=kw["iterations"],
+                                  huber_delta=kw["huber_delta"])
+
+        t = time.perf_counter()
+        smoothed = window.smooth_trajectory_ba(
+            snaps, poses, intr, window=kw["window"],
+            max_landmarks=kw["max_landmarks"],
+            min_track_len=kw["min_track_len"], solver=solver, device=dev)
+        wall = time.perf_counter() - t
+        ate = ate_and_budget(smoothed, gt)[0]
+        n_windows = len(poses) // kw["window"]
+        rows[name] = dict(part=name, **kw, ate_chain_m=ate_chain, ate_ba_m=ate,
+                          ate_budget_m=budget, improved=bool(ate < ate_chain),
+                          windows=n_windows, windows_solved=len(solved),
+                          windows_skipped=n_windows - len(solved),
+                          mean_landmarks=float(np.mean([s[1] for s in solved]))
+                          if solved else 0.0, wall_s=wall,
+                          gn_iterations=len(solved) * kw["iterations"])
+        print("backend", json.dumps(rows[name]))
+        if not (smoothed.shape == poses.shape and np.isfinite(smoothed).all()
+                and np.allclose(smoothed[0], poses[0], atol=1e-6)
+                and solved):
+            raise AssertionError(f"{name}: smoothed trajectory wrong: "
+                                 f"{rows[name]}")
+    # The JAX package on the CPU over this course (python
+    # tests/test_torch_ba.py loop 320) smooths the chain's 0.146 m ATE to
+    # 0.185 m, missing its own BA bar (tests/test_ba_window.py:100): BA is
+    # held to the bench's ATE budget here, as JAX behaves, not below the
+    # chain.
+    if not rows["ba"]["ate_ba_m"] <= budget:
+        raise AssertionError(f"ba: smoothed ATE over the budget: {rows['ba']}")
+
+    kw = BA_SHORT
+    problem = window.build_window_problem(
+        window.window_tracks(snaps, range(kw["window"])), poses[:kw["window"]],
+        intr, max_landmarks=kw["max_landmarks"],
+        min_track_len=kw["min_track_len"], device=dev)
+    cpu = problem._replace(**{k: getattr(problem, k).cpu() for k in (
+        "poses", "landmarks", "observations", "mask")})
+    card = schur.ba_solve(problem, iterations=kw["iterations"],
+                          huber_delta=kw["huber_delta"]).poses.cpu()
+    ref = schur.ba_solve(cpu, iterations=kw["iterations"],
+                         huber_delta=kw["huber_delta"]).poses
+    diff = float((card - ref).abs().max())
+    res = dict(part="ba_card_vs_cpu", window=kw["window"],
+               landmarks=int(problem.mask.shape[1]),
+               observations=int(problem.mask.sum()),
+               max_abs_dpose=diff, tol=BA_CARD_CPU_TOL,
+               gn_iteration_ms=time_ms(lambda: schur.ba_gauss_newton_step(
+                   problem, huber_delta=kw["huber_delta"]), reps=10, warm=2),
+               solve_ms=time_ms(lambda: schur.ba_solve(
+                   problem, iterations=kw["iterations"],
+                   huber_delta=kw["huber_delta"]), reps=3, warm=1))
+    print("backend", json.dumps(res))
+    if not diff < BA_CARD_CPU_TOL:
+        raise AssertionError(f"BA on the card differs from the CPU: {res}")
+    return rows, res
+
+
+def backend_loops(frames, poses, gt, config, xconfig, intr, dev):
+    """Phase 7 (c) and the pose-graph half of (d): ``close_loops`` on the raw
+    chain as bench.py:220-222 calls it, on the quad route and on the
+    per-leg route; the loop run's graph solved on the card and on the
+    CPU."""
+    import torch
+
+    from visual_odom_tpu_torch.ba import posegraph
+    from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
+    from visual_odom_tpu_torch.ops import lk_cuda
+    from visual_odom_tpu_torch.runner import loopclosure
+
+    lf = SyntheticStereoSequence._loop_schedule(len(frames))[2]
+    ate_chain = ate_and_budget(poses, gt)[0]
+    runs = {}
+    for cfg in (config, xconfig):
+        route = cfg.resolved_lk_backend()
+        reset_counts()
+        with recorded_calls(lk_cuda, "lk_quad_cuda") as quads, \
+                recorded_calls(loopclosure,
+                               "measure_loop_edge_bidirectional") as measured:
+            t = time.perf_counter()
+            new_poses, info = loopclosure.close_loops(
+                poses, lambda i: frames[i], cfg, intr, gt_loop_pair=(0, lf),
+                device=dev)
+            wall = time.perf_counter() - t
+        counts = read_counts()
+        m = len(measured)
+        res = dict(part="loop_closure", route=route, loop_frame=lf,
+                   candidates=len(info.candidates), measurements=m,
+                   edges=info.edges, closure_before_m=info.closure_before_m,
+                   closure_after_m=info.closure_after_m, ate_chain_m=ate_chain,
+                   ate_after_m=ate_and_budget(new_poses, gt)[0], wall_s=wall,
+                   quad_start_levels=sorted(set(int(q[8]) for q in quads)),
+                   launch_counts=counts)
+        print("backend", json.dumps(res))
+        runs[route] = (res, new_poses, info)
+        expected = dict.fromkeys(counts, 0)
+        if route == "pallas":
+            expected["quad"] = 2 * m
+        else:
+            expected["level"] = 2 * m * LEG_STEP_LAUNCHES
+        if counts != expected or (quads and res["quad_start_levels"]
+                                  != [cfg.lk_levels]):
+            raise AssertionError(f"loop closure ({route}): launches {counts}, "
+                                 f"expected {expected}, quad start levels "
+                                 f"{res['quad_start_levels']}")
+    (res, new_poses, info), (xres, xposes, xinfo) = runs["pallas"], runs["xla"]
+    same = (info.edges == xinfo.edges and info.candidates == xinfo.candidates
+            and (info.graph is None) == (xinfo.graph is None)
+            and (info.graph is None or all(
+                torch.equal(a, b) for a, b in zip(info.graph, xinfo.graph)))
+            and np.array_equal(new_poses, xposes))
+    print("backend", json.dumps(dict(part="loop_routes_bit_exact",
+                                     equal=same)))
+    if not same:
+        raise AssertionError("loop closure: the per-leg route's edges, graph "
+                             "or poses differ from the quad route's")
+    if not (info.edges and res["closure_after_m"] < res["closure_before_m"]
+            and res["ate_after_m"] <= LOOP_ATE_FACTOR * ate_chain):
+        raise AssertionError(f"loop closure: gates failed: {res}")
+
+    graph = info.graph
+    card = posegraph.posegraph_solve(graph).nodes.cpu()
+    ref = posegraph.posegraph_solve(
+        posegraph.PoseGraph(*(x.cpu() for x in graph))).nodes
+    diff = float((card - ref).abs().max())
+    pg = dict(part="posegraph_card_vs_cpu", nodes=int(graph.nodes.shape[0]),
+              edges=int(graph.edges.shape[0]), max_abs_dnode=diff,
+              tol=NODE_CARD_CPU_TOL,
+              solve_ms=time_ms(lambda: posegraph.posegraph_solve(graph),
+                               reps=3, warm=1))
+    print("backend", json.dumps(pg))
+    if not diff < NODE_CARD_CPU_TOL:
+        raise AssertionError(f"pose graph on the card differs from the CPU: "
+                             f"{pg}")
+    return res, xres, pg
+
+
 def main() -> int:
     import torch
 
@@ -1067,7 +1342,8 @@ def main() -> int:
     courses = render_courses([("straight", "value", STRAIGHT_STEPS + 1),
                               ("straight", "checker", CHECKER_STEPS + 1),
                               ("turning", "value", BENCH_STEPS + 1),
-                              ("stress", "value", BENCH_STEPS + 1)], H, W)
+                              ("stress", "value", BENCH_STEPS + 1),
+                              ("loop", "value", LOOP_STEPS + 1)], H, W)
     print(f"render: {time.perf_counter() - t:.2f} s")
 
     config = VOConfig.for_image(H, W)
@@ -1109,6 +1385,18 @@ def main() -> int:
             for sl in (1, 2):
                 route_vs_quad(images, pts, valid, flow, disp, params, sl,
                               f"sl{sl}_n384")
+    # From the pyramid top, as each loop-edge measurement launches them.
+    full = full_pyramid_inputs(frames, config, intr, dev)
+    sl_top = params.levels
+    quad_full = compare_kernel(quad_check(*full, params, sl_top),
+                               f"full_sl{sl_top}_n384")
+    quads.append(quad_full)
+    levels += compare_leg(full[0], full[1], full[2], full[4], params, sl_top,
+                          f"full_leg_sl{sl_top}_n384")
+    for inst in INSTANCES:
+        with instance_defaults(inst):
+            route_vs_quad(*full, params, sl_top, f"full_sl{sl_top}_n384")
+    del full
     bframes = stacked_frames([courses[k][0] for k in BATCH_COURSES], 3)
     images, pts, valid, flow, disp = quad_inputs(bframes, config, intr, dev)
     some = valid & (torch.arange(BATCH, device=dev) % 2 == 0)[:, None]
@@ -1171,17 +1459,31 @@ def main() -> int:
     batch_sweep(courses, config, intr, dev)
     print(f"phases 5-6: {time.perf_counter() - t:.1f} s")
 
+    # ---- phase 7: the back end on the loop course -------------------------
+    t = time.perf_counter()
+    lframes, lgt = courses[("loop", "value")]
+    scan, lposes, snaps = backend_scan(lframes, lgt, config, intr, dev)
+    tracks_cost(lframes, config, intr, dev)
+    backend_ba(snaps, lposes, lgt, intr, dev)
+    loops, xloops, _ = backend_loops(lframes, lposes, lgt, config, xconfig,
+                                     intr, dev)
+    del snaps
+    print(f"phase 7: {time.perf_counter() - t:.1f} s")
+
     default = lk_cuda.variant()
 
-    def row(name, replaces, n_launches, qs, lead, level, wide=None):
+    def row(name, replaces, paths, qs, lead, level, wide=None, top=None):
         """The kernel's row, at the default instance; ``lead`` is the check
-        whose launch stands for the kernel's time and bound. ``instances``
-        gives every instance's numbers on the same check (and on ``wide``,
-        the same check at WIDE_B sequences)."""
+        whose launch stands for the kernel's time and bound. ``paths``
+        gives its launches on each path driven ({path: count}), ``launches``
+        their sum. ``instances`` gives every instance's numbers on the same
+        check (and on ``wide``, the same check at WIDE_B sequences; on
+        ``top``, the quad from the pyramid top)."""
         d = [q[default] for q in qs]
         lead_d = lead[default]
         return {"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": replaces, "launches": n_launches,
+                "replaces": replaces, "launches": sum(paths.values()),
+                "launches_by_path": paths,
                 "max_abs_err": max(q["max_abs_err"] for q in d),
                 "ms": lead_d["ms"], "plain_ms": lead_d["plain_ms"],
                 "bound_ms": lead_d["bound_ms"], "bound_by": lead_d["bound_by"],
@@ -1204,6 +1506,9 @@ def main() -> int:
                     **({f"ms_b{WIDE_B}": wide[i]["ms"],
                         f"us_per_update_b{WIDE_B}": wide[i]["us_per_update"]}
                        if wide else {}),
+                    **({f"ms_{top[i]['label']}": top[i]["ms"],
+                        f"bound_ms_{top[i]['label']}": top[i]["bound_ms"]}
+                       if top else {}),
                     **{k: infos[level, i][k] for k in (
                         "registers", "local_bytes", "features_resident")})
                     for i in INSTANCES]}
@@ -1214,15 +1519,20 @@ def main() -> int:
     print("total:", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         row("lk_quad_kernel", REPLACES,
-            sum(r["kernel_launches"] for r in runs), quads, quads[0], False),
+            {"main_path": sum(r["kernel_launches"] for r in runs),
+             "backend_scan": scan["kernel_launches"],
+             "loop_edges": loops["launch_counts"]["quad"]},
+            quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
-            batched_run["kernel_launches"], bquads, bquads[0], False, wquad),
+            {"batched_path": batched_run["kernel_launches"]}, bquads,
+            bquads[0], False, wquad),
         row("lk_level_kernel", REPLACES_LEVEL,
-            sum(r["kernel_launches"] for r in xruns), levels, finest(levels),
-            True),
+            {"main_path": sum(r["kernel_launches"] for r in xruns),
+             "loop_edges": xloops["launch_counts"]["level"]},
+            levels, finest(levels), True),
         row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
-            xbatched_run["kernel_launches"], blevels, finest(blevels), True,
-            finest(wlevels))]}))
+            {"batched_path": xbatched_run["kernel_launches"]}, blevels,
+            finest(blevels), True, finest(wlevels))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

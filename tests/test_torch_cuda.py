@@ -2,7 +2,10 @@
 each batched launch against B unbatched launches, and four chained legs of
 level launches (the per-leg route) against one quad launch, bit for bit.
 Every instance (doublestep x packed) is held to the plain version, and
-doublestep on equals doublestep off bit for bit.
+doublestep on equals doublestep off bit for bit, also from the top of the
+pyramid with zero flow and disparity, as a loop-edge measurement launches
+them. The back end's solves (``ba_solve``, ``posegraph_solve``) on the card
+against the same solves on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip where there is no card. This file imports neither JAX nor the
@@ -15,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from visual_odom_tpu_torch.ba import posegraph, problem, schur
+from visual_odom_tpu_torch.core.lie import rodrigues
 from visual_odom_tpu_torch.ops import lk_cuda
 from visual_odom_tpu_torch.ops.lk import (LKImage, LKParams, lk_track_pyramid,
                                           prepare_lk_image)
@@ -27,6 +32,11 @@ STATUS_MISMATCH_MAX = 1
 #: px; a track the plain version moves by PT_TOL or more when its points
 #: shift by +-KNIFE_SHIFT sits on a knife edge
 KNIFE_SHIFT = 1e-5
+#: card against CPU: BA poses, the JAX package's ring-vs-single bound
+#: (tests/test_ba_window.py:122); pose-graph nodes, its sharded-vs-single
+#: bound (tests/test_posegraph.py:106)
+BA_TOL = 5e-4
+NODE_TOL = 2e-4
 
 pytestmark = pytest.mark.cuda
 
@@ -321,13 +331,17 @@ def test_doublestep_is_bit_exact(cuda_device, kernel, packed, batched):
 @pytest.mark.parametrize("instance", INSTANCES, ids=_instance_id)
 @pytest.mark.parametrize("kernel", ["quad", "level"])
 def test_instance_matches_plain(cuda_device, kernel, instance, batched):
-    """Every instance against the plain version: agreed tracks within
-    PT_TOL and invalid slots untouched. A packed instance sums in another
-    order, which can move a knife-edge track (one the plain version itself
-    moves by PT_TOL or more when its points shift by KNIFE_SHIFT px): such a
-    track counts as a status flip. Flips: at most STATUS_MISMATCH_MAX per
-    sequence."""
     launch, plain, valid = _quad_or_level(kernel, cuda_device, batched)
+    _hold_to_plain(kernel, instance, launch, plain, valid)
+
+
+def _hold_to_plain(kernel, instance, launch, plain, valid):
+    """One instance against the plain version: agreed tracks within PT_TOL
+    and invalid slots untouched. A packed instance sums in another order,
+    which can move a knife-edge track (one the plain version itself moves
+    by PT_TOL or more when its points shift by KNIFE_SHIFT px): such a track
+    counts as a status flip. Flips: at most STATUS_MISMATCH_MAX per
+    sequence."""
     out_k, st_k = launch(doublestep=instance[0], packed=instance[1])
     out_p, st_p = plain()
     both = st_k & st_p
@@ -354,6 +368,93 @@ def test_instance_matches_plain(cuda_device, kernel, instance, batched):
     # invalid slots pass their input (quad) or init (level) through
     inv = (lambda t: t[:, ~valid]) if kernel == "quad" else (lambda t: t[~valid])
     assert torch.equal(inv(out_k), inv(out_p))
+
+
+def _full_pyramid_inputs(dev, n=256):
+    """``_inputs`` with zero flow and disparity: what a loop-edge
+    measurement gives the kernels, which then start at level ``levels``."""
+    planes, shapes, pad, (pts, valid, flow, _) = _inputs(dev, n)
+    zero = torch.zeros_like(flow)
+    return planes, shapes, pad, (pts, valid, zero, zero)
+
+
+@pytest.mark.parametrize("instance", INSTANCES, ids=_instance_id)
+def test_quad_from_pyramid_top_matches_plain(cuda_device, instance):
+    planes, shapes, pad, feats = _full_pyramid_inputs(cuda_device)
+    args = (planes, shapes, pad) + tuple(feats) + (LKParams(),
+                                                   LKParams().levels)
+    _hold_to_plain(
+        "quad", instance, lambda **kw: lk_cuda.lk_quad_cuda(*args, **kw),
+        lambda shift=0.0: lk_cuda.lk_quad_plain(
+            *args[:3], args[3] + shift, *args[4:])[:2], feats[1])
+
+
+@pytest.mark.parametrize("instance", INSTANCES, ids=_instance_id)
+def test_level_launches_from_pyramid_top_match_plain(cuda_device, instance,
+                                                     monkeypatch):
+    """Every level launch of leg L0 -> R0 from the pyramid top (start level
+    None, seeded at the points) against the plain version on the inputs
+    ``lk_track_pyramid`` gives it."""
+    planes, shapes, pad, (pts, valid, _, _) = _full_pyramid_inputs(cuda_device)
+    calls, real = [], lk_cuda.lk_level_cuda
+
+    def record(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(lk_cuda, "lk_level_cuda", record)
+    lk_track_pyramid(LKImage(planes[0], shapes, pad),
+                     LKImage(planes[1], shapes, pad), pts, valid, LKParams(),
+                     init_pts=pts)
+    monkeypatch.undo()
+    assert len(calls) == LKParams().levels + 1
+    for a in calls:
+        _hold_to_plain(
+            "level", instance, lambda a=a, **kw: lk_cuda.lk_level_cuda(*a, **kw),
+            lambda shift=0.0, a=a: lk_cuda.lk_level_plain(
+                *a[:5], a[5] + shift, a[6] + shift, a[7] > 0, *a[8:])[:2],
+            a[7] > 0)
+
+
+def test_ba_solve_on_card_matches_cpu(cuda_device):
+    """A window-sized problem (8 poses, 256 landmarks, tracks of <= 5
+    frames) solved with the CLI's defaults on the card and on the CPU."""
+    p, _, _ = problem.synthetic_ba_problem(num_poses=8, num_landmarks=256,
+                                           obs_window=2, device="cpu")
+    card = p._replace(**{k: getattr(p, k).to(cuda_device) for k in (
+        "poses", "landmarks", "observations", "mask")})
+    got = schur.ba_solve(card, iterations=8, huber_delta=1.5)
+    ref = schur.ba_solve(p, iterations=8, huber_delta=1.5)
+    assert got.poses.is_cuda
+    assert float((got.poses.cpu() - ref.poses).abs().max()) < BA_TOL
+
+
+def test_posegraph_solve_on_card_matches_cpu(cuda_device):
+    """A drifted circle of 40 nodes closed by one loop edge, solved on the
+    card and on the CPU."""
+    rng = np.random.default_rng(3)
+    n = 40
+    th = 2 * np.pi * np.arange(n) / n
+    truth = np.tile(np.eye(4), (n, 1, 1))
+    truth[:, :3, :3] = rodrigues(torch.tensor(
+        np.stack([0 * th, th, 0 * th], 1))).numpy()
+    truth[:, 0, 3], truth[:, 2, 3] = 10 * np.sin(th), 10 * (1 - np.cos(th))
+    est = [truth[0]]
+    for k in range(n - 1):
+        D = np.eye(4)
+        D[:3, :3] = rodrigues(torch.tensor(rng.normal(0, 0.004, 3))).numpy()
+        D[:3, 3] = rng.normal(0, 0.02, 3)
+        est.append(est[-1] @ np.linalg.inv(truth[k]) @ truth[k + 1] @ D)
+    est = np.stack(est)
+    loop = [(0, n - 1, np.linalg.inv(truth[0]) @ truth[-1], 10.0)]
+    ref = posegraph.posegraph_solve(posegraph.build_keyframe_graph(
+        est, np.arange(n), loop, device="cpu")).nodes
+    got = posegraph.posegraph_solve(posegraph.build_keyframe_graph(
+        est, np.arange(n), loop, device=cuda_device)).nodes
+    assert got.is_cuda
+    assert float((got.cpu() - ref).abs().max()) < NODE_TOL
+    assert (np.linalg.norm(ref[-1, :3, 3].numpy() - truth[-1, :3, 3])
+            < 0.2 * np.linalg.norm(est[-1, :3, 3] - truth[-1, :3, 3]))
 
 
 def test_wrappers_reject_flags_they_were_not_built_for(cuda_device):

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``visual_odom_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and ``chip_smoke.py``
-refuses to run without a card or without the port beside it."""
+"""The port stands alone: no module of ``visual_odom_tpu_torch``, not
+``chip_smoke.py`` and not the port's chip scripts import JAX or the JAX
+package, and ``chip_smoke.py`` refuses to run without a card or without the
+port beside it."""
 
 import ast
 import os
@@ -14,7 +15,11 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "visual_odom_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "visual_odom_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "scripts" / "backend_courses.py"]
+#: modules the back end added; the import check must reach them
+BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
+           "runner.loopclosure")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -53,10 +58,12 @@ def test_package_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     r = _python(code, ROOT)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15
+    names = r.stdout.split()
+    assert len(names) >= 20
+    assert all(f"visual_odom_tpu_torch.{m}" in names for m in BACKEND)
 
 
 def _smoke_fails(cwd):

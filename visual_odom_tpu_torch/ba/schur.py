@@ -1,0 +1,136 @@
+"""Gauss-Newton bundle adjustment with Schur-complement landmark elimination.
+
+Port of ``visual_odom_tpu/ba/schur.py``. The two-block structure
+
+    [ Hpp  Hpl ] [ dp ]   [ bp ]
+    [ Hpl' Hll ] [ dx ] = [ bl ]
+
+- every Jacobian block comes from one ``torch.func.vmap`` of
+  ``torch.func.jacfwd`` over the (W, L) observation grid (exact derivatives
+  through ``core.lie.rodrigues``, as the JAX package takes them);
+- Hll is (L, 3, 3) block-diagonal -> batched 3x3 inverse;
+- the reduced camera system S = Hpp - Hpl Hll^-1 Hpl' is formed by einsums
+  over the landmark axis;
+- S is dense (6W, 6W) with W ~ 4..16 keyframes: a single small solve;
+- the gauge is fixed by a large prior on pose 0 (the window's anchor).
+
+Everything stays on the problem's device: no step reads a value back to the
+host (the non-finite guard is a ``torch.where``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from visual_odom_tpu_torch.ba.problem import (BAProblem, intrinsics_of,
+                                              project_stereo)
+
+_GAUGE_PRIOR = 1e9
+
+
+def _jacobian_blocks(problem: BAProblem, huber_delta: float = 0.0):
+    """Per-observation Jacobians A (d r / d pose) and B (d r / d landmark).
+
+    Returns (A (W, L, 3, 6), B (W, L, 3, 3), r (W, L, 3)) with masked rows
+    zeroed (zero residual AND zero Jacobian = observation absent).
+
+    ``huber_delta`` > 0 applies iteratively-reweighted least squares with
+    the Huber loss at that pixel scale: each observation is scaled by
+    sqrt(min(1, delta / |r|)), so outliers enter the normal equations with
+    bounded influence instead of quadratic pull.
+    """
+    intr = intrinsics_of(problem)
+
+    def obs_residual(pose6, X, target):
+        return project_stereo(pose6, X, intr) - target
+
+    def per_lm(pose6, X, target):
+        A = torch.func.jacfwd(obs_residual, argnums=0)(pose6, X, target)
+        B = torch.func.jacfwd(obs_residual, argnums=1)(pose6, X, target)
+        return A, B, obs_residual(pose6, X, target)
+
+    per_pose = torch.func.vmap(per_lm, in_dims=(None, 0, 0))
+    A, B, r = torch.func.vmap(per_pose, in_dims=(0, None, 0))(
+        problem.poses, problem.landmarks, problem.observations)
+    m = problem.mask[..., None]
+    r = torch.where(m, r, torch.zeros_like(r))
+    A = torch.where(m[..., None], A, torch.zeros_like(A))
+    B = torch.where(m[..., None], B, torch.zeros_like(B))
+    if huber_delta > 0.0:
+        nrm = torch.linalg.vector_norm(r, dim=-1, keepdim=True)   # (W, L, 1)
+        w = torch.sqrt(torch.clamp(huber_delta / torch.clamp(nrm, min=1e-12),
+                                   max=1.0))
+        r = r * w
+        A = A * w[..., None]
+        B = B * w[..., None]
+    return A, B, r
+
+
+def ba_gauss_newton_step(problem: BAProblem, damping: float = 1e-4,
+                         anchor=None, anchor_w=None,
+                         huber_delta: float = 0.0) -> BAProblem:
+    """One damped GN step. Returns the updated problem.
+
+    anchor (W, 6) / anchor_w (W,) add per-pose quadratic priors
+    0.5 * w_i * ||pose_i - anchor_i||^2, e.g. to pin a window's boundary
+    keyframes to externally known estimates. Default (None) anchors pose 0
+    to itself with a large weight, the classic gauge prior (dp_0 ~ 0).
+    """
+    poses = problem.poses
+    W = poses.shape[0]
+    eye3, eye6, eyeW = (torch.eye(k, dtype=poses.dtype, device=poses.device)
+                        for k in (3, 6, W))
+    if anchor is None:
+        anchor = poses
+    if anchor_w is None:
+        # Built on the device: a scalar written by index would be copied
+        # from the host.
+        anchor_w = eyeW[0] * _GAUGE_PRIOR
+    A, B, r = _jacobian_blocks(problem, huber_delta=huber_delta)
+
+    # Block accumulations (contractions over landmarks).
+    Hpp = torch.einsum("wlri,wlrj->wij", A, A)        # (W, 6, 6)
+    Hll = torch.einsum("wlri,wlrj->lij", B, B)        # (L, 3, 3)
+    Hpl = torch.einsum("wlri,wlrj->wlij", A, B)       # (W, L, 6, 3)
+    bp = torch.einsum("wlri,wlr->wi", A, r)           # (W, 6)
+    bl = torch.einsum("wlri,wlr->li", B, r)           # (L, 3)
+
+    # LM damping + batched 3x3 landmark-block inverse. The _ex forms skip
+    # the error check, which would read the device's status on the host; a
+    # singular system is caught by the non-finite guard below.
+    Hll_inv = torch.linalg.inv_ex(Hll + damping * eye3)[0]   # (L, 3, 3)
+
+    # Schur complement: contraction over landmarks.
+    HplWinv = torch.einsum("wlij,ljk->wlik", Hpl, Hll_inv)
+    S_red = torch.einsum("wlik,vljk->wvij", HplWinv, Hpl)
+    rhs_red = torch.einsum("wlik,lk->wi", HplWinv, bl)
+
+    # Block-diagonal Hpp with LM damping (an outer product with the
+    # identity: exact), minus the reduction; then the per-pose anchor priors
+    # (gauge by default), added in that order as the JAX package adds them.
+    S = torch.einsum("wv,wij->wvij", eyeW, Hpp + damping * eye6) - S_red
+    S = S + torch.einsum("wv,w,ij->wvij", eyeW, anchor_w, eye6)
+    rhs = bp - rhs_red
+    rhs = rhs + anchor_w[:, None] * (poses - anchor)
+
+    S_dense = S.permute(0, 2, 1, 3).reshape(W * 6, W * 6)
+    dp = torch.linalg.solve_ex(S_dense, rhs.reshape(W * 6))[0].reshape(W, 6)
+
+    # Landmark back-substitution.
+    corr = torch.einsum("wlij,wi->lj", Hpl, dp)
+    dx = torch.einsum("lij,lj->li", Hll_inv, bl - corr)
+
+    ok = torch.isfinite(dp).all() & torch.isfinite(dx).all()
+    return problem._replace(
+        poses=torch.where(ok, poses - dp, poses),
+        landmarks=torch.where(ok, problem.landmarks - dx, problem.landmarks))
+
+
+def ba_solve(problem: BAProblem, iterations: int = 10,
+             damping: float = 1e-4, huber_delta: float = 0.0) -> BAProblem:
+    """Fixed-iteration GN loop (extra steps are no-ops at the optimum).
+    ``huber_delta`` > 0 = robust (Huber IRLS) solve."""
+    for _ in range(iterations):
+        problem = ba_gauss_newton_step(problem, damping=damping,
+                                       huber_delta=huber_delta)
+    return problem

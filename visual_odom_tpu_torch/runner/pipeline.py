@@ -1,12 +1,13 @@
 """The VO pipeline: the per-frame step and the chunked sequence runner.
 
 Port of ``visual_odom_tpu/runner/pipeline.py`` (``VOState``,
-``StepOutput``, ``make_step_fn``, ``init_vo_state``, ``run_sequence_scan``,
-``chain_poses_host``). One step takes the new stereo pair to the 4x4 frame
-delta: pyramids of the new pair (reused as t0 next frame), FAST + bucketing
-on L(t0), the circular LK match under the adaptive skip policy (on the
-route ``config.lk_backend`` picks: quad launches or per-leg level launches),
-triangulation, PnP-RANSAC, and the rotation / scale / inlier-floor gates.
+``StepOutput``, ``TrackSnapshot``, ``make_step_fn``, ``init_vo_state``,
+``run_sequence_scan``, ``chain_poses_host``). One step takes the new stereo
+pair to the 4x4 frame delta: pyramids of the new pair (reused as t0 next
+frame), FAST + bucketing on L(t0), the circular LK match under the adaptive
+skip policy (on the route ``config.lk_backend`` picks: quad launches or
+per-leg level launches), triangulation, PnP-RANSAC, and the rotation /
+scale / inlier-floor gates.
 Everything stays on the device; the runner fetches outputs once per chunk
 and chains poses in float64 on the host.
 
@@ -70,6 +71,19 @@ class StepOutput(NamedTuple):
     fallback: torch.Tensor      # () bool, adaptive skip re-tracked at the safe level
 
 
+class TrackSnapshot(NamedTuple):
+    """Optional per-frame track dump for windowed-BA observation collection
+    (``ba.window``): ids key multi-frame tracks, l1/r1 are the frame-t
+    stereo measurement, l0/r0 the same tracks at frame t-1."""
+
+    points_l0: torch.Tensor     # (N, 2)
+    points_r0: torch.Tensor
+    points_l1: torch.Tensor
+    points_r1: torch.Tensor
+    ids: torch.Tensor           # (N,) int32
+    valid: torch.Tensor         # (N,) bool
+
+
 def _lk_params(config: VOConfig) -> LKParams:
     return LKParams(window=config.lk_window, levels=config.lk_levels,
                     max_iters=config.lk_max_iters, eps=config.lk_eps,
@@ -100,9 +114,11 @@ def init_vo_state(config: VOConfig, intrinsics: CameraIntrinsics, left0,
         generator=seeded_generator(seed, dev))
 
 
-def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics, device=None):
+def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
+                 with_tracks: bool = False, device=None):
     """Build the per-frame step ``step(state, left_t1, right_t1,
-    uniforms=None) -> (new_state, StepOutput)``. ``uniforms`` (iterations,
+    uniforms=None) -> (new_state, StepOutput)``, or ``(new_state,
+    StepOutput, TrackSnapshot)`` ``with_tracks``. ``uniforms`` (iterations,
     padded_features) replaces the RANSAC draw (parity tests). Given a
     batched state, (B, H, W) frames and (B, iterations, padded_features)
     uniforms, it is the batched step."""
@@ -158,6 +174,11 @@ def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics, device=None):
             num_matched=match.valid.sum(dim=-1).to(torch.int32),
             num_bucketed=bucketed.valid.sum(dim=-1).to(torch.int32),
             fallback=fallback)
+        if with_tracks:
+            return new_state, out, TrackSnapshot(
+                points_l0=match.points_l0, points_r0=match.points_r0,
+                points_l1=match.points_l1, points_r1=match.points_r1,
+                ids=match.ids, valid=match.valid)
         return new_state, out
 
     return step
@@ -190,23 +211,25 @@ def _frame_chunks(it, chunk: int):
 
 def _run_chunk(step, state: VOState, lefts, rights, device):
     """Step over one chunk of frames (numpy or tensors, uploaded in one copy
-    each); outputs stay on the device, stacked."""
+    each); outputs stay on the device, stacked: (state, StepOutput) or, for
+    a step made ``with_tracks``, (state, StepOutput, TrackSnapshot)."""
     dl = torch.as_tensor(lefts).to(device)
     dr = torch.as_tensor(rights).to(device)
     outs = []
     for i in range(dl.shape[0]):
-        state, out = step(state, dl[i], dr[i])
+        state, *out = step(state, dl[i], dr[i])
         outs.append(out)
-    return state, StepOutput(*(torch.stack(x) for x in zip(*outs)))
+    return (state,) + tuple(type(o[0])(*(torch.stack(x) for x in zip(*o)))
+                            for o in zip(*outs))
 
 
-def _fetch(out: StepOutput) -> StepOutput:
-    return StepOutput(*(x.cpu().numpy() for x in out))
+def _fetch(out):
+    return type(out)(*(x.cpu().numpy() for x in out))
 
 
 def run_sequence_scan(frames, config: VOConfig, intrinsics: CameraIntrinsics,
                       seed: int = 0, chunk: int = 32, warmup: bool = True,
-                      device=None):
+                      collect_tracks: bool = False, device=None):
     """Chunked sequence runner, the throughput front door.
 
     ``frames`` is any iterable of (left, right) uint8 images; host memory
@@ -218,6 +241,10 @@ def run_sequence_scan(frames, config: VOConfig, intrinsics: CameraIntrinsics,
     loop (uploads included); with ``warmup`` the first chunk runs once on a
     throwaway state first, so one-time costs (kernel build and load, CUDA
     library initialisation) stay out of it.
+    With ``collect_tracks``, a fifth element: the per-frame TrackSnapshot
+    list (numpy, frame i+1's snapshot at index i, the
+    ``ba.window.smooth_trajectory_ba`` input), stacked on the device per
+    chunk and fetched with the chunk's outputs.
     """
     dev = resolve_device(device)
     it = iter(frames)
@@ -225,7 +252,8 @@ def run_sequence_scan(frames, config: VOConfig, intrinsics: CameraIntrinsics,
         frame0 = next(it)
     except StopIteration:
         raise ValueError("run_sequence_scan needs at least one frame") from None
-    step = make_step_fn(config, intrinsics, device=dev)
+    step = make_step_fn(config, intrinsics, with_tracks=collect_tracks,
+                        device=dev)
     chunks = _frame_chunks(it, chunk)
     first = next(chunks, None)
     if first is None:
@@ -247,12 +275,16 @@ def run_sequence_scan(frames, config: VOConfig, intrinsics: CameraIntrinsics,
     cur = first
     while cur is not None:
         lefts, rights, n_real = cur
-        state, out = _run_chunk(step, state, lefts, rights, dev)
-        fetched_list.append(_fetch(out))
+        state, *outs = _run_chunk(step, state, lefts, rights, dev)
+        fetched_list.append([_fetch(o) for o in outs])
         n += n_real
         cur = next(chunks, None)
     wall = time.perf_counter() - t0
 
-    fetched = StepOutput(*(np.concatenate(xs) for xs in zip(*fetched_list)))
+    fetched, *tracks = (type(xs[0])(*(np.concatenate(x) for x in zip(*xs)))
+                        for xs in zip(*fetched_list))
     poses = chain_poses_host(fetched.T_inv, fetched.accept)
+    if collect_tracks:
+        return poses, fetched, wall, n, [
+            TrackSnapshot(*(x[i] for x in tracks[0])) for i in range(n)]
     return poses, fetched, wall, n
