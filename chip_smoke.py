@@ -94,6 +94,19 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    launches per measurement; (d) the first window's BA problem and the
    loop run's pose graph solved on the card and on the CPU, within
    BA_CARD_CPU_TOL and NODE_CARD_CPU_TOL.
+8. On phase 4's "straight" frames (nothing more is rendered): (a)
+   ``resume``: ``run_sequence_scan_resumable`` with chunk RESUME_CHUNK and
+   a snapshot every RESUME_EVERY steps, uninterrupted, failed by an
+   injected exception at frame RESUME_CRASH_AT, and resumed from its last
+   snapshot; without and with track snapshots, the resumed run equals the
+   uninterrupted one and ``run_sequence_scan`` bit for bit; each snapshot's
+   write ms and bytes. (b) ``mono`` and ``shi_tomasi``: the main path with
+   ``mono_rotation=True`` or ``detector="shi-tomasi"`` on both LK routes,
+   under the bench gates (where the JAX package on the CPU misses the ATE
+   budget, VARIANT_ATE_FACTOR x its ATE), the routes bit for bit, the
+   default step's LK launches per frame, no host sync in the step, and
+   device ms and ops per step beside the default step's; for Shi-Tomasi
+   also the corners per frame before bucketing.
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -192,6 +205,19 @@ BA_SHORT = dict(window=8, iterations=8, max_landmarks=256, min_track_len=3,
                 huber_delta=1.5)
 BA_KM = dict(window=16, iterations=8, max_landmarks=384, min_track_len=5,
              huber_delta=0.8)
+#: phase 8: the resumable runner's chunk and snapshot interval, and the
+#: frame at which a run is made to fail (its last snapshot is at step 32)
+RESUME_CHUNK = 16
+RESUME_EVERY = 32
+RESUME_CRASH_AT = 40
+#: phase 8 gate where the JAX package itself misses the ATE budget on the
+#: course: within this factor of its ATE (PR 5's rule for BA)
+VARIANT_ATE_FACTOR = 1.1
+#: the JAX package on the CPU over the 64 steps of "straight" at 1241x376
+#: (``python tests/test_torch_essential.py mono 64`` / ``shi-tomasi 64``)
+JAX_VARIANTS = {
+    "mono": {"accept": 1.0, "ate_m": 0.11756766261630905},
+    "shi_tomasi": {"accept": 1.0, "ate_m": 0.038680731003437205}}
 #: close_loops' ATE bar (tests/test_posegraph.py:168-169)
 LOOP_ATE_FACTOR = 1.05
 #: card against CPU: poses, the JAX package's ring-vs-single bound
@@ -809,10 +835,12 @@ def check_counts(label, config, counts, steps, batched):
     return counts[kernel]
 
 
-def run_main_path(name, frames, gt, config, intr, dev, ref_poses=None):
-    """``run_sequence_scan`` on one course, held to the bench gates; with
-    ``ref_poses`` (the quad route's run of the course) it reports the
-    largest pose difference. Returns (result dict, poses)."""
+def run_main_path(name, frames, gt, config, intr, dev, ref_poses=None,
+                  label="main_path", ate_limit=None):
+    """``run_sequence_scan`` on one course, held to the bench gates (or, with
+    ``ate_limit``, to that ATE in metres); with ``ref_poses`` (the quad
+    route's run of the course) it reports the largest pose difference.
+    Prints a ``label`` line. Returns (result dict, poses)."""
     from visual_odom_tpu_torch.runner import pipeline
 
     reset_counts()
@@ -831,14 +859,17 @@ def run_main_path(name, frames, gt, config, intr, dev, ref_poses=None):
                mean_matched=float(fetched.num_matched.mean()),
                mean_inliers=float(fetched.num_inliers.mean()),
                launch_counts=counts)
+    if ate_limit is not None:
+        res["ate_limit_m"] = ate_limit
     if ref_poses is not None:
         res["max_abs_dpose_vs_quad"] = float(np.abs(poses - ref_poses).max())
-    print("main_path", json.dumps(res))
+    print(label, json.dumps(res))
     if not (np.isfinite(fetched.T_inv).all() and fetched.T_inv.shape == (n, 4, 4)
             and len(poses) == n + 1 and np.isfinite(poses).all()):
         raise AssertionError(f"{name}: outputs not finite or of the wrong shape")
     res["kernel_launches"] = check_counts(name, config, counts, n, False)
-    if not (accept >= 0.9 and ate <= budget):
+    if not (accept >= 0.9 and ate <= (budget if ate_limit is None
+                                      else ate_limit)):
         raise AssertionError(f"{name}: accuracy gates failed: accept {accept}, "
                              f"ATE {ate} m > budget {budget} m")
     return res, poses
@@ -980,9 +1011,10 @@ def small_reference(dev):
     print("small_reference", json.dumps({"frames": 5, "max_T_inv_diff": worst}))
 
 
-def profile_frames(frames, config, intr, dev, steady_ms, n_frames=8,
+def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
                    label="profile"):
-    """Device time by kernel over a few main-path frames, under
+    """Device time by kernel over a few main-path frames (4: the profiler's
+    bookkeeping makes each profiled frame cost the script seconds), under
     torch.profiler, after two steps that must not synchronise with the
     host. The busy share divides it by ``steady_ms``, the main path's
     ms/frame without the profiler (which slows the host). Frames of
@@ -1291,6 +1323,150 @@ def backend_loops(frames, poses, gt, config, xconfig, intr, dev):
     return res, xres, pg
 
 
+class RandomAccess:
+    """A list of frames as the resumable runner takes it (``len``,
+    ``.frame(i)``); with ``crash_at`` it raises once when that frame is
+    first asked for, as a decode failure would."""
+
+    def __init__(self, frames, crash_at=None):
+        self.frames, self.crash_at = frames, crash_at
+
+    def __len__(self):
+        return len(self.frames)
+
+    def frame(self, i):
+        if self.crash_at is not None and i >= self.crash_at:
+            self.crash_at = None
+            raise RuntimeError("injected decode failure")
+        return self.frames[i]
+
+
+def resume_check(frames, config, intr, dev):
+    """Phase 8 ``resume``: ``run_sequence_scan_resumable`` (chunk
+    RESUME_CHUNK, a snapshot every RESUME_EVERY steps) uninterrupted,
+    interrupted by a failure at frame RESUME_CRASH_AT, and resumed from its
+    last snapshot; without and with track snapshots. The resumed run equals
+    the uninterrupted one bit for bit, and both equal ``run_sequence_scan``
+    at the same chunk. Returns the resumed runs' launch counts."""
+    import tempfile
+
+    from visual_odom_tpu_torch.runner import pipeline
+    from visual_odom_tpu_torch.utils.checkpoint import load_scan_checkpoint
+
+    ref = pipeline.run_sequence_scan(frames, config, intr, chunk=RESUME_CHUNK,
+                                     warmup=False, collect_tracks=True,
+                                     device=dev)
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for tracks in (False, True):
+            kw = dict(checkpoint_every=RESUME_EVERY, chunk=RESUME_CHUNK,
+                      warmup=False, collect_tracks=tracks, device=dev)
+            full_ck, crash_ck = (os.path.join(tmp, f"{k}_{tracks}.npz")
+                                 for k in ("full", "crash"))
+            stats = []
+            full = pipeline.run_sequence_scan_resumable(
+                RandomAccess(frames), config, intr, full_ck,
+                snapshot_stats=stats, **kw)
+            try:
+                pipeline.run_sequence_scan_resumable(
+                    RandomAccess(frames, RESUME_CRASH_AT), config, intr,
+                    crash_ck, **kw)
+                raise AssertionError("resume: the injected failure did not "
+                                     "surface")
+            except RuntimeError as e:
+                if "injected" not in str(e):
+                    raise
+            at = int(load_scan_checkpoint(crash_ck)["frames_done"])
+            reset_counts()
+            resumed = pipeline.run_sequence_scan_resumable(
+                RandomAccess(frames), config, intr, crash_ck, **kw)
+            counts = read_counts()
+            launches += check_counts("resume", config, counts, resumed[3],
+                                     False)
+
+            def same(a, b):
+                return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+            eq = {"poses_resumed_vs_full": bool(np.array_equal(resumed[0],
+                                                               full[0])),
+                  "poses_full_vs_scan": bool(np.array_equal(full[0], ref[0])),
+                  "outputs_resumed_vs_full": same(resumed[1], full[1]),
+                  "outputs_full_vs_scan": same(full[1], ref[1])}
+            if tracks:
+                eq["tracks_resumed_vs_full"] = all(
+                    same(a, b) for a, b in zip(resumed[4], full[4]))
+                eq["tracks_full_vs_scan"] = all(
+                    same(a, b) for a, b in zip(full[4], ref[4]))
+            res = dict(tracks=tracks, steps=full[3], chunk=RESUME_CHUNK,
+                       checkpoint_every=RESUME_EVERY, crash_at=RESUME_CRASH_AT,
+                       snapshot_at=at, resumed_steps=resumed[3],
+                       snapshots=stats, wall_full_s=full[2],
+                       wall_resumed_s=resumed[2], launch_counts=counts, **eq)
+            print("resume", json.dumps(res))
+            if not (all(eq.values()) and at == RESUME_EVERY
+                    and resumed[3] == len(frames) - 1 - at):
+                raise AssertionError(f"resume: not bit for bit: {res}")
+    return launches
+
+
+def variant_check(name, opts, frames, gt, intr, dev, default_profile,
+                  jax_ref):
+    """Phase 8 ``mono`` / ``shi_tomasi``: the main path with ``opts`` on
+    both LK routes, held to the bench gates (or, where the JAX package
+    itself misses the ATE budget on this course, to VARIANT_ATE_FACTOR x
+    its ATE), the routes equal bit for bit, the LK launches per frame of
+    the default step; then the step's sync check and profile beside the
+    default step's. Returns the launch counts per route."""
+    import torch
+
+    from visual_odom_tpu_torch.config import VOConfig
+    from visual_odom_tpu_torch.ops.fast import shi_tomasi_corner_map
+
+    budget = ate_and_budget(np.tile(np.eye(4), (len(gt), 1, 1)), gt)[1]
+    limit = None
+    if not (jax_ref["accept"] >= 0.9 and jax_ref["ate_m"] <= budget):
+        limit = VARIANT_ATE_FACTOR * jax_ref["ate_m"]
+    config = VOConfig.for_image(H, W, **opts)
+    xconfig = VOConfig.for_image(H, W, lk_backend="xla", **opts)
+    q, poses = run_main_path(f"straight_{name}", frames, gt, config, intr,
+                             dev, label=f"{name}_path", ate_limit=limit)
+    x = run_main_path(f"straight_{name}", frames, gt, xconfig, intr, dev,
+                      ref_poses=poses, label=f"{name}_path",
+                      ate_limit=limit)[0]
+    prof = profile_frames(frames, config, intr, dev, q["ms_per_frame"],
+                          label=f"profile_{name}")
+    res = dict(
+        course="straight", steps=q["steps"], accept=q["accept"],
+        ate_m=q["ate_m"], ate_budget_m=q["ate_budget_m"], ate_limit_m=limit,
+        jax_cpu=jax_ref, ms_per_frame=q["ms_per_frame"],
+        ms_per_frame_xla=x["ms_per_frame"],
+        device_ms_per_step=prof["device_ms_per_frame"],
+        device_ops_per_step=prof["device_ops_per_frame"],
+        default_device_ms_per_step=default_profile["device_ms_per_frame"],
+        default_device_ops_per_step=default_profile["device_ops_per_frame"],
+        host_syncs_per_step=0,
+        lk_launches_per_frame={
+            "quad": q["kernel_launches"] / q["steps"],
+            "level": x["kernel_launches"] / x["steps"]},
+        max_abs_dpose_routes=x["max_abs_dpose_vs_quad"])
+    if name == "shi_tomasi":
+        counts = []
+        for i in range(0, len(frames), 16):
+            lefts = torch.from_numpy(np.stack([f[0] for f in
+                                               frames[i:i + 16]])).to(dev)
+            m = shi_tomasi_corner_map(lefts.to(torch.float32),
+                                      config.shi_tomasi_quality,
+                                      config.shi_tomasi_min_distance)
+            counts += (m > 0).sum(dim=(1, 2)).tolist()
+        res.update(corners_per_frame_mean=float(np.mean(counts)),
+                   corners_per_frame_min=int(np.min(counts)),
+                   mean_bucketed=q["mean_bucketed"])
+    print(name, json.dumps(res))
+    if res["max_abs_dpose_routes"] != 0.0:
+        raise AssertionError(f"{name}: the routes differ: {res}")
+    return q["kernel_launches"], x["kernel_launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1453,7 +1629,8 @@ def main() -> int:
     small_batched_reference(dev)
 
     # ---- phase 6: where the time goes -----------------------------------
-    profile_frames(frames, config, intr, dev, runs[0]["ms_per_frame"])
+    default_prof = profile_frames(frames, config, intr, dev,
+                                  runs[0]["ms_per_frame"])
     profile_frames(frames, xconfig, intr, dev, xruns[0]["ms_per_frame"],
                    label="profile_xla")
     batch_sweep(courses, config, intr, dev)
@@ -1469,6 +1646,15 @@ def main() -> int:
                                      intr, dev)
     del snaps
     print(f"phase 7: {time.perf_counter() - t:.1f} s")
+
+    # ---- phase 8: resume, mono rotation, Shi-Tomasi, on "straight" -----
+    t = time.perf_counter()
+    resume_launches = resume_check(frames, config, intr, dev)
+    variants = {name: variant_check(name, opts, frames, gt, intr, dev,
+                                    default_prof, JAX_VARIANTS[name])
+                for name, opts in (("mono", dict(mono_rotation=True)),
+                                   ("shi_tomasi", dict(detector="shi-tomasi")))}
+    print(f"phase 8: {time.perf_counter() - t:.1f} s")
 
     default = lk_cuda.variant()
 
@@ -1521,14 +1707,19 @@ def main() -> int:
         row("lk_quad_kernel", REPLACES,
             {"main_path": sum(r["kernel_launches"] for r in runs),
              "backend_scan": scan["kernel_launches"],
-             "loop_edges": loops["launch_counts"]["quad"]},
+             "loop_edges": loops["launch_counts"]["quad"],
+             "resume": resume_launches,
+             "mono": variants["mono"][0],
+             "shi_tomasi": variants["shi_tomasi"][0]},
             quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
             {"batched_path": batched_run["kernel_launches"]}, bquads,
             bquads[0], False, wquad),
         row("lk_level_kernel", REPLACES_LEVEL,
             {"main_path": sum(r["kernel_launches"] for r in xruns),
-             "loop_edges": xloops["launch_counts"]["level"]},
+             "loop_edges": xloops["launch_counts"]["level"],
+             "mono": variants["mono"][1],
+             "shi_tomasi": variants["shi_tomasi"][1]},
             levels, finest(levels), True),
         row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
             {"batched_path": xbatched_run["kernel_launches"]}, blevels,

@@ -5,7 +5,10 @@ Every instance (doublestep x packed) is held to the plain version, and
 doublestep on equals doublestep off bit for bit, also from the top of the
 pyramid with zero flow and disparity, as a loop-edge measurement launches
 them. The back end's solves (``ba_solve``, ``posegraph_solve``) on the card
-against the same solves on the CPU.
+against the same solves on the CPU. The mono-rotation step and the
+Shi-Tomasi step on the card against the same steps on the CPU, neither
+waiting for the device; and a crashed scan resumed from its snapshot on the
+card, bit for bit the uninterrupted run.
 
 Every test here needs an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip where there is no card. This file imports neither JAX nor the
@@ -19,10 +22,13 @@ import pytest
 import torch
 
 from visual_odom_tpu_torch.ba import posegraph, problem, schur
+from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.core.lie import rodrigues
+from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
 from visual_odom_tpu_torch.ops import lk_cuda
 from visual_odom_tpu_torch.ops.lk import (LKImage, LKParams, lk_track_pyramid,
                                           prepare_lk_image)
+from visual_odom_tpu_torch.runner import pipeline
 
 #: |delta pt| bound on tracks whose statuses agree (px); statuses may differ
 #: on at most STATUS_MISMATCH_MAX features (hard min-eig / closure
@@ -489,3 +495,111 @@ def test_kernel_info_reports_resources(cuda_device, instance):
         assert info["features_per_block"] == (4 if instance[1] else 2)
         assert info["blocks_per_sm"] >= 1 and info["registers"] > 0
         assert info["shared_bytes"] == info["features_per_block"] * 6560
+
+
+SMALL = dict(fx=120.0, fy=120.0, cx=80.0, cy=60.0, bf=-64.8, width=160,
+             height=120)
+#: MODES: the two configuration options this file holds on the card
+MODES = {"mono": dict(mono_rotation=True), "shi_tomasi": dict(
+    detector="shi-tomasi")}
+
+
+def _small(mode, frames=4):
+    intr = CameraIntrinsics(**SMALL)
+    cfg = VOConfig.for_image(120, 160, ransac_iterations=200, **MODES[mode])
+    seq = SyntheticStereoSequence(intr, num_frames=frames, seed=0, speed=0.5)
+    return intr, cfg, [seq.frame(i) for i in range(frames)]
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_step_on_card_matches_cpu(cuda_device, mode):
+    """Three steps on the card and on the CPU, fed the same draws (PnP's
+    and the essential RANSAC's): equal counts (3 % on matches and
+    inliers), T^-1 within tests/test_torch_pipeline.py's step bounds."""
+    intr, cfg, frames = _small(mode)
+    rng = np.random.default_rng(0)
+    draws = [(rng.random((200, cfg.padded_features), dtype=np.float32),
+              rng.random((200, cfg.padded_features), dtype=np.float32))
+             for _ in frames[1:]]
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        step = pipeline.make_step_fn(cfg, intr, device=dev)
+        st = pipeline.init_vo_state(cfg, intr, *frames[0], device=dev)
+        outs[str(dev)] = []
+        for (l, r), (u, ue) in zip(frames[1:], draws):
+            st, out = step(st, torch.from_numpy(l).to(dev),
+                           torch.from_numpy(r).to(dev),
+                           uniforms=torch.from_numpy(u).to(dev),
+                           ess_uniforms=torch.from_numpy(ue).to(dev))
+            outs[str(dev)].append(pipeline._fetch(out))
+    for ref, got in zip(outs["cpu"], outs[str(cuda_device)]):
+        assert int(got.num_bucketed) == int(ref.num_bucketed)
+        for k in ("num_matched", "num_inliers"):
+            r, g = int(getattr(ref, k)), int(getattr(got, k))
+            assert abs(g - r) <= 0.03 * r, (k, g, r)
+        d = np.abs(got.T_inv - ref.T_inv)
+        assert d[:3, :3].max() < 2e-3 and d[:3, 3].max() < 2e-2
+        assert bool(got.accept) == bool(ref.accept)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_step_never_waits_for_the_card(cuda_device, mode):
+    """The step draws from the generator and runs the essential RANSAC or
+    the Shi-Tomasi map without one host synchronisation."""
+    intr, cfg, frames = _small(mode)
+    step = pipeline.make_step_fn(cfg, intr, device=cuda_device)
+    st = pipeline.init_vo_state(cfg, intr, *frames[0], device=cuda_device)
+    up = [tuple(torch.from_numpy(x).to(cuda_device) for x in f)
+          for f in frames[1:]]
+    st, _ = step(st, *up[0])        # first use: kernel build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for l, r in up[1:]:
+            st, out = step(st, l, r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out.T_inv).all())
+
+
+class _Flaky:
+    def __init__(self, frames, crash_at):
+        self.frames, self.crash_at, self.armed = frames, crash_at, True
+
+    def __len__(self):
+        return len(self.frames)
+
+    def frame(self, i):
+        if self.armed and i >= self.crash_at:
+            self.armed = False
+            raise RuntimeError("injected decode failure")
+        return self.frames[i]
+
+
+@pytest.mark.parametrize("tracks", [False, True], ids=["outputs", "tracks"])
+def test_scan_resume_on_card_is_bitwise(cuda_device, tmp_path, tracks):
+    """Mono rotation, crash at frame 14 (last snapshot at step 8: chunk 4,
+    every 8),
+    resume: poses, outputs (and track snapshots) equal the uninterrupted
+    run's bit for bit, and ``run_sequence_scan``'s at the same chunk."""
+    # mono: two draws a frame, so the restored generator must stand
+    # after both draws of the snapshot's last frame
+    intr, cfg, frames = _small("mono", frames=21)
+    kw = dict(checkpoint_every=8, chunk=4, collect_tracks=tracks,
+              device=cuda_device)
+    ref = pipeline.run_sequence_scan(iter(frames), cfg, intr, chunk=4,
+                                     collect_tracks=tracks, device=cuda_device)
+    ck = str(tmp_path / "ck.npz")
+    with pytest.raises(RuntimeError, match="injected"):
+        pipeline.run_sequence_scan_resumable(_Flaky(frames, 14), cfg, intr,
+                                             ck, **kw)
+    got = pipeline.run_sequence_scan_resumable(_Flaky(frames, 99), cfg, intr,
+                                               ck, **kw)
+    assert got[3] == 12
+    np.testing.assert_array_equal(got[0], ref[0])
+    for a, b in zip(got[1], ref[1]):
+        np.testing.assert_array_equal(a, b)
+    if tracks:
+        for sa, sb in zip(got[4], ref[4]):
+            for a, b in zip(sa, sb):
+                np.testing.assert_array_equal(a, b)

@@ -17,9 +17,11 @@ PORT = ROOT / "visual_odom_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "visual_odom_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "backend_courses.py"]
-#: modules the back end added; the import check must reach them
+#: modules the back end, the scan checkpoints and mono rotation added; the
+#: import check must reach them
 BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
-           "runner.loopclosure")
+           "runner.loopclosure", "utils.checkpoint", "backend.essential",
+           "backend.five_point")
 
 
 def _imported_modules(path: pathlib.Path):

@@ -1,6 +1,8 @@
 """Image operators: pyramids, FAST and the LK trackers (the circular quad and
 the per-leg ``lk_track_pyramid``)."""
 
+from visual_odom_tpu_torch.ops.fast import fast_corners, fast_score_map
 from visual_odom_tpu_torch.ops.lk import LKParams, lk_track, lk_track_pyramid
 
-__all__ = ["lk_track_pyramid", "lk_track", "LKParams"]
+__all__ = ["fast_score_map", "fast_corners", "lk_track_pyramid", "lk_track",
+           "LKParams"]

@@ -1,6 +1,7 @@
 """Image pyramid in the padded, aligned layout the LK kernel reads.
 
-Port of ``visual_odom_tpu/ops/pyramid.py`` (the banded-matrix half). pyrDown
+Port of ``visual_odom_tpu/ops/pyramid.py`` (the banded-matrix half, and
+``_sep_filter2``, the separable correlation the Shi-Tomasi detector uses). pyrDown
 is linear, so one level step (crop the pad, 5-tap REFLECT_101 Gaussian,
 even decimation, reflect re-pad, zero alignment tail) is one static band
 matrix per axis: ``padded_{k+1} = Mv @ padded_k @ Mh^T``. The two products
@@ -15,6 +16,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 _GAUSS5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0
 
@@ -86,3 +88,20 @@ def padded_pyr_down(p: torch.Tensor, n_rows: int, n_cols: int,
     """
     Mv, MhT = _down_matrices(n_rows, n_cols, pad, p.device)
     return torch.matmul(torch.matmul(Mv, p), MhT)
+
+
+def _sep_filter2(img: torch.Tensor, kr, kc) -> torch.Tensor:
+    """Separable 2-D correlation with a REFLECT_101 border of (..., H, W)
+    images: the vertical taps ``kr`` first, then the horizontal ``kc``,
+    each accumulated tap by tap in the JAX package's order."""
+    rh, rw = len(kr) // 2, len(kc) // 2
+    H, W = img.shape[-2:]
+    x = F.pad(img.reshape((-1, 1, H, W)), (rw, rw, rh, rh), mode="reflect")
+    x = x.reshape(img.shape[:-2] + x.shape[-2:])
+    acc = torch.zeros_like(x[..., :H, :])
+    for i, w in enumerate(kr):
+        acc = acc + x[..., i:i + H, :] * float(w)
+    out = torch.zeros_like(img)
+    for j, w in enumerate(kc):
+        out = out + acc[..., :, j:j + W] * float(w)
+    return out

@@ -2,8 +2,9 @@
 
 Port of ``visual_odom_tpu/runner/pipeline.py`` (``VOState``,
 ``StepOutput``, ``TrackSnapshot``, ``make_step_fn``, ``init_vo_state``,
-``run_sequence_scan``, ``chain_poses_host``). One step takes the new stereo
-pair to the 4x4 frame delta: pyramids of the new pair (reused as t0 next
+``run_sequence_scan``, ``chain_poses_host``, and the scan's checkpoints:
+``restore_scan_state``, ``run_sequence_scan_resumable``). One step takes
+the new stereo pair to the 4x4 frame delta: pyramids of the new pair (reused as t0 next
 frame), FAST + bucketing on L(t0), the circular LK match under the adaptive
 skip policy (on the route ``config.lk_backend`` picks: quad launches or
 per-leg level launches), triangulation, PnP-RANSAC, and the rotation /
@@ -25,16 +26,20 @@ when CUDA is asked for and absent.
 from __future__ import annotations
 
 import itertools
+import os
+import sys
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from visual_odom_tpu_torch import resolve_device
+from visual_odom_tpu_torch.backend.essential import find_essential_ransac
 from visual_odom_tpu_torch.backend.integrate import gate_and_integrate
 from visual_odom_tpu_torch.backend.pnp import pnp_ransac
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
+from visual_odom_tpu_torch.core.lie import rodrigues_inverse
 from visual_odom_tpu_torch.core.triangulate import triangulate_points
 from visual_odom_tpu_torch.frontend.bucketing import detect_and_bucket
 from visual_odom_tpu_torch.frontend.featureset import (FeatureState,
@@ -42,6 +47,9 @@ from visual_odom_tpu_torch.frontend.featureset import (FeatureState,
 from visual_odom_tpu_torch.frontend.matching import (commit_tracked_state,
                                                      skip_mode_match)
 from visual_odom_tpu_torch.ops.lk import LKImage, LKParams, prepare_lk_image
+from visual_odom_tpu_torch.utils.checkpoint import (CorruptCheckpoint,
+                                                    load_scan_checkpoint,
+                                                    save_scan_checkpoint)
 
 
 class VOState(NamedTuple):
@@ -117,14 +125,20 @@ def init_vo_state(config: VOConfig, intrinsics: CameraIntrinsics, left0,
 def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
                  with_tracks: bool = False, device=None):
     """Build the per-frame step ``step(state, left_t1, right_t1,
-    uniforms=None) -> (new_state, StepOutput)``, or ``(new_state,
-    StepOutput, TrackSnapshot)`` ``with_tracks``. ``uniforms`` (iterations,
-    padded_features) replaces the RANSAC draw (parity tests). Given a
-    batched state, (B, H, W) frames and (B, iterations, padded_features)
-    uniforms, it is the batched step."""
+    uniforms=None, ess_uniforms=None) -> (new_state, StepOutput)``, or
+    ``(new_state, StepOutput, TrackSnapshot)`` ``with_tracks``.
+    ``uniforms`` (iterations, padded_features) replaces PnP's RANSAC draw
+    and, with ``config.mono_rotation``, ``ess_uniforms`` (200,
+    padded_features) the essential RANSAC's (parity tests). Given a
+    batched state, (B, H, W) frames and uniforms with a leading B, it is
+    the batched step.
+
+    ``config.mono_rotation`` takes the rotation from the essential matrix
+    of L(t0) -> L(t1) (``find_essential_ransac``, the reference's optional
+    branch, src/visualOdometry.cpp:152-157) and the translation from PnP.
+    Each frame draws PnP's uniforms and then the essential RANSAC's from
+    the sequence's generator, in that order."""
     dev = resolve_device(device)
-    if config.mono_rotation:
-        raise NotImplementedError("mono_rotation is not ported")
     P_l = torch.as_tensor(intrinsics.proj_left(), device=dev)
     P_r = torch.as_tensor(intrinsics.proj_right(), device=dev)
     K = torch.as_tensor(intrinsics.intrinsic_matrix(), device=dev)
@@ -133,7 +147,8 @@ def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
     safe3d = torch.tensor([0.0, 0.0, 10.0], dtype=torch.float32, device=dev)
 
-    def step(state: VOState, left_t1, right_t1, uniforms=None):
+    def step(state: VOState, left_t1, right_t1, uniforms=None,
+             ess_uniforms=None):
         lk_l1 = _prep_image(left_t1, config, dev)
         lk_r1 = _prep_image(right_t1, config, dev)
 
@@ -156,7 +171,16 @@ def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
                          refine_iters=config.pnp_refine_iters,
                          uniforms=uniforms)
 
-        gate = gate_and_integrate(pnp.rvec, pnp.tvec)
+        rvec_out = pnp.rvec
+        if config.mono_rotation:
+            ess = find_essential_ransac(
+                match.points_l0, match.points_l1, match.valid,
+                float(intrinsics.fx), (float(intrinsics.cx),
+                                       float(intrinsics.cy)),
+                generator=state.generator, uniforms=ess_uniforms)
+            rvec_out = rodrigues_inverse(ess.R)
+
+        gate = gate_and_integrate(rvec_out, pnp.tvec)
         accept = gate.accept
         if floor > 0:
             # Beyond-reference scene-cut / tracking-loss floor.
@@ -169,7 +193,7 @@ def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
                             generator=state.generator)
         out = StepOutput(
             T_inv=gate.T_inv, accept=accept, scale=gate.scale,
-            euler=gate.euler, rvec=pnp.rvec, tvec=pnp.tvec,
+            euler=gate.euler, rvec=rvec_out, tvec=pnp.tvec,
             num_inliers=pnp.num_inliers,
             num_matched=match.valid.sum(dim=-1).to(torch.int32),
             num_bucketed=bucketed.valid.sum(dim=-1).to(torch.int32),
@@ -288,3 +312,195 @@ def run_sequence_scan(frames, config: VOConfig, intrinsics: CameraIntrinsics,
         return poses, fetched, wall, n, [
             TrackSnapshot(*(x[i] for x in tracks[0])) for i in range(n)]
     return poses, fetched, wall, n
+
+
+def restore_scan_state(config: VOConfig, intrinsics: CameraIntrinsics,
+                       ckpt: dict, left_t0, right_t0, device=None) -> VOState:
+    """A ``VOState`` from a scan snapshot and the checkpointed frame's
+    images: the pyramids are rebuilt from frame t0 as the step builds them,
+    and the RANSAC generator takes the stored state (on ``device``, the
+    device it was saved from)."""
+    dev = resolve_device(device)
+
+    def t(k, dtype):
+        return torch.tensor(np.asarray(ckpt[k]), dtype=dtype, device=dev)
+
+    gen = torch.Generator(device=dev)
+    gen.set_state(torch.from_numpy(np.asarray(ckpt["gen_state"], np.uint8)))
+    return VOState(
+        features=FeatureState(
+            points=t("points", torch.float32), ages=t("ages", torch.int32),
+            valid=t("valid", torch.bool), ids=t("ids", torch.int32),
+            next_id=t("next_id", torch.int32), flow=t("flow", torch.float32),
+            disp=t("disp", torch.float32)),
+        lk_l0=_prep_image(left_t0, config, dev),
+        lk_r0=_prep_image(right_t0, config, dev),
+        tvec=t("tvec", torch.float32), generator=gen)
+
+
+def _make_snapshot_packer(config: VOConfig):
+    """VOState -> (f32 vector, i32 vector) on the device, so a snapshot's
+    device-to-host traffic is two copies and not eight; the generator's
+    state travels beside them (it lives on the host)."""
+
+    def pack(state: VOState):
+        f = state.features
+        f32 = torch.cat([f.points.reshape(-1), f.flow.reshape(-1),
+                         f.disp.reshape(-1), state.tvec.to(torch.float32)])
+        i32 = torch.cat([f.ages.to(torch.int32), f.valid.to(torch.int32),
+                         f.ids.to(torch.int32),
+                         f.next_id.reshape(1).to(torch.int32)])
+        return f32, i32
+
+    return pack
+
+
+def _unpack_snapshot(config: VOConfig, f32: np.ndarray, i32: np.ndarray,
+                     gen_state: np.ndarray) -> dict:
+    """Host-side inverse of ``_make_snapshot_packer``'s layout."""
+    P = config.padded_features
+    return {
+        "points": f32[:2 * P].reshape(P, 2),
+        "flow": f32[2 * P:4 * P].reshape(P, 2),
+        "disp": f32[4 * P:6 * P].reshape(P, 2),
+        "tvec": f32[6 * P:6 * P + 3],
+        "ages": i32[:P],
+        "valid": i32[P:2 * P] != 0,
+        "ids": i32[2 * P:3 * P],
+        "next_id": i32[3 * P],
+        "gen_state": np.asarray(gen_state, np.uint8),
+    }
+
+
+def run_sequence_scan_resumable(seq, config: VOConfig,
+                                intrinsics: CameraIntrinsics,
+                                checkpoint_path: str,
+                                checkpoint_every: int = 256, chunk: int = 64,
+                                seed: int = 0, max_frames: int = 0,
+                                warmup: bool = True, verbose: bool = False,
+                                collect_tracks: bool = False,
+                                snapshot_stats: Optional[list] = None,
+                                device=None):
+    """The chunked runner with chunk-boundary checkpoints and crash resume.
+
+    ``seq`` is random access (``len`` and ``.frame(i)``): a snapshot stores
+    no image, and frame t0's pyramids are rebuilt from
+    ``seq.frame(frames_done)`` at resume. A snapshot is written every
+    ``checkpoint_every`` steps, rounded up to a whole number of chunks, so
+    a resumed run's chunks line up with an uninterrupted one's; each is the
+    state packed into two device-to-host copies, the generator's state,
+    and the outputs (and, ``collect_tracks``, the track snapshots) so far,
+    written atomically. An existing snapshot at ``checkpoint_path`` is
+    resumed from; one that already covers the run returns its outputs and
+    reads no frame. A snapshot that cannot be trusted (torn, a key missing,
+    a cursor past the end, no tracks for a ``collect_tracks`` run) is
+    rejected with a warning on stderr and the run starts fresh.
+
+    Returns (poses (N+1, 4, 4) f64, fetched StepOutput stack (numpy),
+    wall_seconds, steps processed by this call) and, ``collect_tracks``,
+    the per-frame TrackSnapshot list. The wall covers this call's loop,
+    snapshots included. ``snapshot_stats``, a list, gets one
+    ``{"step", "ms", "bytes"}`` per snapshot written (pack, copies and
+    write).
+    """
+    dev = resolve_device(device)
+    n_total = len(seq) if not max_frames else min(len(seq), max_frames)
+    n_steps = n_total - 1
+    ck_chunks = max(1, -(-checkpoint_every // chunk))
+
+    start_step, prev_fetched, prev_tracks, state = 0, None, None, None
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        try:
+            ck = load_scan_checkpoint(checkpoint_path)
+            start_step = int(ck["frames_done"])
+            if start_step > n_steps:
+                raise CorruptCheckpoint(
+                    f"cursor {start_step} beyond sequence ({n_steps} steps)")
+            prev_fetched = StepOutput(**{k: ck["out_" + k]
+                                         for k in StepOutput._fields})
+            if collect_tracks:
+                missing = [k for k in TrackSnapshot._fields
+                           if "trk_" + k not in ck]
+                if missing:
+                    raise CorruptCheckpoint(
+                        f"snapshot carries no track snapshots (missing "
+                        f"trk_{missing[0]}): cannot resume a collect_tracks "
+                        f"run from it")
+                prev_tracks = TrackSnapshot(**{k: ck["trk_" + k]
+                                               for k in TrackSnapshot._fields})
+            if start_step < n_steps:
+                state = restore_scan_state(config, intrinsics, ck,
+                                           *seq.frame(start_step), device=dev)
+            if verbose:
+                print(f"resumed scan from {checkpoint_path} at step "
+                      f"{start_step}")
+        except CorruptCheckpoint as e:
+            print(f"warning: rejecting corrupt checkpoint: {e}",
+                  file=sys.stderr)
+            start_step, prev_fetched, prev_tracks, state = 0, None, None, None
+
+    def finish(fetched, tracks, wall, processed):
+        poses = chain_poses_host(fetched.T_inv, fetched.accept)
+        if collect_tracks:
+            return poses, fetched, wall, processed, [
+                TrackSnapshot(*(x[i] for x in tracks))
+                for i in range(len(tracks.valid))]
+        return poses, fetched, wall, processed
+
+    if start_step >= n_steps and prev_fetched is not None:
+        return finish(prev_fetched, prev_tracks, 0.0, 0)
+    if n_steps < 1:
+        raise ValueError("run_sequence_scan_resumable needs at least two "
+                         "frames")
+    if state is None:
+        state = init_vo_state(config, intrinsics, *seq.frame(0), seed=seed,
+                              device=dev)
+    step = make_step_fn(config, intrinsics, with_tracks=collect_tracks,
+                        device=dev)
+    pack = _make_snapshot_packer(config)
+    if warmup:
+        # One step on a throwaway state: kernel build and load, library
+        # initialisation. The run's own generator is not touched.
+        lw, rw = seq.frame(start_step + 1)
+        wstate = init_vo_state(config, intrinsics, lw, rw, seed=seed,
+                               device=dev)
+        _fetch(_run_chunk(step, wstate, np.asarray(lw)[None],
+                          np.asarray(rw)[None], dev)[1])
+
+    parts = [[prev_fetched] if prev_fetched is not None else [],
+             [prev_tracks] if prev_tracks is not None else []]
+
+    def stacked(k):
+        xs = parts[k]
+        return type(xs[0])(*(np.concatenate(x) for x in zip(*xs)))
+
+    frames = (seq.frame(i) for i in range(start_step + 1, n_total))
+    steps_done = start_step
+    full_chunks = 0
+    t0 = time.perf_counter()
+    for lefts, rights, n_real in _frame_chunks(frames, chunk):
+        state, *outs = _run_chunk(step, state, lefts, rights, dev)
+        for k, o in enumerate(outs):
+            parts[k].append(_fetch(o))
+        steps_done += n_real
+        if n_real != chunk:
+            continue
+        full_chunks += 1
+        if checkpoint_path and full_chunks % ck_chunks == 0:
+            ts = time.perf_counter()
+            f32, i32 = pack(state)
+            arrays = _unpack_snapshot(config, f32.cpu().numpy(),
+                                      i32.cpu().numpy(),
+                                      state.generator.get_state().numpy())
+            size = save_scan_checkpoint(
+                checkpoint_path, steps_done, arrays, stacked(0),
+                tracks=stacked(1) if collect_tracks else None)
+            if snapshot_stats is not None:
+                snapshot_stats.append({
+                    "step": steps_done, "bytes": size,
+                    "ms": 1e3 * (time.perf_counter() - ts)})
+            if verbose:
+                print(f"checkpoint @ step {steps_done}")
+    wall = time.perf_counter() - t0
+    return finish(stacked(0), stacked(1) if collect_tracks else None, wall,
+                  steps_done - start_step)
