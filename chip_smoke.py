@@ -78,7 +78,8 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    batched step at each B of SWEEP_B (the four courses' first
    SWEEP_STEPS steps, tiled to B sequences), after timing those steps
    with ``run_sequences_batched``: aggregate frames/s and ms per step. The
-   sync check also runs one step made ``with_tracks``.
+   sync check also runs one step made ``with_tracks`` and, for one
+   sequence, one buffered step (``make_buffered_step_fn``).
 7. The back end (one ``backend`` line per part), on LOOP_STEPS steps of the
    "loop" course: (a) ``run_sequence_scan(collect_tracks=True)`` under the
    bench gates, one snapshot per step whose valid count is the step's
@@ -107,6 +108,21 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    default step's LK launches per frame, no host sync in the step, and
    device ms and ops per step beside the default step's; for Shi-Tomasi
    also the corners per frame before bucketing.
+9. The front doors, on phase 4's frames (nothing more is rendered), each
+   held bit for bit to phase 4's ``run_sequence_scan`` of the course on the
+   quad route (poses and every output field) and to its kernel launches
+   per frame; one ``front_doors`` line per part: (a) ``run_sequence`` on
+   "straight" with collected tracks, metrics and poses files and an
+   offscreen ``LiveDisplay`` (each ``FrameResult`` against the scan's
+   outputs; the poses file read back through ``load_poses``; each track
+   snapshot's valid count is its step's ``num_matched``); (b)
+   ``run_sequence_resumable`` with a snapshot every DOOR_EVERY frames,
+   uninterrupted, failed at frame DOOR_CRASH_AT and resumed (snapshot ms
+   and bytes); (c) ``run_sequence_buffered(preupload=True)``; (d) the
+   bench's scan variants (bench.py:126-138) on the checker course, where
+   the adaptive fallback fires: ``preupload``, one upload thread and four,
+   with their frames/s and uploader stats; (e) the per-leg route through
+   four upload threads, equal to the quad route.
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -210,6 +226,9 @@ BA_KM = dict(window=16, iterations=8, max_landmarks=384, min_track_len=5,
 RESUME_CHUNK = 16
 RESUME_EVERY = 32
 RESUME_CRASH_AT = 40
+#: phase 9: the resumable door's snapshot interval (frames) and failure
+DOOR_EVERY = 16
+DOOR_CRASH_AT = 40
 #: phase 8 gate where the JAX package itself misses the ATE budget on the
 #: course: within this factor of its ATE (PR 5's rule for BA)
 VARIANT_ATE_FACTOR = 1.1
@@ -386,8 +405,8 @@ def quad_inputs(frames, config, intr, dev):
     pad = state.lk_l0.pad
     raw = state.lk_l0.pyramid[0][..., pad:pad + H, pad:pad + W]
     feats = detect_and_bucket(raw, state.features, config)
-    lk_l1 = pipeline._prep_image(frames[2][0], config, dev)
-    lk_r1 = pipeline._prep_image(frames[2][1], config, dev)
+    lk_l1 = pipeline.prep_image(frames[2][0], config, dev)
+    lk_r1 = pipeline.prep_image(frames[2][1], config, dev)
     lim = torch.tensor([W / 4.0, H / 4.0], device=dev)
     flow = torch.maximum(torch.minimum(feats.flow, lim), -lim).contiguous()
     disp = torch.maximum(torch.minimum(feats.disp, lim), -lim).contiguous()
@@ -409,8 +428,8 @@ def full_pyramid_inputs(frames, config, intr, dev):
     pad = state.lk_l0.pad
     raw = state.lk_l0.pyramid[0][..., pad:pad + H, pad:pad + W]
     feats = detect_and_bucket(raw, state.features, config)
-    lk_l1 = pipeline._prep_image(frames[1][0], config, dev)
-    lk_r1 = pipeline._prep_image(frames[1][1], config, dev)
+    lk_l1 = pipeline.prep_image(frames[1][0], config, dev)
+    lk_r1 = pipeline.prep_image(frames[1][1], config, dev)
     zero = torch.zeros_like(feats.points)
     images = (state.lk_l0, state.lk_r0, lk_r1, lk_l1)   # quad order
     return images, feats.points.contiguous(), feats.valid, zero, zero
@@ -840,7 +859,8 @@ def run_main_path(name, frames, gt, config, intr, dev, ref_poses=None,
     """``run_sequence_scan`` on one course, held to the bench gates (or, with
     ``ate_limit``, to that ATE in metres); with ``ref_poses`` (the quad
     route's run of the course) it reports the largest pose difference.
-    Prints a ``label`` line. Returns (result dict, poses)."""
+    Prints a ``label`` line. Returns (result dict, poses, fetched
+    outputs)."""
     from visual_odom_tpu_torch.runner import pipeline
 
     reset_counts()
@@ -872,7 +892,7 @@ def run_main_path(name, frames, gt, config, intr, dev, ref_poses=None,
                                       else ate_limit)):
         raise AssertionError(f"{name}: accuracy gates failed: accept {accept}, "
                              f"ATE {ate} m > budget {budget} m")
-    return res, poses
+    return res, poses, fetched
 
 
 def run_batched_path(courses, config, intr, dev, ref_poses=None):
@@ -1015,8 +1035,9 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
                    label="profile"):
     """Device time by kernel over a few main-path frames (4: the profiler's
     bookkeeping makes each profiled frame cost the script seconds), under
-    torch.profiler, after two steps that must not synchronise with the
-    host. The busy share divides it by ``steady_ms``, the main path's
+    torch.profiler, after two steps (for one sequence, three: the third a
+    buffered step) that must not synchronise with the host. The busy share
+    divides it by ``steady_ms``, the main path's
     ms/frame without the profiler (which slows the host). Frames of
     (B, H, W) pairs profile the batched step (per step, not per frame)."""
     import torch
@@ -1027,25 +1048,39 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
     from visual_odom_tpu_torch.runner import pipeline
 
     step = pipeline.make_step_fn(config, intr, device=dev)
-    if frames[0][0].ndim == 3:
-        state = batch.batched_init_state(config, *frames[0], device=dev)
-    else:
+    single = frames[0][0].ndim == 2
+    if single:
         state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
+    else:
+        state = batch.batched_init_state(config, *frames[0], device=dev)
+    n_sync = 3 if single else 2           # steps under the sync check
     up = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
-          for l, r in frames[1:n_frames + 3]]
+          for l, r in frames[1:n_sync + n_frames + 1]]
+    if len(up) != n_sync + n_frames:
+        raise ValueError(f"{label}: {len(frames)} frames, the sync check "
+                         f"and the profile need {n_sync + n_frames + 1}")
     tracks_step = pipeline.make_step_fn(config, intr, with_tracks=True,
                                         device=dev)
+    if single:
+        buffered = pipeline.make_buffered_step_fn(config, intr, device=dev)
+        bufs = pipeline.make_output_buffers(1, device=dev)
     # The step never waits for the device, nor does it when it also returns
-    # its track snapshot: any synchronising call raises.
+    # its track snapshot, nor (one sequence) when it writes its outputs at
+    # the buffers' device-side cursor: any synchronising call raises.
     torch.cuda.set_sync_debug_mode("error")
     try:
         state, _ = step(state, *up[0])
         state, _, _ = tracks_step(state, *up[1])
+        if single:
+            state, bufs = buffered(state, *up[2], bufs)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    if single and bufs.idx.tolist() != [1]:
+        raise AssertionError(f"{label}: the buffered step's cursor is "
+                             f"{bufs.idx.tolist()}, expected [1]")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for l, r in up[2:]:
+        for l, r in up[n_sync:]:
             state, out = step(state, l, r)
         torch.cuda.synchronize()
     # Device-side events only (kernels, copies): the CPU-side aten ops carry
@@ -1428,7 +1463,7 @@ def variant_check(name, opts, frames, gt, intr, dev, default_profile,
         limit = VARIANT_ATE_FACTOR * jax_ref["ate_m"]
     config = VOConfig.for_image(H, W, **opts)
     xconfig = VOConfig.for_image(H, W, lk_backend="xla", **opts)
-    q, poses = run_main_path(f"straight_{name}", frames, gt, config, intr,
+    q, poses, _ = run_main_path(f"straight_{name}", frames, gt, config, intr,
                              dev, label=f"{name}_path", ate_limit=limit)
     x = run_main_path(f"straight_{name}", frames, gt, xconfig, intr, dev,
                       ref_poses=poses, label=f"{name}_path",
@@ -1465,6 +1500,179 @@ def variant_check(name, opts, frames, gt, intr, dev, default_profile,
     if res["max_abs_dpose_routes"] != 0.0:
         raise AssertionError(f"{name}: the routes differ: {res}")
     return q["kernel_launches"], x["kernel_launches"]
+
+
+def _same(a, b) -> bool:
+    """Two NamedTuples of numpy arrays equal field by field, bit for bit."""
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _results_match(results, fetched, first=0) -> bool:
+    """``FrameResult`` i against step ``first + i`` of a fetched StepOutput
+    stack, on every field the two share."""
+    return all(
+        r.frame_id == first + i + 1
+        and all(getattr(r, k) == getattr(fetched, k)[first + i].item()
+                for k in ("accept", "scale", "num_inliers", "num_matched",
+                          "num_bucketed"))
+        for i, r in enumerate(results))
+
+
+def front_doors(frames, cframes, ref, cref, config, xconfig, intr, dev):
+    """Phase 9: the front doors on phase 4's frames, each held bit for bit
+    to phase 4's ``run_sequence_scan`` of the course (``ref``, ``cref``:
+    poses and fetched outputs, quad route) and to its kernel launches per
+    frame. One ``front_doors`` line per part. Returns the launches per
+    kernel."""
+    import tempfile
+
+    from visual_odom_tpu_torch.eval.plot import LiveDisplay
+    from visual_odom_tpu_torch.io.kitti import load_poses
+    from visual_odom_tpu_torch.runner import pipeline
+    from visual_odom_tpu_torch.utils.checkpoint import load_checkpoint
+
+    launches = {"quad": 0, "level": 0}
+    ref_poses, ref_out = ref
+    n = len(frames) - 1
+
+    def door(label, cfg, steps, fn):
+        reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        kernel = "quad" if cfg.resolved_lk_backend() == "pallas" else "level"
+        launches[kernel] += check_counts(label, cfg, counts, steps, False)
+        return out, wall, counts
+
+    def report(res, eq):
+        res.update(eq)
+        print("front_doors", json.dumps(res))
+        if not all(eq.values()):
+            raise AssertionError(f"front doors, {res['part']}: {eq}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) run_sequence with every option on
+        mpath, ppath = (os.path.join(tmp, f) for f in ("m.jsonl", "p.txt"))
+        live = LiveDisplay(offscreen=True)
+        (poses, results, snaps), wall, counts = door(
+            "run_sequence", config, n, lambda: pipeline.run_sequence(
+                frames, config, intr, metrics_path=mpath, poses_path=ppath,
+                collect_tracks=True, live=live, device=dev))
+        with open(mpath) as f:
+            metric_lines = len(f.read().splitlines())
+        rows = np.array([[float(f"{v:.9e}") for v in p[:3].reshape(12)]
+                         for p in poses])
+        report(dict(part="run_sequence", course="straight", steps=n,
+                    wall_s=wall, ms_per_frame=1e3 * wall / n,
+                    mean_frame_time_ms=float(np.mean(
+                        [r.frame_time_ms for r in results])),
+                    launch_counts=counts), {
+            "poses_vs_scan": bool(np.array_equal(poses, ref_poses)),
+            "results_vs_scan": _results_match(results, ref_out),
+            "poses_file": bool(np.array_equal(
+                load_poses(ppath)[:, :3, :].reshape(-1, 12), rows)),
+            "metrics_lines": metric_lines == n,
+            "snapshot_valid_is_matched": all(
+                int(s.valid.sum()) == r.num_matched
+                for s, r in zip(snaps, results)) and len(snaps) == n,
+            "live_frames": live.frames_shown == n})
+
+        # (b) run_sequence_resumable: uninterrupted, failed, resumed
+        stats = []
+        full_ck, crash_ck = (os.path.join(tmp, f) for f in ("f.npz", "c.npz"))
+        (full, full_res), wall_full, counts_full = door(
+            "resumable", config, n, lambda: pipeline.run_sequence_resumable(
+                RandomAccess(frames), config, intr, full_ck,
+                checkpoint_every=DOOR_EVERY, snapshot_stats=stats,
+                device=dev))
+        try:
+            pipeline.run_sequence_resumable(
+                RandomAccess(frames, DOOR_CRASH_AT), config, intr, crash_ck,
+                checkpoint_every=DOOR_EVERY, device=dev)
+            raise AssertionError("front doors: the injected failure did not "
+                                 "surface")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        at = int(load_checkpoint(crash_ck)["frame_id"])
+        (resumed, res_res), wall_res, counts_res = door(
+            "resumable, resumed", config, n - at,
+            lambda: pipeline.run_sequence_resumable(
+                RandomAccess(frames), config, intr, crash_ck,
+                checkpoint_every=DOOR_EVERY, device=dev))
+        report(dict(part="run_sequence_resumable", course="straight",
+                    steps=n, checkpoint_every=DOOR_EVERY,
+                    crash_at=DOOR_CRASH_AT, snapshot_at=at,
+                    resumed_steps=len(res_res), wall_full_s=wall_full,
+                    ms_per_frame=1e3 * wall_full / n,
+                    wall_resumed_s=wall_res, snapshots=stats,
+                    launch_counts=counts_full,
+                    launch_counts_resumed=counts_res), {
+            "snapshot_at_expected": at == DOOR_CRASH_AT // DOOR_EVERY
+            * DOOR_EVERY,
+            "poses_full_vs_run_sequence": bool(np.array_equal(full, poses)),
+            "poses_resumed_vs_full": bool(np.array_equal(resumed, full)),
+            "results_full_vs_scan": _results_match(full_res, ref_out),
+            "results_resumed_vs_scan": _results_match(res_res, ref_out,
+                                                      first=at)})
+
+    # (c) run_sequence_buffered, every frame on the card first
+    (bposes, bufs, bwall), wall, counts = door(
+        "buffered", config, n, lambda: pipeline.run_sequence_buffered(
+            frames, config, intr, preupload=True, device=dev))
+    report(dict(part="run_sequence_buffered", course="straight", steps=n,
+                preupload=True, wall_s=bwall, fps=n / bwall,
+                ms_per_frame=1e3 * bwall / n, call_s=wall,
+                launch_counts=counts), {
+        "poses_vs_run_sequence": bool(np.array_equal(bposes, poses)),
+        "outputs_vs_scan": all(
+            np.array_equal(getattr(bufs, k), getattr(ref_out, k))
+            for k in pipeline.OutputBuffers._fields[:-1]),
+        "cursor": bufs.idx.tolist() == [n]})
+
+    # (d) the bench's scan variants (bench.py:126-138) on the checker
+    # course, where the adaptive fallback fires (scripts/door_turns.py
+    # times the doors against each other in paired rounds)
+    cn = len(cframes) - 1
+    keep = ("chunks", "upload_bytes", "decode_s", "upload_s",
+            "thread_wall_s", "busy_frac", "upload_mb_s")
+    for variant, kw in (("preupload", dict(preupload=True)),
+                        ("threads_1", dict(upload_threads=1)),
+                        ("threads_4", dict(upload_threads=4))):
+        stats = {}
+        (p, out, swall, m), wall, counts = door(
+            f"scan {variant}", config, cn, lambda: pipeline.run_sequence_scan(
+                cframes, config, intr, chunk=CHUNK, warmup=False,
+                stats_out=stats, device=dev, **kw))
+        report(dict(part=f"scan_{variant}", course="straight_checker",
+                    steps=m, wall_s=swall, fps=m / swall,
+                    ms_per_frame=1e3 * swall / m, call_s=wall,
+                    fallback_frames=int(out.fallback.sum()),
+                    launch_counts=counts,
+                    stats={k: stats[k] for k in keep + (
+                        "threads", "pool_wall_s", "agg_upload_mb_s")
+                           if k in stats},
+                    per_thread=[{k: t[k] for k in keep}
+                                for t in stats.get("per_thread", [])]), {
+            "poses_vs_scan": bool(np.array_equal(p, cref[0])),
+            "outputs_vs_scan": _same(out, cref[1]),
+            "fallback_fired": int(out.fallback.sum()) > 0})
+
+    # (e) the per-leg route through four upload threads
+    stats = {}
+    (p, out, swall, m), wall, counts = door(
+        "scan per-leg", xconfig, n, lambda: pipeline.run_sequence_scan(
+            frames, xconfig, intr, chunk=CHUNK, warmup=False,
+            upload_threads=4, stats_out=stats, device=dev))
+    report(dict(part="scan_threads_4_xla", course="straight", steps=m,
+                route="xla", wall_s=swall, fps=m / swall,
+                ms_per_frame=1e3 * swall / m, launch_counts=counts,
+                busy_frac=stats["busy_frac"],
+                agg_upload_mb_s=stats["agg_upload_mb_s"]), {
+        "poses_vs_quad_scan": bool(np.array_equal(p, ref_poses)),
+        "outputs_vs_quad_scan": _same(out, ref_out)})
+    return launches
 
 
 def main() -> int:
@@ -1610,11 +1818,12 @@ def main() -> int:
     t = time.perf_counter()
     xconfig = VOConfig.for_image(H, W, lk_backend="xla")
     cframes, cgt = courses[("straight", "checker")]
-    runs, xruns = [], []
+    runs, xruns, refs = [], [], []
     for name, fr, g in (("straight", frames, gt),
                         ("straight_checker", cframes, cgt)):
-        res, poses = run_main_path(name, fr, g, config, intr, dev)
+        res, poses, fetched = run_main_path(name, fr, g, config, intr, dev)
         runs.append(res)
+        refs.append((poses, fetched))
         xruns.append(run_main_path(name, fr, g, xconfig, intr, dev,
                                    ref_poses=poses)[0])
     batched_run, bposes = run_batched_path(courses, config, intr, dev)
@@ -1655,6 +1864,12 @@ def main() -> int:
                 for name, opts in (("mono", dict(mono_rotation=True)),
                                    ("shi_tomasi", dict(detector="shi-tomasi")))}
     print(f"phase 8: {time.perf_counter() - t:.1f} s")
+
+    # ---- phase 9: the front doors, on phase 4's frames -------------------
+    t = time.perf_counter()
+    door_launches = front_doors(frames, cframes, refs[0], refs[1], config,
+                                xconfig, intr, dev)
+    print(f"phase 9: {time.perf_counter() - t:.1f} s")
 
     default = lk_cuda.variant()
 
@@ -1710,7 +1925,8 @@ def main() -> int:
              "loop_edges": loops["launch_counts"]["quad"],
              "resume": resume_launches,
              "mono": variants["mono"][0],
-             "shi_tomasi": variants["shi_tomasi"][0]},
+             "shi_tomasi": variants["shi_tomasi"][0],
+             "front_doors": door_launches["quad"]},
             quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
             {"batched_path": batched_run["kernel_launches"]}, bquads,
@@ -1719,7 +1935,8 @@ def main() -> int:
             {"main_path": sum(r["kernel_launches"] for r in xruns),
              "loop_edges": xloops["launch_counts"]["level"],
              "mono": variants["mono"][1],
-             "shi_tomasi": variants["shi_tomasi"][1]},
+             "shi_tomasi": variants["shi_tomasi"][1],
+             "front_doors": door_launches["level"]},
             levels, finest(levels), True),
         row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
             {"batched_path": xbatched_run["kernel_launches"]}, blevels,

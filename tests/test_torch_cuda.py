@@ -603,3 +603,97 @@ def test_scan_resume_on_card_is_bitwise(cuda_device, tmp_path, tracks):
         for sa, sb in zip(got[4], ref[4]):
             for a, b in zip(sa, sb):
                 np.testing.assert_array_equal(a, b)
+
+
+# --- the front doors on the card --------------------------------------------
+
+#: the doors ``run_sequence_scan`` must equal, bit for bit, on one device
+DOORS = ("run_sequence", "visual_odometry", "resumable", "buffered",
+         "buffered_streamed", "scan_preupload", "scan_threads2",
+         "scan_resumable_threads2")
+
+
+def _door_poses(door, frames, cfg, intr, dev, tmp_path):
+    if door == "run_sequence":
+        return pipeline.run_sequence(iter(frames), cfg, intr, device=dev)[0]
+    if door == "visual_odometry":
+        vo = pipeline.VisualOdometry(cfg, intr, device=dev)
+        vo.initialize(*frames[0])
+        return np.stack([np.eye(4)] + [vo.process_frame(*f).pose
+                                       for f in frames[1:]])
+    if door == "resumable":
+        return pipeline.run_sequence_resumable(
+            _Flaky(frames, 99), cfg, intr, str(tmp_path / "vo.npz"),
+            checkpoint_every=3, device=dev)[0]
+    if door.startswith("buffered"):
+        return pipeline.run_sequence_buffered(
+            frames, cfg, intr, preupload=door == "buffered", device=dev)[0]
+    if door == "scan_resumable_threads2":
+        return pipeline.run_sequence_scan_resumable(
+            _Flaky(frames, 99), cfg, intr, str(tmp_path / "scan.npz"),
+            checkpoint_every=4, chunk=2, upload_threads=2, device=dev)[0]
+    return pipeline.run_sequence_scan(
+        frames, cfg, intr, chunk=2, preupload=door == "scan_preupload",
+        upload_threads=2, device=dev)[0]
+
+
+@pytest.mark.parametrize("door", DOORS)
+def test_door_equals_scan_on_card(cuda_device, tmp_path, door):
+    """Every front door steps the same ``make_step_fn`` with the same draws:
+    its poses equal ``run_sequence_scan``'s bit for bit on the card."""
+    intr, _, frames = _small("mono", frames=9)
+    cfg = VOConfig.for_image(120, 160, ransac_iterations=200)   # default
+    ref = pipeline.run_sequence_scan(frames, cfg, intr, chunk=4,
+                                     device=cuda_device)[0]
+    got = _door_poses(door, frames, cfg, intr, cuda_device, tmp_path)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_vo_snapshot_on_card_resumes_bitwise(cuda_device, tmp_path):
+    """A ``VisualOdometry`` snapshot taken on the card (mono: two draws a
+    frame from the card's generator) resumes on the card bit for bit."""
+    intr, cfg, frames = _small("mono", frames=9)
+    kw = dict(checkpoint_every=3, device=cuda_device)
+    full, _ = pipeline.run_sequence_resumable(_Flaky(frames, 99), cfg, intr,
+                                              str(tmp_path / "full.npz"),
+                                              **kw)
+    ck = str(tmp_path / "crash.npz")
+    with pytest.raises(RuntimeError, match="injected"):
+        pipeline.run_sequence_resumable(_Flaky(frames, 7), cfg, intr, ck,
+                                        **kw)
+    got, results = pipeline.run_sequence_resumable(_Flaky(frames, 99), cfg,
+                                                   intr, ck, **kw)
+    assert [r.frame_id for r in results] == [7, 8]
+    np.testing.assert_array_equal(got, full)
+
+
+def test_buffered_step_and_uploaded_chunk_never_wait(cuda_device):
+    """A buffered step, and a scan chunk fed by two upload threads, under
+    sync-debug "error": neither waits for the card. (Each uploader thread
+    waits for its own copies on an event, which the debug mode does not
+    count.)"""
+    intr, _, frames = _small("mono", frames=9)
+    cfg = VOConfig.for_image(120, 160, ransac_iterations=200)   # default
+    step = pipeline.make_buffered_step_fn(cfg, intr, device=cuda_device)
+    scan_chunk = pipeline.make_scan_step_fn(cfg, intr, device=cuda_device)
+    st = pipeline.init_vo_state(cfg, intr, *frames[0], device=cuda_device)
+    bufs = pipeline.make_output_buffers(2, device=cuda_device)
+    up = [tuple(torch.from_numpy(x).to(cuda_device) for x in f)
+          for f in frames[1:3]]
+    st, bufs = step(st, *up[0], bufs)      # first use: kernel build and load
+    torch.cuda.synchronize()
+    chunks = pipeline._frame_chunks(iter(frames[3:]), 2)
+    uploader = pipeline._ParallelChunkUploader(chunks, cuda_device, threads=2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, bufs = step(st, *up[1], bufs)
+        n = 0
+        for dl, dr, k in iter(uploader.get, None):
+            st, out = scan_chunk(st, pipeline._on_current_stream(dl),
+                                 pipeline._on_current_stream(dr))
+            n += k
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    uploader.finish()
+    assert n == 6 and bufs.idx.tolist() == [2]
+    assert bool(torch.isfinite(out.T_inv).all())

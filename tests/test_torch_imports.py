@@ -16,12 +16,13 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "visual_odom_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "visual_odom_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "scripts" / "backend_courses.py"]
-#: modules the back end, the scan checkpoints and mono rotation added; the
-#: import check must reach them
+                                        ROOT / "scripts" / "backend_courses.py",
+                                        ROOT / "scripts" / "door_turns.py"]
+#: modules the back end, the checkpoints, mono rotation and the front doors'
+#: host I/O added; the import check must reach them
 BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
            "runner.loopclosure", "utils.checkpoint", "backend.essential",
-           "backend.five_point")
+           "backend.five_point", "utils.metrics", "io.kitti", "eval.plot")
 
 
 def _imported_modules(path: pathlib.Path):

@@ -11,8 +11,12 @@ Precision is fixed here, once for the whole package: float32 everywhere, and
 TF32 off for both matmuls and cuDNN convolutions (the JAX reference computes
 at ``Precision.HIGHEST``).
 
-Entry points (``runner.pipeline``): ``init_vo_state``, ``make_step_fn`` and
-``run_sequence_scan``. They run on CUDA unless the caller passes
+Entry points (``runner.pipeline``): ``init_vo_state`` and ``make_step_fn``;
+the front doors ``run_sequence_scan`` (with ``preupload``,
+``upload_threads`` and ``stats_out``), ``run_sequence_scan_resumable``,
+``VisualOdometry``, ``run_sequence``, ``run_sequence_resumable`` and
+``run_sequence_buffered``; ``parallel.batch_eval.run_sequences_batched``
+for B sequences in lockstep. They run on CUDA unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.
 """
 

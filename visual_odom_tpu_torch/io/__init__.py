@@ -1,1 +1,1 @@
-"""Synthetic stereo input."""
+"""Synthetic stereo input and KITTI pose files."""

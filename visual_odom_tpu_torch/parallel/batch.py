@@ -21,8 +21,8 @@ import torch
 from visual_odom_tpu_torch import resolve_device
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.frontend.featureset import empty_feature_state
-from visual_odom_tpu_torch.runner.pipeline import (VOState, _prep_image,
-                                                   _run_chunk, make_step_fn,
+from visual_odom_tpu_torch.runner.pipeline import (VOState, make_scan_step_fn,
+                                                   make_step_fn, prep_image,
                                                    seeded_generator)
 
 
@@ -40,14 +40,13 @@ def make_batched_scan_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     (state, StepOutput stacked (chunk, B, ...))``: each chunk is uploaded
     in one copy and stepped frame by frame; the outputs stay on the
     device."""
-    dev = resolve_device(device)
-    step = make_step_fn(config, intrinsics, device=dev)
+    scan_chunk = make_scan_step_fn(config, intrinsics, device=device)
 
     def scan(state: VOState, lefts, rights):
         if lefts.shape[0] != chunk or rights.shape[0] != chunk:
             raise ValueError(f"scan takes chunks of {chunk} frames, got "
                              f"{lefts.shape[0]} and {rights.shape[0]}")
-        return _run_chunk(step, state, lefts, rights, dev)
+        return scan_chunk(state, lefts, rights)
 
     return scan
 
@@ -62,7 +61,7 @@ def batched_init_state(config: VOConfig, lefts, rights, seed: int = 0,
     return VOState(
         features=empty_feature_state(config.padded_features, batch=(B,),
                                      device=dev),
-        lk_l0=_prep_image(lefts, config, dev),
-        lk_r0=_prep_image(rights, config, dev),
+        lk_l0=prep_image(lefts, config, dev),
+        lk_r0=prep_image(rights, config, dev),
         tvec=torch.zeros((B, 3), dtype=torch.float32, device=dev),
         generator=tuple(seeded_generator(seed + b, dev) for b in range(B)))

@@ -12,8 +12,8 @@ lists. A sequence shorter than the longest is padded with its last frame;
 the steps past its end are cut from its pose chain and its stats. The
 snapshot/resume of the JAX runner waits for the checkpoint port.
 
-The step, the chunk step (``runner.pipeline._run_chunk``), the fetch and
-the pose chaining are the single-sequence runner's; only the loop is this
+The step, the chunk step (``runner.pipeline.make_scan_step_fn``), the
+fetch and the pose chaining are the single-sequence runner's; only the loop is this
 module's own. ``runner.pipeline.run_sequence_scan`` streams from any
 iterable and holds one chunk in host memory; this loop needs random access
 to pad short sequences with their last frame, and reads the next frame or

@@ -1,1 +1,25 @@
-"""The per-frame step and the chunked sequence runner."""
+"""The per-frame step and the front doors that drive it."""
+
+from visual_odom_tpu_torch.runner.pipeline import (
+    OutputBuffers,
+    StepOutput,
+    VisualOdometry,
+    VOState,
+    chain_poses_host,
+    make_buffered_step_fn,
+    make_step_fn,
+    run_sequence,
+    run_sequence_buffered,
+)
+
+__all__ = [
+    "VisualOdometry",
+    "VOState",
+    "StepOutput",
+    "OutputBuffers",
+    "make_step_fn",
+    "make_buffered_step_fn",
+    "run_sequence",
+    "run_sequence_buffered",
+    "chain_poses_host",
+]

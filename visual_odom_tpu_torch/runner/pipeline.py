@@ -1,16 +1,28 @@
-"""The VO pipeline: the per-frame step and the chunked sequence runner.
+"""The VO pipeline: the per-frame step and its front doors.
 
-Port of ``visual_odom_tpu/runner/pipeline.py`` (``VOState``,
-``StepOutput``, ``TrackSnapshot``, ``make_step_fn``, ``init_vo_state``,
-``run_sequence_scan``, ``chain_poses_host``, and the scan's checkpoints:
-``restore_scan_state``, ``run_sequence_scan_resumable``). One step takes
-the new stereo pair to the 4x4 frame delta: pyramids of the new pair (reused as t0 next
-frame), FAST + bucketing on L(t0), the circular LK match under the adaptive
-skip policy (on the route ``config.lk_backend`` picks: quad launches or
-per-leg level launches), triangulation, PnP-RANSAC, and the rotation /
-scale / inlier-floor gates.
-Everything stays on the device; the runner fetches outputs once per chunk
-and chains poses in float64 on the host.
+Port of ``visual_odom_tpu/runner/pipeline.py``. The step
+(``make_step_fn``) takes the new stereo pair to the 4x4 frame delta:
+pyramids of the new pair (reused as t0 next frame), FAST + bucketing on
+L(t0), the circular LK match under the adaptive skip policy (on the route
+``config.lk_backend`` picks: quad launches or per-leg level launches),
+triangulation, PnP-RANSAC, and the rotation / scale / inlier-floor gates.
+Everything stays on the device and the host chains poses in float64.
+
+The front doors, all stepping the same ``make_step_fn`` with the same
+generator draws, so on one device they give the same poses bit for bit:
+
+- ``run_sequence_scan``, the throughput door: chunks of frames uploaded by
+  background threads (``_ChunkUploader``, ``_ParallelChunkUploader``) or
+  all before the loop (``preupload``), stepped by ``make_scan_step_fn``;
+  the outputs stay on the device until every chunk is dispatched.
+- ``run_sequence_scan_resumable``: the same with chunk-boundary snapshots
+  and crash resume (``restore_scan_state``).
+- ``VisualOdometry`` (feed a frame, get a pose; one fetch a frame),
+  ``run_sequence`` over it, and ``run_sequence_resumable`` with its
+  per-frame snapshots (``utils.checkpoint.save_checkpoint`` /
+  ``restore_vo``).
+- ``run_sequence_buffered``: every output written into preallocated device
+  buffers at a device-side cursor, one fetch at the end.
 
 The step is written over an optional leading batch dim: given a batched
 state (``parallel.batch.batched_init_state``) and (B, H, W) frames it
@@ -27,7 +39,9 @@ from __future__ import annotations
 
 import itertools
 import os
+import queue
 import sys
+import threading
 import time
 from typing import NamedTuple, Optional
 
@@ -41,15 +55,21 @@ from visual_odom_tpu_torch.backend.pnp import pnp_ransac
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.core.lie import rodrigues_inverse
 from visual_odom_tpu_torch.core.triangulate import triangulate_points
+from visual_odom_tpu_torch.eval.plot import render_tracks, save_png
 from visual_odom_tpu_torch.frontend.bucketing import detect_and_bucket
 from visual_odom_tpu_torch.frontend.featureset import (FeatureState,
                                                        empty_feature_state)
 from visual_odom_tpu_torch.frontend.matching import (commit_tracked_state,
                                                      skip_mode_match)
+from visual_odom_tpu_torch.io.kitti import PoseWriter, save_poses_kitti
 from visual_odom_tpu_torch.ops.lk import LKImage, LKParams, prepare_lk_image
 from visual_odom_tpu_torch.utils.checkpoint import (CorruptCheckpoint,
+                                                    load_checkpoint,
                                                     load_scan_checkpoint,
+                                                    restore_vo,
+                                                    save_checkpoint,
                                                     save_scan_checkpoint)
+from visual_odom_tpu_torch.utils.metrics import MetricsLogger
 
 
 class VOState(NamedTuple):
@@ -98,8 +118,13 @@ def _lk_params(config: VOConfig) -> LKParams:
                     min_eig_threshold=config.lk_min_eig_threshold)
 
 
-def _prep_image(img, config: VOConfig, device: torch.device) -> LKImage:
-    img = torch.as_tensor(img).to(device=device, dtype=torch.float32)
+def prep_image(img, config: VOConfig, device=None) -> LKImage:
+    """``prepare_lk_image`` of a frame (numpy or tensor, any dtype, on any
+    device) as float32 on ``device``. The step, the state builders and the
+    restores all build their pyramids here, so a restored state's pyramids
+    are the step's bit for bit."""
+    img = torch.as_tensor(img).to(device=resolve_device(device),
+                                  dtype=torch.float32)
     return prepare_lk_image(img, _lk_params(config))
 
 
@@ -116,8 +141,8 @@ def init_vo_state(config: VOConfig, intrinsics: CameraIntrinsics, left0,
     dev = resolve_device(device)
     return VOState(
         features=empty_feature_state(config.padded_features, device=dev),
-        lk_l0=_prep_image(left0, config, dev),
-        lk_r0=_prep_image(right0, config, dev),
+        lk_l0=prep_image(left0, config, dev),
+        lk_r0=prep_image(right0, config, dev),
         tvec=torch.zeros(3, dtype=torch.float32, device=dev),
         generator=seeded_generator(seed, dev))
 
@@ -149,8 +174,8 @@ def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
 
     def step(state: VOState, left_t1, right_t1, uniforms=None,
              ess_uniforms=None):
-        lk_l1 = _prep_image(left_t1, config, dev)
-        lk_r1 = _prep_image(right_t1, config, dev)
+        lk_l1 = prep_image(left_t1, config, dev)
+        lk_r1 = prep_image(right_t1, config, dev)
 
         pad = state.lk_l0.pad
         h, w = state.lk_l0.shapes[0]
@@ -222,53 +247,389 @@ def chain_poses_host(T_inv: np.ndarray, accept: np.ndarray) -> np.ndarray:
     return poses
 
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _to_host(tensors) -> list:
+    """Tensors (any device, dtype and shape) -> numpy arrays, in one
+    device-to-host copy: their bytes are packed on the device, widest
+    element first, so every array lies aligned in the fetched buffer."""
+    if not tensors:
+        return []
+    order = sorted(range(len(tensors)),
+                   key=lambda i: -tensors[i].element_size())
+    buf = torch.cat([tensors[i].detach().reshape(-1).view(torch.uint8)
+                     for i in order]).cpu().numpy()
+    out = [None] * len(tensors)
+    off = 0
+    for i in order:
+        t = tensors[i]
+        n = t.numel() * t.element_size()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out[i] = buf[off:off + n].view(dtype).reshape(tuple(t.shape))
+        off += n
+    return out
+
+
+def _fetch_many(outs) -> list:
+    """NamedTuples of tensors -> the same NamedTuples of numpy arrays, in
+    one device-to-host copy."""
+    flat = iter(_to_host([x for o in outs for x in o]))
+    return [type(o)(*(next(flat) for _ in o)) for o in outs]
+
+
+def _fetch(out):
+    return _fetch_many([out])[0]
+
+
+def _fetch_chunks(outs) -> list:
+    """Per-chunk tuples of output stacks on the device -> the same tuples of
+    numpy stacks, in one device-to-host copy."""
+    if not outs:
+        return []
+    k = len(outs[0])
+    flat = _fetch_many([o for out in outs for o in out])
+    return [tuple(flat[i:i + k]) for i in range(0, len(flat), k)]
+
+
+def _concat(chunks) -> tuple:
+    """Per-chunk tuples of numpy NamedTuple stacks -> one tuple of them,
+    concatenated along the step axis."""
+    return tuple(type(xs[0])(*(np.concatenate(f) for f in zip(*xs)))
+                 for xs in zip(*chunks))
+
+
+def make_scan_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
+                      with_tracks: bool = False, device=None):
+    """Build ``scan_chunk(state, lefts, rights) -> (state, StepOutput
+    stacked (k, ...))``, or ``(state, StepOutput, TrackSnapshot)`` stacked
+    ``with_tracks``: the step over a chunk of k frames (numpy or tensors,
+    each stack uploaded in one copy unless already on the device), with
+    the outputs left on the device. The counterpart of the JAX package's
+    ``lax.scan`` over a chunk; the steps are eager launches here, so k may
+    be any length and no tail is padded. Frames (k, B, H, W) with a batched
+    state step B sequences."""
+    dev = resolve_device(device)
+    step = make_step_fn(config, intrinsics, with_tracks=with_tracks,
+                        device=dev)
+
+    def scan_chunk(state: VOState, lefts, rights):
+        dl = torch.as_tensor(lefts).to(dev)
+        dr = torch.as_tensor(rights).to(dev)
+        outs = []
+        for i in range(dl.shape[0]):
+            state, *out = step(state, dl[i], dr[i])
+            outs.append(out)
+        return (state,) + tuple(type(o[0])(*(torch.stack(x)
+                                             for x in zip(*o)))
+                                for o in zip(*outs))
+
+    return scan_chunk
+
+
 def _frame_chunks(it, chunk: int):
     """Yield (lefts (k, H, W), rights (k, H, W), k) numpy stacks of up to
-    ``chunk`` frames from an iterator of (left, right) frames."""
+    ``chunk`` frames from an iterator of (left, right) frames. No frame is
+    held once its chunk is stacked, so the host keeps O(chunk) frames
+    whatever the consumer holds."""
     while True:
         frames = list(itertools.islice(it, chunk))
         if not frames:
             return
-        yield (np.stack([np.asarray(l) for l, _ in frames]),
-               np.stack([np.asarray(r) for _, r in frames]), len(frames))
+        lefts = np.stack([np.asarray(l) for l, _ in frames])
+        rights = np.stack([np.asarray(r) for _, r in frames])
+        n = len(frames)
+        del frames
+        yield lefts, rights, n
 
 
-def _run_chunk(step, state: VOState, lefts, rights, device):
-    """Step over one chunk of frames (numpy or tensors, uploaded in one copy
-    each); outputs stay on the device, stacked: (state, StepOutput) or, for
-    a step made ``with_tracks``, (state, StepOutput, TrackSnapshot)."""
-    dl = torch.as_tensor(lefts).to(device)
-    dr = torch.as_tensor(rights).to(device)
-    outs = []
-    for i in range(dl.shape[0]):
-        state, *out = step(state, dl[i], dr[i])
-        outs.append(out)
-    return (state,) + tuple(type(o[0])(*(torch.stack(x) for x in zip(*o)))
-                            for o in zip(*outs))
+def _upload(host, dev: torch.device, stream) -> list:
+    """Host arrays -> tensors on ``dev``. On a card they are copied from
+    pinned memory on ``stream`` (the calling uploader thread's own), and the
+    thread waits for its copies, so the tensors are whole when handed over.
+    On the CPU they are the arrays themselves."""
+    if dev.type != "cuda":
+        return [torch.from_numpy(a) for a in host]
+    with torch.cuda.stream(stream):
+        out = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+               for a in host]
+    done = torch.cuda.Event()
+    done.record(stream)
+    done.synchronize()
+    return out
 
 
-def _fetch(out):
-    return type(out)(*(x.cpu().numpy() for x in out))
+def _on_current_stream(x: torch.Tensor) -> torch.Tensor:
+    """Mark an uploaded tensor as used by the current stream. It was
+    allocated on an uploader's stream; without the mark the allocator would
+    hand its block to the next upload as soon as the tensor is dropped,
+    while the step's kernels may still be reading it."""
+    if x.is_cuda:
+        x.record_stream(torch.cuda.current_stream(x.device))
+    return x
+
+
+def _stream_for(dev: torch.device):
+    return torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+
+class _ParallelChunkUploader:
+    """N threads that upload chunks and deliver them to the scan loop
+    strictly in order.
+
+    Each thread takes the next (seq, chunk) from the shared iterator under a
+    lock, uploads it on its own stream and puts it in a stash keyed by seq;
+    ``get`` pops by seq. A thread whose chunk would stand more than
+    ``max_ahead`` chunks past the consumer waits, so host and device hold
+    O(threads + max_ahead) chunks. ``stats_out`` gets the single uploader's
+    keys summed over threads, ``threads``, ``pool_wall_s``, ``per_thread``
+    rows, ``busy_frac`` (the busiest thread's) and ``agg_upload_mb_s``
+    (bytes over the pool's wall: the concurrent upload rate).
+    """
+
+    def __init__(self, chunks, device: torch.device, threads: int = 3,
+                 max_ahead: int = 3, stats_out: Optional[dict] = None):
+        self._chunks = chunks
+        self._dev = device
+        self._lock = threading.Lock()        # the iterator and seq counter
+        self._cond = threading.Condition()   # the stash and the cursors
+        self._stash: dict = {}
+        self._next_get = 0
+        self._next_seq = 0
+        self._eos_seq: Optional[int] = None  # seq after the last chunk
+        self._max_ahead = max_ahead
+        self._cancel = threading.Event()
+        self._err: list = []
+        self._stats_out = stats_out
+        self._tstats: list = []
+        self._t0 = time.perf_counter()
+        self._threads = [threading.Thread(target=self._run, args=(k,),
+                                          daemon=True, name=f"vo-upload-{k}")
+                         for k in range(max(1, threads))]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, k: int):
+        stats = {"decode_s": 0.0, "upload_s": 0.0, "upload_bytes": 0,
+                 "thread_wall_s": 0.0, "chunks": 0}
+        t_start = time.perf_counter()
+        try:
+            stream = _stream_for(self._dev)
+            while not self._cancel.is_set():
+                t0 = time.perf_counter()
+                with self._lock:
+                    seq = self._next_seq
+                    nxt = next(self._chunks, None)
+                    if nxt is None:
+                        with self._cond:
+                            if self._eos_seq is None or seq < self._eos_seq:
+                                self._eos_seq = seq
+                            self._cond.notify_all()
+                        return
+                    self._next_seq += 1
+                stats["decode_s"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                dl, dr = _upload(nxt[:2], self._dev, stream)
+                stats["upload_s"] += time.perf_counter() - t0
+                stats["upload_bytes"] += nxt[0].nbytes + nxt[1].nbytes
+                stats["chunks"] += 1
+                with self._cond:
+                    while (seq - self._next_get >= self._max_ahead
+                           and not self._cancel.is_set()):
+                        self._cond.wait(timeout=0.2)
+                    if self._cancel.is_set():
+                        return
+                    self._stash[seq] = (dl, dr, nxt[2])
+                    self._cond.notify_all()
+        except BaseException as e:
+            self._err.append(e)
+            with self._cond:
+                self._cond.notify_all()
+        finally:
+            stats["thread_wall_s"] = time.perf_counter() - t_start
+            self._tstats.append(stats)
+
+    def get(self):
+        with self._cond:
+            while True:
+                if self._err:
+                    raise self._err[0]
+                if self._next_get in self._stash:
+                    item = self._stash.pop(self._next_get)
+                    self._next_get += 1
+                    self._cond.notify_all()
+                    return item
+                if (self._eos_seq is not None
+                        and self._next_get >= self._eos_seq):
+                    self._finalize_stats()
+                    return None
+                self._cond.wait(timeout=0.2)
+
+    def cancel(self):
+        self._cancel.set()
+        with self._cond:
+            self._stash.clear()
+            self._cond.notify_all()
+        for t in self._threads:
+            t.join(timeout=30.0)
+
+    def finish(self):
+        for t in self._threads:
+            t.join()
+        if self._err:
+            raise self._err[0]
+        self._finalize_stats()
+
+    def _finalize_stats(self):
+        if self._stats_out is None or not self._tstats:
+            return
+        wall = time.perf_counter() - self._t0
+        agg = {k: sum(s[k] for s in self._tstats)
+               for k in ("decode_s", "upload_s", "upload_bytes", "chunks")}
+        per_thread = [
+            {**s, "busy_frac": ((s["decode_s"] + s["upload_s"])
+                                / s["thread_wall_s"]
+                                if s["thread_wall_s"] > 0 else 0.0),
+             "upload_mb_s": (s["upload_bytes"] / 1e6 / s["upload_s"]
+                             if s["upload_s"] > 0 else 0.0)}
+            for s in self._tstats]
+        self._stats_out.update(
+            agg, threads=len(self._threads), pool_wall_s=wall,
+            per_thread=per_thread,
+            busy_frac=max(t["busy_frac"] for t in per_thread),
+            # per-stream rate, and the concurrent rate over the pool's wall
+            upload_mb_s=(agg["upload_bytes"] / 1e6 / agg["upload_s"]
+                         if agg["upload_s"] > 0 else 0.0),
+            agg_upload_mb_s=(agg["upload_bytes"] / 1e6 / wall
+                             if wall > 0 else 0.0))
+
+
+class _ChunkUploader:
+    """One background thread that uploads (lefts, rights, k) chunks from an
+    iterator into a bounded queue (host memory stays O(chunk)); a None ends
+    the stream.
+
+    - ``cancel()``: if the consumer dies mid-loop the thread must not sit on
+      a full queue holding chunks: every put is a bounded retry under a
+      cancellation flag, and cancel() drains the queue and joins.
+    - ``stats_out``: ``decode_s`` (pulling and stacking frames from the
+      source), ``upload_s`` (pinning, copying and waiting for the copies),
+      ``upload_bytes``, ``thread_wall_s``, ``chunks``, ``busy_frac`` (the
+      share of the thread's wall not spent waiting on a full queue, i.e.
+      on the step) and ``upload_mb_s``.
+    - ``finish()``: join, and re-raise the thread's error on the caller.
+    """
+
+    def __init__(self, chunks, device: torch.device, maxsize: int = 2,
+                 stats_out: Optional[dict] = None):
+        self.queue: queue.Queue = queue.Queue(maxsize=maxsize)
+        self._chunks = chunks
+        self._dev = device
+        self._err: list = []
+        self._cancel = threading.Event()
+        self._stats_out = stats_out
+        self._th = threading.Thread(target=self._run, daemon=True,
+                                    name="vo-upload-0")
+        self._th.start()
+
+    def _put(self, item) -> bool:
+        while not self._cancel.is_set():
+            try:
+                self.queue.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self):
+        stats = {"decode_s": 0.0, "upload_s": 0.0, "upload_bytes": 0,
+                 "thread_wall_s": 0.0, "chunks": 0}
+        t_start = time.perf_counter()
+        try:
+            stream = _stream_for(self._dev)
+            t0 = time.perf_counter()
+            nxt = next(self._chunks, None)
+            stats["decode_s"] += time.perf_counter() - t0
+            while nxt is not None and not self._cancel.is_set():
+                t0 = time.perf_counter()
+                dl, dr = _upload(nxt[:2], self._dev, stream)
+                stats["upload_s"] += time.perf_counter() - t0
+                stats["upload_bytes"] += nxt[0].nbytes + nxt[1].nbytes
+                stats["chunks"] += 1
+                if not self._put((dl, dr, nxt[2])):
+                    return
+                t0 = time.perf_counter()
+                nxt = next(self._chunks, None)
+                stats["decode_s"] += time.perf_counter() - t0
+        except BaseException as e:
+            self._err.append(e)
+        finally:
+            stats["thread_wall_s"] = time.perf_counter() - t_start
+            if self._stats_out is not None:
+                busy = stats["decode_s"] + stats["upload_s"]
+                self._stats_out.update(
+                    stats,
+                    busy_frac=(busy / stats["thread_wall_s"]
+                               if stats["thread_wall_s"] > 0 else 0.0),
+                    upload_mb_s=(stats["upload_bytes"] / 1e6
+                                 / stats["upload_s"]
+                                 if stats["upload_s"] > 0 else 0.0))
+            self._put(None)
+
+    def get(self):
+        return self.queue.get()
+
+    def cancel(self):
+        self._cancel.set()
+        try:
+            while True:
+                self.queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._th.join(timeout=30.0)
+
+    def finish(self):
+        self._th.join()
+        if self._err:
+            raise self._err[0]
+
+
+def _uploader(chunks, dev: torch.device, threads: int,
+              stats_out: Optional[dict], maxsize: int = 2):
+    if threads > 1:
+        return _ParallelChunkUploader(chunks, dev, threads=threads,
+                                      stats_out=stats_out)
+    return _ChunkUploader(chunks, dev, maxsize=maxsize, stats_out=stats_out)
 
 
 def run_sequence_scan(frames, config: VOConfig, intrinsics: CameraIntrinsics,
                       seed: int = 0, chunk: int = 32, warmup: bool = True,
-                      collect_tracks: bool = False, device=None):
+                      preupload: bool = False,
+                      stats_out: Optional[dict] = None,
+                      collect_tracks: bool = False, upload_threads: int = 1,
+                      device=None):
     """Chunked sequence runner, the throughput front door.
 
     ``frames`` is any iterable of (left, right) uint8 images; host memory
-    holds one chunk at a time. Each chunk is uploaded in one copy, stepped
-    frame by frame on the device, and its outputs are fetched once.
+    holds O(chunk) frames. The first chunk is uploaded before any uploader
+    thread starts (``stats_out`` counts the others); the rest are uploaded
+    by one background thread, or by ``upload_threads`` > 1 threads
+    delivering in order, or, with ``preupload``, all before the loop. The
+    loop dispatches every chunk and keeps its outputs on the device: the
+    wall stops once the last chunk's outputs are fetched, which waits for
+    the device, and the other chunks' are fetched after it in one copy. A
+    failure in the loop cancels the uploader and re-raises.
 
     Returns (poses (N+1, 4, 4) f64, fetched StepOutput of numpy arrays,
-    wall_seconds, frames_processed). ``wall_seconds`` covers the steady-state
-    loop (uploads included); with ``warmup`` the first chunk runs once on a
-    throwaway state first, so one-time costs (kernel build and load, CUDA
-    library initialisation) stay out of it.
-    With ``collect_tracks``, a fifth element: the per-frame TrackSnapshot
-    list (numpy, frame i+1's snapshot at index i, the
-    ``ba.window.smooth_trajectory_ba`` input), stacked on the device per
-    chunk and fetched with the chunk's outputs.
+    wall_seconds, frames_processed). ``wall_seconds`` covers the
+    steady-state loop (uploads included unless ``preupload``); with
+    ``warmup`` the first chunk runs once on a throwaway state first, so
+    one-time costs (kernel build and load, CUDA library initialisation)
+    stay out of it. With ``collect_tracks``, a fifth element: the per-frame
+    TrackSnapshot list (numpy, frame i+1's snapshot at index i, the
+    ``ba.window.smooth_trajectory_ba`` input).
     """
     dev = resolve_device(device)
     it = iter(frames)
@@ -276,37 +637,43 @@ def run_sequence_scan(frames, config: VOConfig, intrinsics: CameraIntrinsics,
         frame0 = next(it)
     except StopIteration:
         raise ValueError("run_sequence_scan needs at least one frame") from None
-    step = make_step_fn(config, intrinsics, with_tracks=collect_tracks,
-                        device=dev)
+    scan_chunk = make_scan_step_fn(config, intrinsics,
+                                   with_tracks=collect_tracks, device=dev)
     chunks = _frame_chunks(it, chunk)
     first = next(chunks, None)
     if first is None:
         return np.eye(4)[None].astype(np.float64), None, 0.0, 0
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    first = (torch.as_tensor(first[0]).to(dev),
+             torch.as_tensor(first[1]).to(dev), first[2])
 
     if warmup:
-        wstate = init_vo_state(config, intrinsics, *frame0, seed=seed, device=dev)
-        _fetch(_run_chunk(step, wstate, first[0], first[1], dev)[1])
+        wstate = init_vo_state(config, intrinsics, *frame0, seed=seed,
+                               device=dev)
+        scan_chunk(wstate, first[0], first[1])
+        _sync(dev)
 
     state = init_vo_state(config, intrinsics, *frame0, seed=seed, device=dev)
-    sync()
-    t0 = time.perf_counter()
-    fetched_list = []
-    n = 0
-    cur = first
-    while cur is not None:
-        lefts, rights, n_real = cur
-        state, *outs = _run_chunk(step, state, lefts, rights, dev)
-        fetched_list.append([_fetch(o) for o in outs])
-        n += n_real
-        cur = next(chunks, None)
-    wall = time.perf_counter() - t0
+    up = _uploader(chunks, dev, 1 if preupload else upload_threads,
+                   stats_out, maxsize=0 if preupload else 2)
+    if preupload:
+        up.finish()         # every chunk is on the device before the wall
+    _sync(dev)
+    outs, n = [], 0
+    try:
+        t0 = time.perf_counter()
+        for dl, dr, n_real in itertools.chain([first], iter(up.get, None)):
+            state, *out = scan_chunk(state, _on_current_stream(dl),
+                                     _on_current_stream(dr))
+            outs.append(out)
+            n += n_real
+        last = _fetch_chunks(outs[-1:])
+        wall = time.perf_counter() - t0
+    except BaseException:
+        up.cancel()
+        raise
+    up.finish()
 
-    fetched, *tracks = (type(xs[0])(*(np.concatenate(x) for x in zip(*xs)))
-                        for xs in zip(*fetched_list))
+    fetched, *tracks = _concat(_fetch_chunks(outs[:-1]) + last)
     poses = chain_poses_host(fetched.T_inv, fetched.accept)
     if collect_tracks:
         return poses, fetched, wall, n, [
@@ -333,43 +700,21 @@ def restore_scan_state(config: VOConfig, intrinsics: CameraIntrinsics,
             valid=t("valid", torch.bool), ids=t("ids", torch.int32),
             next_id=t("next_id", torch.int32), flow=t("flow", torch.float32),
             disp=t("disp", torch.float32)),
-        lk_l0=_prep_image(left_t0, config, dev),
-        lk_r0=_prep_image(right_t0, config, dev),
+        lk_l0=prep_image(left_t0, config, dev),
+        lk_r0=prep_image(right_t0, config, dev),
         tvec=t("tvec", torch.float32), generator=gen)
 
 
-def _make_snapshot_packer(config: VOConfig):
-    """VOState -> (f32 vector, i32 vector) on the device, so a snapshot's
-    device-to-host traffic is two copies and not eight; the generator's
-    state travels beside them (it lives on the host)."""
-
-    def pack(state: VOState):
-        f = state.features
-        f32 = torch.cat([f.points.reshape(-1), f.flow.reshape(-1),
-                         f.disp.reshape(-1), state.tvec.to(torch.float32)])
-        i32 = torch.cat([f.ages.to(torch.int32), f.valid.to(torch.int32),
-                         f.ids.to(torch.int32),
-                         f.next_id.reshape(1).to(torch.int32)])
-        return f32, i32
-
-    return pack
-
-
-def _unpack_snapshot(config: VOConfig, f32: np.ndarray, i32: np.ndarray,
-                     gen_state: np.ndarray) -> dict:
-    """Host-side inverse of ``_make_snapshot_packer``'s layout."""
-    P = config.padded_features
-    return {
-        "points": f32[:2 * P].reshape(P, 2),
-        "flow": f32[2 * P:4 * P].reshape(P, 2),
-        "disp": f32[4 * P:6 * P].reshape(P, 2),
-        "tvec": f32[6 * P:6 * P + 3],
-        "ages": i32[:P],
-        "valid": i32[P:2 * P] != 0,
-        "ids": i32[2 * P:3 * P],
-        "next_id": i32[3 * P],
-        "gen_state": np.asarray(gen_state, np.uint8),
-    }
+def state_arrays(state: VOState) -> dict:
+    """The state's resumable arrays (``utils.checkpoint.STATE_KEYS``) on the
+    host: the feature arrays and the warm start in one device-to-host copy,
+    and the generator's state (which lives on the host) beside them."""
+    f = state.features
+    names = ("points", "ages", "valid", "ids", "next_id", "flow", "disp")
+    host = _to_host([getattr(f, k) for k in names] + [state.tvec])
+    arrays = dict(zip(names + ("tvec",), host))
+    arrays["gen_state"] = state.generator.get_state().numpy()
+    return arrays
 
 
 def run_sequence_scan_resumable(seq, config: VOConfig,
@@ -378,6 +723,8 @@ def run_sequence_scan_resumable(seq, config: VOConfig,
                                 checkpoint_every: int = 256, chunk: int = 64,
                                 seed: int = 0, max_frames: int = 0,
                                 warmup: bool = True, verbose: bool = False,
+                                stats_out: Optional[dict] = None,
+                                upload_threads: int = 1,
                                 collect_tracks: bool = False,
                                 snapshot_stats: Optional[list] = None,
                                 device=None):
@@ -385,30 +732,32 @@ def run_sequence_scan_resumable(seq, config: VOConfig,
 
     ``seq`` is random access (``len`` and ``.frame(i)``): a snapshot stores
     no image, and frame t0's pyramids are rebuilt from
-    ``seq.frame(frames_done)`` at resume. A snapshot is written every
-    ``checkpoint_every`` steps, rounded up to a whole number of chunks, so
-    a resumed run's chunks line up with an uninterrupted one's; each is the
-    state packed into two device-to-host copies, the generator's state,
-    and the outputs (and, ``collect_tracks``, the track snapshots) so far,
-    written atomically. An existing snapshot at ``checkpoint_path`` is
-    resumed from; one that already covers the run returns its outputs and
-    reads no frame. A snapshot that cannot be trusted (torn, a key missing,
-    a cursor past the end, no tracks for a ``collect_tracks`` run) is
-    rejected with a warning on stderr and the run starts fresh.
+    ``seq.frame(frames_done)`` at resume. Frames are read and uploaded by
+    ``run_sequence_scan``'s uploaders (``upload_threads``, ``stats_out``).
+    A snapshot is written every ``checkpoint_every`` steps, rounded up to a
+    whole number of chunks, so a resumed run's chunks line up with an
+    uninterrupted one's; each is the state's arrays in one device-to-host
+    copy, the generator's state, and the outputs (and, ``collect_tracks``,
+    the track snapshots) so far, fetched in one copy with the chunks not
+    yet fetched, written atomically. An existing snapshot at
+    ``checkpoint_path`` is resumed from; one that already covers the run
+    returns its outputs and reads no frame. A snapshot that cannot be
+    trusted (torn, a key missing, a cursor past the end, no tracks for a
+    ``collect_tracks`` run) is rejected with a warning on stderr and the run
+    starts fresh.
 
     Returns (poses (N+1, 4, 4) f64, fetched StepOutput stack (numpy),
     wall_seconds, steps processed by this call) and, ``collect_tracks``,
     the per-frame TrackSnapshot list. The wall covers this call's loop,
     snapshots included. ``snapshot_stats``, a list, gets one
-    ``{"step", "ms", "bytes"}`` per snapshot written (pack, copies and
-    write).
+    ``{"step", "ms", "bytes"}`` per snapshot written (copies and write).
     """
     dev = resolve_device(device)
     n_total = len(seq) if not max_frames else min(len(seq), max_frames)
     n_steps = n_total - 1
     ck_chunks = max(1, -(-checkpoint_every // chunk))
 
-    start_step, prev_fetched, prev_tracks, state = 0, None, None, None
+    start_step, prev, state = 0, None, None
     if checkpoint_path and os.path.exists(checkpoint_path):
         try:
             ck = load_scan_checkpoint(checkpoint_path)
@@ -416,8 +765,8 @@ def run_sequence_scan_resumable(seq, config: VOConfig,
             if start_step > n_steps:
                 raise CorruptCheckpoint(
                     f"cursor {start_step} beyond sequence ({n_steps} steps)")
-            prev_fetched = StepOutput(**{k: ck["out_" + k]
-                                         for k in StepOutput._fields})
+            prev = (StepOutput(**{k: ck["out_" + k]
+                                  for k in StepOutput._fields}),)
             if collect_tracks:
                 missing = [k for k in TrackSnapshot._fields
                            if "trk_" + k not in ck]
@@ -426,8 +775,8 @@ def run_sequence_scan_resumable(seq, config: VOConfig,
                         f"snapshot carries no track snapshots (missing "
                         f"trk_{missing[0]}): cannot resume a collect_tracks "
                         f"run from it")
-                prev_tracks = TrackSnapshot(**{k: ck["trk_" + k]
-                                               for k in TrackSnapshot._fields})
+                prev += (TrackSnapshot(**{k: ck["trk_" + k]
+                                          for k in TrackSnapshot._fields}),)
             if start_step < n_steps:
                 state = restore_scan_state(config, intrinsics, ck,
                                            *seq.frame(start_step), device=dev)
@@ -437,70 +786,371 @@ def run_sequence_scan_resumable(seq, config: VOConfig,
         except CorruptCheckpoint as e:
             print(f"warning: rejecting corrupt checkpoint: {e}",
                   file=sys.stderr)
-            start_step, prev_fetched, prev_tracks, state = 0, None, None, None
+            start_step, prev, state = 0, None, None
 
-    def finish(fetched, tracks, wall, processed):
+    def finish(parts, wall, processed):
+        fetched = parts[0]
         poses = chain_poses_host(fetched.T_inv, fetched.accept)
         if collect_tracks:
+            tracks = parts[1]
             return poses, fetched, wall, processed, [
                 TrackSnapshot(*(x[i] for x in tracks))
                 for i in range(len(tracks.valid))]
         return poses, fetched, wall, processed
 
-    if start_step >= n_steps and prev_fetched is not None:
-        return finish(prev_fetched, prev_tracks, 0.0, 0)
+    if start_step >= n_steps and prev is not None:
+        return finish(prev, 0.0, 0)
     if n_steps < 1:
         raise ValueError("run_sequence_scan_resumable needs at least two "
                          "frames")
     if state is None:
         state = init_vo_state(config, intrinsics, *seq.frame(0), seed=seed,
                               device=dev)
-    step = make_step_fn(config, intrinsics, with_tracks=collect_tracks,
-                        device=dev)
-    pack = _make_snapshot_packer(config)
+    scan_chunk = make_scan_step_fn(config, intrinsics,
+                                   with_tracks=collect_tracks, device=dev)
     if warmup:
         # One step on a throwaway state: kernel build and load, library
         # initialisation. The run's own generator is not touched.
         lw, rw = seq.frame(start_step + 1)
         wstate = init_vo_state(config, intrinsics, lw, rw, seed=seed,
                                device=dev)
-        _fetch(_run_chunk(step, wstate, np.asarray(lw)[None],
-                          np.asarray(rw)[None], dev)[1])
+        scan_chunk(wstate, np.asarray(lw)[None], np.asarray(rw)[None])
+        _sync(dev)
 
-    parts = [[prev_fetched] if prev_fetched is not None else [],
-             [prev_tracks] if prev_tracks is not None else []]
-
-    def stacked(k):
-        xs = parts[k]
-        return type(xs[0])(*(np.concatenate(x) for x in zip(*xs)))
-
+    done = [prev] if prev is not None else []   # fetched, per chunk
+    pending = []                                # on the device
     frames = (seq.frame(i) for i in range(start_step + 1, n_total))
+    up = _uploader(_frame_chunks(frames, chunk), dev, upload_threads,
+                   stats_out)
     steps_done = start_step
     full_chunks = 0
+    try:
+        t0 = time.perf_counter()
+        for dl, dr, n_real in iter(up.get, None):
+            state, *out = scan_chunk(state, _on_current_stream(dl),
+                                     _on_current_stream(dr))
+            pending.append(out)
+            steps_done += n_real
+            if n_real != chunk:
+                continue
+            full_chunks += 1
+            if checkpoint_path and full_chunks % ck_chunks == 0:
+                ts = time.perf_counter()
+                arrays = state_arrays(state)
+                done += _fetch_chunks(pending)
+                pending.clear()
+                size = save_scan_checkpoint(checkpoint_path, steps_done,
+                                            arrays, *_concat(done))
+                if snapshot_stats is not None:
+                    snapshot_stats.append({
+                        "step": steps_done, "bytes": size,
+                        "ms": 1e3 * (time.perf_counter() - ts)})
+                if verbose:
+                    print(f"checkpoint @ step {steps_done}")
+        done += _fetch_chunks(pending)
+        wall = time.perf_counter() - t0
+    except BaseException:
+        up.cancel()
+        raise
+    up.finish()
+    return finish(_concat(done), wall, steps_done - start_step)
+
+
+class OutputBuffers(NamedTuple):
+    """Preallocated per-frame outputs on the device. Each buffered step
+    writes its outputs at ``idx`` and advances it on the device, so the
+    frame loop never waits for the device; the host fetches the buffers
+    once at the end and chains poses in float64 after (composition is
+    associative, so deferred chaining is exact)."""
+
+    T_inv: torch.Tensor        # (N, 4, 4)
+    accept: torch.Tensor       # (N,) bool
+    scale: torch.Tensor        # (N,)
+    euler: torch.Tensor        # (N, 3)
+    tvec: torch.Tensor         # (N, 3)
+    num_inliers: torch.Tensor  # (N,) int32
+    num_matched: torch.Tensor  # (N,) int32
+    num_bucketed: torch.Tensor  # (N,) int32
+    idx: torch.Tensor          # (1,) int64 next write position, on the
+                               # device: a Python int would cost a copy
+                               # a frame, and reading it back a sync
+
+
+def make_output_buffers(n: int, device=None) -> OutputBuffers:
+    dev = resolve_device(device)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((n,) + shape, dtype=dtype, device=dev)
+
+    return OutputBuffers(
+        T_inv=torch.eye(4, device=dev).repeat(n, 1, 1),
+        accept=zeros(dtype=torch.bool), scale=zeros(), euler=zeros(3),
+        tvec=zeros(3), num_inliers=zeros(dtype=torch.int32),
+        num_matched=zeros(dtype=torch.int32),
+        num_bucketed=zeros(dtype=torch.int32),
+        idx=torch.zeros(1, dtype=torch.int64, device=dev))
+
+
+def _make_raw_step(config: VOConfig, intrinsics: CameraIntrinsics,
+                   device=None):
+    """The (state, left, right) -> (state, StepOutput) step shared by the
+    interactive and buffered front doors."""
+    return make_step_fn(config, intrinsics, with_tracks=False, device=device)
+
+
+def make_buffered_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
+                          device=None):
+    """``step(state, left, right, bufs) -> (state, bufs)``: the step, its
+    outputs written into ``bufs`` at ``bufs.idx`` (``index_copy_`` at the
+    device-side cursor, which then advances on the device): no host sync
+    inside the frame loop. The buffers are updated in place."""
+    base = _make_raw_step(config, intrinsics, device=device)
+    fields = OutputBuffers._fields[:-1]
+
+    def step(state: VOState, left_t1, right_t1, bufs: OutputBuffers):
+        new_state, out = base(state, left_t1, right_t1)
+        for k in fields:
+            getattr(bufs, k).index_copy_(0, bufs.idx, getattr(out, k)[None])
+        bufs.idx.add_(1)
+        return new_state, bufs
+
+    return step
+
+
+def run_sequence_buffered(frames, config: VOConfig,
+                          intrinsics: CameraIntrinsics, seed: int = 0,
+                          preupload: bool = True, device=None):
+    """Sequence runner with no host fetch until the end.
+
+    Returns (poses (N+1, 4, 4) f64, fetched OutputBuffers as numpy,
+    wall_seconds): the wall covers the frame loop and the wait for the
+    device after it; with ``preupload`` every frame is on the device before
+    it starts, so it excludes the uploads. The buffers come back in one
+    device-to-host copy.
+    """
+    dev = resolve_device(device)
+    frames = list(frames)
+    n = len(frames) - 1
+    step = make_buffered_step_fn(config, intrinsics, device=dev)
+    if preupload:
+        frames = [(torch.as_tensor(l).to(dev), torch.as_tensor(r).to(dev))
+                  for l, r in frames]
+    state = init_vo_state(config, intrinsics, *frames[0], seed=seed,
+                          device=dev)
+    bufs = make_output_buffers(n, device=dev)
+    _sync(dev)
     t0 = time.perf_counter()
-    for lefts, rights, n_real in _frame_chunks(frames, chunk):
-        state, *outs = _run_chunk(step, state, lefts, rights, dev)
-        for k, o in enumerate(outs):
-            parts[k].append(_fetch(o))
-        steps_done += n_real
-        if n_real != chunk:
-            continue
-        full_chunks += 1
-        if checkpoint_path and full_chunks % ck_chunks == 0:
-            ts = time.perf_counter()
-            f32, i32 = pack(state)
-            arrays = _unpack_snapshot(config, f32.cpu().numpy(),
-                                      i32.cpu().numpy(),
-                                      state.generator.get_state().numpy())
-            size = save_scan_checkpoint(
-                checkpoint_path, steps_done, arrays, stacked(0),
-                tracks=stacked(1) if collect_tracks else None)
-            if snapshot_stats is not None:
-                snapshot_stats.append({
-                    "step": steps_done, "bytes": size,
-                    "ms": 1e3 * (time.perf_counter() - ts)})
-            if verbose:
-                print(f"checkpoint @ step {steps_done}")
+    for left, right in frames[1:]:
+        state, bufs = step(state, left, right, bufs)
+    _sync(dev)
     wall = time.perf_counter() - t0
-    return finish(stacked(0), stacked(1) if collect_tracks else None, wall,
-                  steps_done - start_step)
+    fetched = _fetch(bufs)
+    return chain_poses_host(fetched.T_inv, fetched.accept), fetched, wall
+
+
+class FrameResult(NamedTuple):
+    """Host-side result of one processed frame."""
+
+    frame_id: int
+    pose: np.ndarray          # (4, 4) float64 integrated world pose
+    accept: bool
+    scale: float
+    num_inliers: int
+    num_matched: int
+    num_bucketed: int
+    frame_time_ms: float
+
+
+class VisualOdometry:
+    """Stateful host driver: feed stereo frames, get integrated poses.
+
+    Usage:
+        vo = VisualOdometry(config, intrinsics)
+        vo.initialize(left0, right0)
+        for left, right in frames:
+            result = vo.process_frame(left, right)
+
+    Each frame waits for the device once: its outputs (and, ``with_tracks``,
+    its track snapshot, kept as numpy in ``last_tracks``) come back in one
+    device-to-host copy. The pose chains ``frame_pose @ T_inv`` in float64,
+    as ``chain_poses_host`` does.
+    """
+
+    def __init__(self, config: VOConfig, intrinsics: CameraIntrinsics,
+                 seed: int = 0, with_tracks: bool = False, device=None):
+        self.config = config
+        self.intrinsics = intrinsics
+        self.with_tracks = with_tracks
+        self.device = resolve_device(device)
+        self._step = make_step_fn(config, intrinsics, with_tracks,
+                                  device=self.device)
+        self._seed = seed
+        self.frame_pose = np.eye(4)  # float64 world pose (reference frame_pose)
+        self.frame_id = 0
+        self.state: Optional[VOState] = None
+        self.last_tracks: Optional[TrackSnapshot] = None
+
+    def initialize(self, left0, right0) -> None:
+        """Load frame 0 (reference src/main.cpp:110-113)."""
+        self.state = init_vo_state(self.config, self.intrinsics, left0,
+                                   right0, seed=self._seed,
+                                   device=self.device)
+        self.frame_pose = np.eye(4)
+        self.frame_id = 0
+
+    def process_frame(self, left, right) -> FrameResult:
+        if self.state is None:
+            raise RuntimeError("call initialize(left0, right0) first")
+        t0 = time.perf_counter()
+        self.frame_id += 1
+        self.state, *outs = self._step(self.state, left, right)
+        out, *tracks = _fetch_many(outs)
+        if self.with_tracks:
+            self.last_tracks = tracks[0]
+        accept = bool(out.accept)
+        if accept:
+            self.frame_pose = self.frame_pose @ np.asarray(out.T_inv,
+                                                           np.float64)
+        return FrameResult(
+            frame_id=self.frame_id, pose=self.frame_pose.copy(),
+            accept=accept, scale=float(out.scale),
+            num_inliers=int(out.num_inliers),
+            num_matched=int(out.num_matched),
+            num_bucketed=int(out.num_bucketed),
+            frame_time_ms=(time.perf_counter() - t0) * 1000.0)
+
+
+def _print_frame(r: FrameResult) -> None:
+    print(f"frame {r.frame_id}: matched={r.num_matched} "
+          f"inliers={r.num_inliers} scale={r.scale:.3f} "
+          f"accept={r.accept} {r.frame_time_ms:.1f}ms")
+
+
+def run_sequence(frames, config: VOConfig, intrinsics: CameraIntrinsics,
+                 seed: int = 0, metrics_path: Optional[str] = None,
+                 poses_path: Optional[str] = None, verbose: bool = False,
+                 tracks_dir: Optional[str] = None, tracks_every: int = 50,
+                 collect_tracks: bool = False, live=None, device=None):
+    """Run ``VisualOdometry`` over an iterable of (left, right) frames.
+
+    Returns ((N, 4, 4) float64 poses including identity frame 0, the
+    per-frame ``FrameResult`` list) and, ``collect_tracks``, the per-frame
+    TrackSnapshots (numpy) as a third element, the input to windowed-BA
+    smoothing. ``metrics_path`` gets one JSONL line a frame,
+    ``poses_path`` the poses as KITTI rows (identity first) as they come,
+    ``tracks_dir`` a displayTracking-style overlay PNG (reference
+    src/visualOdometry.cpp:195-224) at frame 1 and every ``tracks_every``
+    frames; ``live`` (an ``eval.plot.LiveDisplay``) is updated every frame
+    and closed at the end.
+    """
+    it = iter(frames)
+    left0, right0 = next(it)
+    vo = VisualOdometry(config, intrinsics, seed=seed,
+                        with_tracks=bool(tracks_dir) or collect_tracks
+                        or live is not None, device=device)
+    vo.initialize(left0, right0)
+    if tracks_dir:
+        os.makedirs(tracks_dir, exist_ok=True)
+    logger = MetricsLogger(metrics_path) if metrics_path else None
+    writer = PoseWriter(poses_path) if poses_path else None
+    poses, results, snapshots = [np.eye(4)], [], []
+    try:
+        if writer:
+            writer.append(np.eye(4))
+        for left, right in it:
+            r = vo.process_frame(left, right)
+            poses.append(r.pose)
+            results.append(r)
+            tr = vo.last_tracks
+            if collect_tracks:
+                snapshots.append(tr)
+            if live is not None:
+                live.update(r.pose, np.asarray(left), tr)
+            if tracks_dir and (r.frame_id % tracks_every == 0
+                               or r.frame_id == 1):
+                save_png(f"{tracks_dir}/tracks_{r.frame_id:06d}.png",
+                         render_tracks(np.asarray(left), tr.points_l0,
+                                       tr.points_l1, tr.valid))
+            if writer:
+                writer.append(r.pose)
+            if logger:
+                logger.log(r._asdict() | {"pose": None})
+            if verbose:
+                _print_frame(r)
+    finally:
+        for closing in (writer, logger, live):
+            if closing is not None:
+                closing.close()
+    if collect_tracks:
+        return np.asarray(poses), results, snapshots
+    return np.asarray(poses), results
+
+
+def run_sequence_resumable(seq, config: VOConfig,
+                           intrinsics: CameraIntrinsics,
+                           checkpoint_path: str, checkpoint_every: int = 100,
+                           seed: int = 0, max_frames: int = 0,
+                           metrics_path: Optional[str] = None,
+                           poses_path: Optional[str] = None,
+                           verbose: bool = False,
+                           snapshot_stats: Optional[list] = None,
+                           device=None):
+    """``run_sequence`` over a random-access sequence (``len`` and
+    ``.frame(i)``) with periodic snapshots and crash resume.
+
+    A snapshot (``utils.checkpoint.save_checkpoint``: the state's arrays,
+    the generator's state, the integrated pose and the pose trail as
+    ``extra_poses``) is written after frame i when ``i % checkpoint_every
+    == 0`` and after the last frame, so a resumed run reproduces an
+    uninterrupted one bit for bit. An existing snapshot is resumed from;
+    a corrupt one is rejected with a warning on stderr and the run starts
+    fresh. ``poses_path`` gets the whole trail as KITTI rows at the end;
+    ``snapshot_stats``, a list, one ``{"frame", "ms", "bytes"}`` per
+    snapshot. Returns ((N, 4, 4) poses, the ``FrameResult`` list of the
+    frames this call processed).
+    """
+    n = len(seq) if not max_frames else min(len(seq), max_frames)
+    vo = VisualOdometry(config, intrinsics, seed=seed, device=device)
+    start, poses, resumed = 1, [np.eye(4)], False
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        try:
+            ckpt = load_checkpoint(checkpoint_path)
+            k = int(ckpt["frame_id"])
+            start = restore_vo(vo, ckpt, *seq.frame(k))
+            poses = list(np.asarray(ckpt["extra_poses"]))
+            resumed = True
+            if verbose:
+                print(f"resumed from {checkpoint_path} at frame {k}")
+        except CorruptCheckpoint as e:
+            print(f"warning: rejecting corrupt checkpoint: {e}",
+                  file=sys.stderr)
+    if not resumed:
+        vo.initialize(*seq.frame(0))
+
+    logger = MetricsLogger(metrics_path) if metrics_path else None
+    results: list[FrameResult] = []
+    try:
+        for i in range(start, n):
+            r = vo.process_frame(*seq.frame(i))
+            poses.append(r.pose)
+            results.append(r)
+            if logger:
+                logger.log(r._asdict() | {"pose": None})
+            if verbose:
+                _print_frame(r)
+            if checkpoint_path and checkpoint_every and (
+                    i % checkpoint_every == 0 or i == n - 1):
+                ts = time.perf_counter()
+                size = save_checkpoint(checkpoint_path, vo,
+                                       extra={"poses": np.stack(poses)})
+                if snapshot_stats is not None:
+                    snapshot_stats.append({
+                        "frame": i, "bytes": size,
+                        "ms": 1e3 * (time.perf_counter() - ts)})
+    finally:
+        if logger:
+            logger.close()
+    arr = np.asarray(poses)
+    if poses_path:
+        save_poses_kitti(poses_path, arr)
+    return arr, results

@@ -1,1 +1,1 @@
-"""Host utilities: scan checkpoints."""
+"""Host utilities: checkpoints (scan and ``VisualOdometry``) and metrics."""

@@ -1,24 +1,30 @@
-"""Chunk-boundary checkpoints of the scan runner.
+"""Checkpoints of the scan runner and of ``VisualOdometry``.
 
-Port of the scan half of ``visual_odom_tpu/utils/checkpoint.py``
+Port of ``visual_odom_tpu/utils/checkpoint.py`` but its batched half
 (``CorruptCheckpoint``, ``_atomic_savez``, ``save_scan_checkpoint``,
-``load_scan_checkpoint``). A snapshot is one ``.npz``: the absolute step
-cursor, the device state's resumable arrays, every per-frame output fetched
-so far (``out_*``) and, for a run that collects them, every track snapshot
-(``trk_*``). Pyramids are not stored: they are a pure function of frame t0
-and are rebuilt at resume. It is written to a temporary file in the same
+``load_scan_checkpoint``, ``save_checkpoint``, ``load_checkpoint``,
+``restore_vo``). A snapshot is one ``.npz`` holding the device state's
+resumable arrays. A scan snapshot adds the absolute step cursor, every
+per-frame output fetched so far (``out_*``) and, for a run that collects
+them, every track snapshot (``trk_*``); a ``VisualOdometry`` snapshot adds
+the integrated pose, the frame index and the caller's ``extra_*`` arrays.
+Pyramids are not stored: they are a pure function of frame t0 and are
+rebuilt at resume. It is written to a temporary file in the same
 directory and moved into place, so a crash never leaves a torn snapshot.
 
 The JAX package stores its PRNG key; the port stores the RANSAC
 generator's state instead (``gen_state``: ``torch.Generator.get_state()``,
 a uint8 tensor on the host whatever the generator's device), and the
-``fallback`` output its ``StepOutput`` carries beside JAX's fields.
+``fallback`` output its ``StepOutput`` carries beside JAX's fields. A
+generator's state fits only a generator of the device that saved it, so a
+snapshot taken on the card resumes on the card.
 """
 
 from __future__ import annotations
 
 import os
 import tempfile
+from typing import Optional
 
 import numpy as np
 
@@ -29,6 +35,12 @@ _SCAN_REQUIRED = (("frames_done",) + STATE_KEYS
                   + ("out_T_inv", "out_accept", "out_scale", "out_euler",
                      "out_rvec", "out_tvec", "out_num_inliers",
                      "out_num_matched", "out_num_bucketed", "out_fallback"))
+_REQUIRED_KEYS = ("frame_pose", "frame_id", "points", "ages", "valid", "ids",
+                  "next_id", "tvec", "gen_state")
+#: motion-prior LK seeds that the JAX package's first snapshot format
+#: lacked; zero seeds are benign (the closure check still validates every
+#: track), so a snapshot without them restores them as zeros
+_OPTIONAL_ZERO_KEYS = ("flow", "disp")
 
 
 class CorruptCheckpoint(ValueError):
@@ -89,3 +101,48 @@ def load_scan_checkpoint(path: str) -> dict:
             f"{path}: cursor/output mismatch "
             f"({int(ckpt['frames_done'])} vs {len(ckpt['out_accept'])})")
     return ckpt
+
+
+def save_checkpoint(path: str, vo, extra: Optional[dict] = None) -> int:
+    """Snapshot a ``VisualOdometry``'s resumable state: its integrated
+    pose, frame index and state arrays (one device-to-host copy), and each
+    ``extra`` array as ``extra_<key>``. Returns the file's bytes."""
+    from visual_odom_tpu_torch.runner.pipeline import state_arrays
+
+    payload = {"frame_pose": np.asarray(vo.frame_pose, np.float64),
+               "frame_id": np.int64(vo.frame_id), **state_arrays(vo.state)}
+    for k, v in (extra or {}).items():
+        payload["extra_" + k] = np.asarray(v)
+    return _atomic_savez(path, payload)
+
+
+def load_checkpoint(path: str) -> dict:
+    """Load and validate a ``VisualOdometry`` snapshot; raises
+    CorruptCheckpoint on a torn or incomplete file, naming the missing
+    keys. ``flow`` and ``disp``, where absent, are zeros."""
+    try:
+        with np.load(path) as z:
+            ckpt = {k: z[k] for k in z.files}
+    except Exception as e:
+        raise CorruptCheckpoint(f"{path}: unreadable ({e!r})") from e
+    missing = [k for k in _REQUIRED_KEYS if k not in ckpt]
+    if missing:
+        raise CorruptCheckpoint(f"{path}: missing keys {missing}")
+    for k in _OPTIONAL_ZERO_KEYS:
+        if k not in ckpt:
+            ckpt[k] = np.zeros_like(ckpt["points"])
+    return ckpt
+
+
+def restore_vo(vo, ckpt: dict, left_t0, right_t0) -> int:
+    """Restore a ``VisualOdometry`` from a loaded snapshot and the images
+    of the checkpointed frame (its pyramids are rebuilt from them, as the
+    step builds them); the generator is rebuilt on ``vo.device``. Returns
+    the next frame index."""
+    from visual_odom_tpu_torch.runner.pipeline import restore_scan_state
+
+    vo.frame_pose = np.asarray(ckpt["frame_pose"], np.float64)
+    vo.frame_id = int(ckpt["frame_id"])
+    vo.state = restore_scan_state(vo.config, vo.intrinsics, ckpt, left_t0,
+                                  right_t0, device=vo.device)
+    return vo.frame_id + 1
