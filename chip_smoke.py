@@ -123,6 +123,25 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    the adaptive fallback fires: ``preupload``, one upload thread and four,
    with their frames/s and uploader stats; (e) the per-leg route through
    four upload threads, equal to the quad route.
+10. KITTI input, on phase 4's frames (nothing more is rendered): the
+   batched courses become KITTI directories of PNGs (written with the
+   standard library's ``zlib``) and ground-truth pose files; the native
+   runtime is built from ``native/`` and is the only decoder (``cv2`` and
+   ``PIL`` are hidden, so a fallback raises). One ``kitti`` line per part:
+   (a) ``data``: the library's build seconds, the PNGs written, the
+   native decode's µs per image; (b) ``stream``:
+   ``KittiSequence.iter_prefetched`` into ``run_sequence_scan`` with 1 and
+   4 upload threads, in turns with the in-memory scan, each bit for bit
+   phase 4's scan of "straight", with ms per frame and the uploader's
+   ``busy_frac``; (c) ``batch``: ``run_sequences_batched`` over the four
+   ``KittiSequence``s, uninterrupted, failed at frame KITTI_CRASH_AT with a
+   snapshot every KITTI_EVERY steps, and resumed, each bit for bit phase
+   4's ``batch_path``, under the bench gates, with the snapshots' ms and
+   bytes; (d) ``eval``: ``eval_all`` over the pose files written, each
+   sequence's ATE within EVAL_ATE_TOL of the in-memory poses' (the
+   devkit's ATE is Horn-aligned, so it lies at or below phase 4's
+   unaligned figure, printed beside it), with t_err and r_err where a
+   course is 100 m or longer.
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -229,6 +248,13 @@ RESUME_CRASH_AT = 40
 #: phase 9: the resumable door's snapshot interval (frames) and failure
 DOOR_EVERY = 16
 DOOR_CRASH_AT = 40
+#: phase 10: the batched KITTI run's snapshot interval (steps) and the
+#: frame at which it is made to fail (its last snapshot is at step 64)
+KITTI_EVERY = 64
+KITTI_CRASH_AT = 100
+#: phase 10: eval_all's ATE (read back from the ``%.9e`` pose files)
+#: against the same ATE of the in-memory poses, in metres
+EVAL_ATE_TOL = 1e-6
 #: phase 8 gate where the JAX package itself misses the ATE budget on the
 #: course: within this factor of its ATE (PR 5's rule for BA)
 VARIANT_ATE_FACTOR = 1.1
@@ -1675,6 +1701,263 @@ def front_doors(frames, cframes, ref, cref, config, xconfig, intr, dev):
     return launches
 
 
+def write_png(path, img):
+    """An 8-bit grayscale PNG at zlib level 1, written with the standard
+    library alone (``struct`` and ``zlib``: no image package needed)."""
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    h, w = img.shape
+    raw = b"".join(b"\0" + img[r].tobytes() for r in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+    return os.path.getsize(path)
+
+
+def write_kitti(courses, keys, root):
+    """The courses ``keys`` as KITTI sequence directories under ``root``
+    (``<course>/image_0``, ``image_1``, ``%06d.png``) and ground-truth
+    pose files (``gt/<course>.txt``), the PNGs written on a thread pool
+    (zlib releases the GIL). Returns ({key: directory}, bytes written)."""
+    from visual_odom_tpu_torch.io.kitti import save_poses_kitti
+
+    dirs, jobs = {}, []
+    os.makedirs(os.path.join(root, "gt"))
+    for key in keys:
+        frames, gt = courses[key]
+        name = "_".join(key)
+        dirs[key] = os.path.join(root, name)
+        for side, d in enumerate(("image_0", "image_1")):
+            os.makedirs(os.path.join(dirs[key], d))
+            jobs += [(os.path.join(dirs[key], d, f"{i:06d}.png"), f[side])
+                     for i, f in enumerate(frames)]
+        save_poses_kitti(os.path.join(root, "gt", name + ".txt"), gt)
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        size = sum(ex.map(lambda job: write_png(*job), jobs))
+    return dirs, size
+
+
+class FailingSequence:
+    """A random-access sequence that raises once when a frame at or past
+    ``crash_at`` is first asked for, as a decode failure would."""
+
+    def __init__(self, seq, crash_at):
+        self.seq, self.crash_at = seq, crash_at
+
+    def __len__(self):
+        return len(self.seq)
+
+    def frame(self, i):
+        if self.crash_at is not None and i >= self.crash_at:
+            self.crash_at = None
+            raise RuntimeError("injected decode failure")
+        return self.seq.frame(i)
+
+
+@contextlib.contextmanager
+def image_packages_hidden():
+    """``import cv2`` and ``import PIL`` fail inside: a PNG that the native
+    decoder did not take raises instead of reaching a fallback."""
+    saved = {m: sys.modules.get(m) for m in ("cv2", "PIL", "PIL.Image")}
+    sys.modules.update(dict.fromkeys(saved))
+    try:
+        yield
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+def kitti_phase(courses, ref, bposes, config, intr, dev):
+    """Phase 10: phase 4's batched courses as KITTI PNG directories, read
+    back through the native decoder only, each run held bit for bit to
+    phase 4's in-memory run. One ``kitti`` line per part. Returns the
+    launches per kernel ({"quad", "quad_batched"})."""
+    import tempfile
+
+    from visual_odom_tpu_torch.eval.devkit import eval_all
+    from visual_odom_tpu_torch.eval.kitti_eval import ate_rmse
+    from visual_odom_tpu_torch.io import native
+    from visual_odom_tpu_torch.io.kitti import KittiSequence, save_poses_kitti
+    from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
+    from visual_odom_tpu_torch.runner import pipeline
+
+    launches = {"quad": 0, "quad_batched": 0}
+
+    def report(part, res, eq):
+        res.update(eq)
+        print("kitti", json.dumps({"part": part, **res}))
+        if not all(eq.values()):
+            raise AssertionError(f"kitti, {part}: {eq}")
+
+    # (a) the native library and the data
+    t = time.perf_counter()
+    lib_path = native.build_library()
+    build_s = time.perf_counter() - t
+    if not native.available():
+        raise AssertionError("the native runtime did not load")
+    with tempfile.TemporaryDirectory() as root, image_packages_hidden():
+        t = time.perf_counter()
+        dirs, size = write_kitti(courses, BATCH_COURSES, root)
+        write_s = time.perf_counter() - t
+        sframes = courses[("straight", "value")][0]
+        left = os.path.join(dirs[("straight", "value")], "image_0")
+        paths = [os.path.join(left, f"{i:06d}.png")
+                 for i in range(len(sframes))]
+        t = time.perf_counter()
+        decoded = [native.decode_png_gray(p) for p in paths]
+        decode_us = 1e6 * (time.perf_counter() - t) / len(paths)
+        seq = KittiSequence(dirs[("straight", "value")])
+        report("data", dict(
+            library=os.path.basename(lib_path), build_s=build_s,
+            sequences=len(dirs), frames=sum(len(courses[k][0])
+                                            for k in BATCH_COURSES),
+            png_files=2 * sum(len(courses[k][0]) for k in BATCH_COURSES),
+            png_mb=size / 1e6, write_s=write_s, decode_images=len(paths),
+            decode_us_per_image=decode_us, image=f"{W}x{H}"), {
+            "native_available": True,
+            "decoded_equal_rendered": all(
+                np.array_equal(d, f[0]) for d, f in zip(decoded, sframes)),
+            "frame_equal_rendered": all(
+                np.array_equal(a, b) for a, b in zip(seq.frame(7),
+                                                     sframes[7])),
+            "fallbacks_blocked": sys.modules.get("cv2", 0) is None
+            and sys.modules.get("PIL", 0) is None})
+
+        # (b) the PNG stream into the scan, in turns with the in-memory scan
+        ref_poses, ref_out = ref
+        n = len(sframes) - 1
+        runs = []
+        order = [("memory", 1), ("png", 1), ("png", 4)]
+        for src, threads in order + order[::-1]:
+            frames = (sframes if src == "memory"
+                      else seq.iter_prefetched(n_threads=4))
+            stats = {}
+            reset_counts()
+            p, out, wall, m = pipeline.run_sequence_scan(
+                frames, config, intr, chunk=CHUNK, warmup=False,
+                upload_threads=threads, stats_out=stats, device=dev)
+            counts = read_counts()
+            got = check_counts(f"kitti stream {src}", config, counts, m, False)
+            if src == "png":
+                launches["quad"] += got
+            runs.append(dict(
+                source=src, upload_threads=threads, steps=m, wall_s=wall,
+                ms_per_frame=1e3 * wall / m, busy_frac=stats["busy_frac"],
+                decode_s=stats["decode_s"], upload_s=stats["upload_s"],
+                poses_vs_scan=bool(np.array_equal(p, ref_poses)),
+                outputs_vs_scan=_same(out, ref_out)))
+        report("stream", dict(course="straight", prefetch_threads=4,
+                              runs=runs, **{
+            f"median_ms_per_frame_{src}_{k}": float(np.median(
+                [r["ms_per_frame"] for r in runs
+                 if (r["source"], r["upload_threads"]) == (src, k)]))
+            for src, k in order}), {
+            "every_run_bit_for_bit": all(
+                r["poses_vs_scan"] and r["outputs_vs_scan"] for r in runs)})
+
+        # (c) the batched runner over the four directories: uninterrupted,
+        # failed after its first snapshot, resumed
+        seqs = [KittiSequence(dirs[k]) for k in BATCH_COURSES]
+        n_steps = max(len(s) for s in seqs) - 1
+        ck = os.path.join(root, "batch.npz")
+        kw = dict(chunk=CHUNK, device=dev)
+
+        def batched(label, run_seqs, steps, **extra):
+            reset_counts()
+            out = run_sequences_batched(run_seqs, config, intr, **kw, **extra)
+            launches["quad_batched"] += check_counts(
+                label, config, read_counts(), steps, True)
+            return out
+
+        full = batched("kitti batched", seqs, -(-n_steps // CHUNK) * CHUNK)
+        crash_stats, resume_stats = [], []
+        reset_counts()
+        try:
+            # the last course is a full-length one (frames past a short
+            # course's end are its last frame)
+            run_sequences_batched(seqs[:-1]
+                                  + [FailingSequence(seqs[-1],
+                                                     KITTI_CRASH_AT)],
+                                  config, intr,
+                                  checkpoint_path=ck,
+                                  checkpoint_every=KITTI_EVERY,
+                                  snapshot_stats=crash_stats, **kw)
+            raise AssertionError("kitti batched: the injected failure did "
+                                 "not surface")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        crash_launches = read_counts()["quad_batched"]
+        launches["quad_batched"] += crash_launches
+        at = crash_stats[-1]["step"]
+        resumed = batched("kitti batched, resumed", seqs,
+                          -(-(n_steps - at) // CHUNK) * CHUNK,
+                          checkpoint_path=ck, checkpoint_every=KITTI_EVERY,
+                          snapshot_stats=resume_stats)
+        per_seq = []
+        for key, p, st in zip(BATCH_COURSES, full[0], full[1]):
+            ate, budget = ate_and_budget(p, courses[key][1])
+            per_seq.append(dict(course="_".join(key), steps=st["frames"] - 1,
+                                accept=st["accept_ratio"], ate_m=ate,
+                                ate_budget_m=budget,
+                                fallback_frames=st["fallback_frames"]))
+        report("batch", dict(
+            batch=len(seqs), steps=n_steps, chunk=CHUNK,
+            checkpoint_every=KITTI_EVERY, crash_at=KITTI_CRASH_AT,
+            snapshot_at=at, wall_full_s=full[2],
+            ms_per_step=1e3 * full[2] / n_steps,
+            aggregate_fps=sum(len(s) - 1 for s in seqs) / full[2],
+            wall_resumed_s=resumed[2], crash_launches=crash_launches,
+            snapshots=crash_stats + resume_stats, sequences=per_seq), {
+            "snapshot_at_expected": at == KITTI_CRASH_AT // KITTI_EVERY
+            * KITTI_EVERY,
+            "poses_vs_batch_path": all(np.array_equal(a, b)
+                                       for a, b in zip(full[0], bposes)),
+            "poses_resumed_vs_batch_path": all(
+                np.array_equal(a, b) for a, b in zip(resumed[0], bposes)),
+            "stats_resumed_vs_full": resumed[1] == full[1],
+            "bench_gates": all(r["accept"] >= 0.9
+                               and r["ate_m"] <= r["ate_budget_m"]
+                               for r in per_seq)})
+
+        # (d) the devkit over the four results
+        res_dir = os.path.join(root, "results")
+        os.makedirs(res_dir)
+        for key, p in zip(BATCH_COURSES, full[0]):
+            save_poses_kitti(os.path.join(res_dir, "_".join(key) + ".txt"), p)
+        t = time.perf_counter()
+        scores = eval_all(os.path.join(root, "gt"), res_dir,
+                          os.path.join(root, "devkit"), plots=False)
+        eval_s = time.perf_counter() - t
+        rows, eq = [], {}
+        for key, p in zip(BATCH_COURSES, full[0]):
+            name, gt = "_".join(key), courses[key][1]
+            length = float(np.sum(np.linalg.norm(
+                np.diff(gt[:, :3, 3], axis=0), axis=1)))
+            aligned = ate_rmse(gt, p)
+            row = dict(course=name, length_m=length,
+                       ate_m=scores[name]["ate"], ate_in_memory_m=aligned,
+                       ate_unaligned_m=ate_and_budget(p, gt)[0])
+            if length >= 100.0:
+                row.update(t_err_pct=100 * scores[name]["t_err"],
+                           r_err_deg_per_m=57.2957795 * scores[name]["r_err"])
+            rows.append(row)
+            eq[f"ate_{name}"] = (abs(row["ate_m"] - aligned) <= EVAL_ATE_TOL
+                                 and aligned <= row["ate_unaligned_m"] + 1e-9)
+        report("eval", dict(eval_s=eval_s, ate_tol_m=EVAL_ATE_TOL,
+                            sequences=rows, avg=scores.get("avg")), eq)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1871,6 +2154,11 @@ def main() -> int:
                                 xconfig, intr, dev)
     print(f"phase 9: {time.perf_counter() - t:.1f} s")
 
+    # ---- phase 10: KITTI PNG input, restartable batch, devkit -------------
+    t = time.perf_counter()
+    kitti_launches = kitti_phase(courses, refs[0], bposes, config, intr, dev)
+    print(f"phase 10: {time.perf_counter() - t:.1f} s")
+
     default = lk_cuda.variant()
 
     def row(name, replaces, paths, qs, lead, level, wide=None, top=None):
@@ -1926,10 +2214,12 @@ def main() -> int:
              "resume": resume_launches,
              "mono": variants["mono"][0],
              "shi_tomasi": variants["shi_tomasi"][0],
-             "front_doors": door_launches["quad"]},
+             "front_doors": door_launches["quad"],
+             "kitti_stream": kitti_launches["quad"]},
             quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
-            {"batched_path": batched_run["kernel_launches"]}, bquads,
+            {"batched_path": batched_run["kernel_launches"],
+             "kitti_batched": kitti_launches["quad_batched"]}, bquads,
             bquads[0], False, wquad),
         row("lk_level_kernel", REPLACES_LEVEL,
             {"main_path": sum(r["kernel_launches"] for r in xruns),

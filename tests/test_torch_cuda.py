@@ -7,8 +7,12 @@ pyramid with zero flow and disparity, as a loop-edge measurement launches
 them. The back end's solves (``ba_solve``, ``posegraph_solve``) on the card
 against the same solves on the CPU. The mono-rotation step and the
 Shi-Tomasi step on the card against the same steps on the CPU, neither
-waiting for the device; and a crashed scan resumed from its snapshot on the
-card, bit for bit the uninterrupted run.
+waiting for the device; a crashed scan resumed from its snapshot on the
+card, bit for bit the uninterrupted run; the same for the restartable
+batched runner, whose chunks between snapshots never wait for the card and
+whose card snapshot a CPU run refuses; and a KITTI directory of PNGs
+streamed through the native prefetcher and two upload threads, bit for bit
+the in-memory scan.
 
 Every test here needs an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip where there is no card. This file imports neither JAX nor the
@@ -16,6 +20,8 @@ tests' conftest helpers, so on the card it runs without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -697,3 +703,140 @@ def test_buffered_step_and_uploaded_chunk_never_wait(cuda_device):
     uploader.finish()
     assert n == 6 and bufs.idx.tolist() == [2]
     assert bool(torch.isfinite(out.T_inv).all())
+
+
+# --- KITTI input and the restartable batched runner on the card ------------
+
+
+def _png(path, img):
+    """An 8-bit grayscale PNG written with the standard library alone."""
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    h, w = img.shape
+    raw = b"".join(b"\0" + img[r].tobytes() for r in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _batch(frames=13):
+    intr = CameraIntrinsics(**SMALL)
+    cfg = VOConfig.for_image(120, 160, ransac_iterations=200)
+    seqs = [SyntheticStereoSequence(intr, num_frames=frames, seed=s,
+                                    speed=0.5) for s in (0, 1)]
+    return intr, cfg, [[q.frame(i) for i in range(frames)] for q in seqs]
+
+
+def test_batched_resume_on_card_is_bitwise(cuda_device, tmp_path):
+    """Two sequences, chunk 2, a snapshot every 4 steps, a failure at frame
+    7 (last snapshot at step 4): the resumed poses and stats equal the
+    uninterrupted run's bit for bit; a CPU run refuses the card's
+    snapshot (its generators' states are the card's) and starts fresh."""
+    from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
+    from visual_odom_tpu_torch.utils.checkpoint import (CorruptCheckpoint,
+                                                        load_batch_checkpoint)
+
+    intr, cfg, seqs = _batch()
+    kw = dict(chunk=2, checkpoint_every=4, device=cuda_device)
+    ref = run_sequences_batched(seqs, cfg, intr, chunk=2, device=cuda_device)
+    ck = str(tmp_path / "batch.npz")
+    with pytest.raises(RuntimeError, match="injected"):
+        run_sequences_batched([_Flaky(seqs[0], 7), seqs[1]], cfg, intr,
+                              checkpoint_path=ck, **kw)
+    snap = load_batch_checkpoint(ck, batch=2, device=cuda_device)
+    assert int(snap["frames_done"]) == 4 and snap["gen_state"].shape == (2, 16)
+    got = run_sequences_batched(seqs, cfg, intr, checkpoint_path=ck, **kw)
+    for a, b in zip(got[0], ref[0]):
+        np.testing.assert_array_equal(a, b)
+    assert got[1] == ref[1]
+    with pytest.raises(CorruptCheckpoint, match="taken on cuda, run on cpu"):
+        load_batch_checkpoint(ck, batch=2, device="cpu")
+
+
+def test_card_batch_snapshot_refused_by_cpu_run(cuda_device, tmp_path,
+                                                capsys):
+    """A CPU run given the card's snapshot warns that it was taken on the
+    card and starts fresh: its poses equal a fresh CPU run's."""
+    from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
+
+    intr, cfg, seqs = _batch(frames=5)
+    ck = str(tmp_path / "batch.npz")
+    run_sequences_batched(seqs, cfg, intr, chunk=2, checkpoint_path=ck,
+                          checkpoint_every=2, device=cuda_device)
+    assert os.path.exists(ck)
+    capsys.readouterr()
+    got = run_sequences_batched(seqs, cfg, intr, chunk=2, checkpoint_path=ck,
+                                checkpoint_every=2, device="cpu")
+    assert "taken on cuda, run on cpu" in capsys.readouterr().err
+    fresh = run_sequences_batched(seqs, cfg, intr, chunk=2, device="cpu")
+    for a, b in zip(got[0], fresh[0]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_batched_chunks_between_snapshots_never_wait(cuda_device, tmp_path,
+                                                     monkeypatch):
+    """Every chunk of a restartable batched run is stepped under sync-debug
+    "error" (the snapshots' fetches, outside the chunks, are the run's only
+    waits), and the run equals an unchecked one bit for bit."""
+    from visual_odom_tpu_torch.parallel import batch_eval
+
+    intr, cfg, seqs = _batch()
+    ref = batch_eval.run_sequences_batched(seqs, cfg, intr, chunk=2,
+                                           device=cuda_device)
+    real = batch_eval.make_batched_scan_fn
+    strict_calls = []
+
+    def strict_scan_fn(*args, **kwargs):
+        scan = real(*args, **kwargs)
+
+        def strict(state, lefts, rights):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return scan(state, lefts, rights)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                strict_calls.append(lefts.shape[0])
+
+        return strict
+
+    monkeypatch.setattr(batch_eval, "make_batched_scan_fn", strict_scan_fn)
+    stats = []
+    got = batch_eval.run_sequences_batched(
+        seqs, cfg, intr, chunk=2, checkpoint_path=str(tmp_path / "b.npz"),
+        checkpoint_every=4, snapshot_stats=stats, device=cuda_device)
+    assert strict_calls == [2] * 6
+    assert [s["step"] for s in stats] == [4, 8]
+    for a, b in zip(got[0], ref[0]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_kitti_stream_on_card_equals_scan(cuda_device, tmp_path):
+    """A KITTI directory of PNGs, decoded by the native prefetcher and
+    uploaded by two threads, gives ``run_sequence_scan`` the in-memory
+    scan's poses and outputs bit for bit."""
+    from visual_odom_tpu_torch.io import native
+    from visual_odom_tpu_torch.io.kitti import KittiSequence
+
+    assert native.available(), "the native runtime did not build"
+    intr, _, frames = _small("mono", frames=9)
+    cfg = VOConfig.for_image(120, 160, ransac_iterations=200)   # default
+    for side, d in enumerate(("image_0", "image_1")):
+        os.makedirs(tmp_path / d)
+        for i, pair in enumerate(frames):
+            _png(str(tmp_path / d / f"{i:06d}.png"), pair[side])
+    ref = pipeline.run_sequence_scan(frames, cfg, intr, chunk=4,
+                                     device=cuda_device)
+    seq = KittiSequence(str(tmp_path))
+    got = pipeline.run_sequence_scan(seq.iter_prefetched(n_threads=2), cfg,
+                                     intr, chunk=4, upload_threads=2,
+                                     device=cuda_device)
+    assert got[3] == ref[3] == 8
+    np.testing.assert_array_equal(got[0], ref[0])
+    for a, b in zip(got[1], ref[1]):
+        np.testing.assert_array_equal(a, b)

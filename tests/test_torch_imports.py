@@ -17,12 +17,17 @@ PORT = ROOT / "visual_odom_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "visual_odom_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "backend_courses.py",
-                                        ROOT / "scripts" / "door_turns.py"]
-#: modules the back end, the checkpoints, mono rotation and the front doors'
-#: host I/O added; the import check must reach them
+                                        ROOT / "scripts" / "door_turns.py",
+                                        ROOT / "scripts" / "kitti_turns.py"]
+#: modules the back end, the checkpoints, mono rotation, the front doors'
+#: host I/O, the KITTI input, evaluation and utilities added; the import
+#: check must reach them
 BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
            "runner.loopclosure", "utils.checkpoint", "backend.essential",
-           "backend.five_point", "utils.metrics", "io.kitti", "eval.plot")
+           "backend.five_point", "utils.metrics", "io.kitti", "eval.plot",
+           "io.native", "io.camera", "io.gyro", "core.frame",
+           "eval.kitti_eval", "eval.devkit", "utils.notify",
+           "utils.profiling", "parallel.batch_eval")
 
 
 def _imported_modules(path: pathlib.Path):

@@ -115,3 +115,27 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = R.transpose(-1, -2)
     t_inv = -(Rt * t[..., None, :]).sum(dim=-1)
     return se3_matrix(Rt, t_inv)
+
+
+def is_rotation_matrix(R: torch.Tensor, tol: float = 1e-6) -> torch.Tensor:
+    """Frobenius check ||R^T R - I|| < tol (reference src/utils.cpp:93-102),
+    over leading dimensions."""
+    RtR = torch.matmul(R.transpose(-1, -2), R)
+    err = RtR - torch.eye(3, dtype=R.dtype, device=R.device)
+    return torch.sqrt((err * err).sum(dim=(-2, -1))) < tol
+
+
+def euler_to_rotation(euler: torch.Tensor) -> torch.Tensor:
+    """Reference euler2rot (src/visualOdometry.cpp:4-42), kept for API
+    parity. It is not the inverse of ``rotation_to_euler``: the reference
+    composes the axes in another order, and this reproduces it."""
+    x, y, z = euler[..., 0], euler[..., 1], euler[..., 2]
+    ch, sh = torch.cos(z), torch.sin(z)
+    ca, sa = torch.cos(y), torch.sin(y)
+    cb, sb = torch.cos(x), torch.sin(x)
+    row0 = torch.stack([ch * ca, sh * sb - ch * sa * cb,
+                        ch * sa * sb + sh * cb], -1)
+    row1 = torch.stack([sa, ca * cb, -ca * sb], -1)
+    row2 = torch.stack([-sh * ca, sh * sa * cb + ch * sb,
+                        -sh * sa * sb + ch * cb], -1)
+    return torch.stack([row0, row1, row2], dim=-2)

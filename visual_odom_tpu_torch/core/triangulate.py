@@ -45,3 +45,14 @@ def triangulate_points(P_left: torch.Tensor, P_right: torch.Tensor,
     y = (c01 * b0 + c11 * b1 + c12 * b2) / det
     z = (c02 * b0 + c12 * b1 + c22 * b2) / det
     return torch.stack([x, y, z], dim=-1)
+
+
+def stereo_depth_from_disparity(pts_left: torch.Tensor,
+                                disparity: torch.Tensor, fx: float,
+                                baseline: float) -> torch.Tensor:
+    """Stereo depth z = fx * b / d of a rectified pair (d floored at 1e-6).
+    The main path triangulates by DLT; this is the depth-direct path
+    (BASELINE.json config 4). ``pts_left`` is unused, as in the JAX
+    package."""
+    d = torch.clamp(disparity, min=1e-6)
+    return fx * baseline / d

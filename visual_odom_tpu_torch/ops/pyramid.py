@@ -1,13 +1,16 @@
-"""Image pyramid in the padded, aligned layout the LK kernel reads.
+"""Image pyramids: the padded, aligned layout the LK kernels read, and
+OpenCV's pyrDown and Scharr derivatives on plain images.
 
-Port of ``visual_odom_tpu/ops/pyramid.py`` (the banded-matrix half, and
-``_sep_filter2``, the separable correlation the Shi-Tomasi detector uses). pyrDown
-is linear, so one level step (crop the pad, 5-tap REFLECT_101 Gaussian,
-even decimation, reflect re-pad, zero alignment tail) is one static band
-matrix per axis: ``padded_{k+1} = Mv @ padded_k @ Mh^T``. The two products
-stay ``torch.matmul``: the JAX package leaves them to XLA too, outside any
-kernel. The buffer layout is kept exactly, so the JAX package's planes can
-be handed to the port unchanged.
+Port of ``visual_odom_tpu/ops/pyramid.py``. ``_sep_filter2`` is the
+separable REFLECT_101 correlation that the Shi-Tomasi detector and the
+public helpers (``pyr_down``, ``build_pyramid``, ``scharr_derivatives``,
+``build_pyramid_with_derivs``) are made of. The LK path takes the
+banded-matrix half instead: pyrDown is linear, so one level step (crop the
+pad, 5-tap REFLECT_101 Gaussian, even decimation, reflect re-pad, zero
+alignment tail) is one static band matrix per axis: ``padded_{k+1} = Mv @
+padded_k @ Mh^T``. The two products stay ``torch.matmul``: the JAX package
+leaves them to XLA too, outside any kernel. The buffer layout is kept
+exactly, so the JAX package's planes can be handed to the port unchanged.
 """
 
 from __future__ import annotations
@@ -105,3 +108,39 @@ def _sep_filter2(img: torch.Tensor, kr, kc) -> torch.Tensor:
     for j, w in enumerate(kc):
         out = out + acc[..., :, j:j + W] * float(w)
     return out
+
+
+_SCHARR_SMOOTH = np.array([3.0, 10.0, 3.0], dtype=np.float32) / 16.0
+_SCHARR_DIFF = np.array([-1.0, 0.0, 1.0], dtype=np.float32) / 2.0
+
+
+def pyr_down(img: torch.Tensor) -> torch.Tensor:
+    """OpenCV pyrDown of (..., H, W) images: the 5-tap Gaussian
+    [1, 4, 6, 4, 1]/16 with a REFLECT_101 border, then the even rows and
+    columns -> (..., ceil(H/2), ceil(W/2))."""
+    return _sep_filter2(img, _GAUSS5, _GAUSS5)[..., ::2, ::2]
+
+
+def build_pyramid(img: torch.Tensor, levels: int) -> list:
+    """[img, level 1, ..., level ``levels``]: ``levels`` + 1 images, as
+    cv::buildOpticalFlowPyramid(maxLevel=levels)."""
+    pyr = [img]
+    for _ in range(levels):
+        pyr.append(pyr_down(pyr[-1]))
+    return pyr
+
+
+def scharr_derivatives(img: torch.Tensor) -> tuple:
+    """(Ix, Iy): OpenCV LK's Scharr derivatives, (3, 10, 3) x (-1, 0, 1),
+    normalised to pixel units (/32)."""
+    ix = _sep_filter2(img, _SCHARR_SMOOTH, _SCHARR_DIFF)
+    iy = _sep_filter2(img, _SCHARR_DIFF, _SCHARR_SMOOTH)
+    return ix, iy
+
+
+def build_pyramid_with_derivs(img: torch.Tensor, levels: int) -> tuple:
+    """(images, ixs, iys): the pyramid and each level's Scharr derivatives,
+    each a tuple of ``levels`` + 1 tensors from fine to coarse."""
+    pyr = build_pyramid(img, levels)
+    ixs, iys = zip(*(scharr_derivatives(p) for p in pyr))
+    return tuple(pyr), tuple(ixs), tuple(iys)

@@ -7,24 +7,27 @@ until fetched, and each sequence's poses are chained on the host in
 float64.
 
 Sequences are read lazily: random-access sequences (``.frame(i)`` and
-``len``, such as ``io.synthetic.SyntheticStereoSequence``) or plain frame
-lists. A sequence shorter than the longest is padded with its last frame;
-the steps past its end are cut from its pose chain and its stats. The
-snapshot/resume of the JAX runner waits for the checkpoint port.
+``len``, such as ``io.kitti.KittiSequence`` or
+``io.synthetic.SyntheticStereoSequence``) or plain frame lists. A sequence
+shorter than the longest is padded with its last frame; the steps past its
+end are cut from its pose chain and its stats.
 
 The step, the chunk step (``runner.pipeline.make_scan_step_fn``), the
-fetch and the pose chaining are the single-sequence runner's; only the loop is this
-module's own. ``runner.pipeline.run_sequence_scan`` streams from any
-iterable and holds one chunk in host memory; this loop needs random access
-to pad short sequences with their last frame, and reads the next frame or
-chunk on a thread while the card works.
+uploader thread, the fetch, the snapshot's state arrays and the pose
+chaining are the single-sequence runner's; only the loop is this module's
+own. ``runner.pipeline.run_sequence_scan`` streams from any iterable; this
+loop needs random access to pad short sequences with their last frame and
+to rebuild a snapshot's pyramids.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 import time
+from collections import namedtuple
 from concurrent.futures import ThreadPoolExecutor
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,8 +37,21 @@ from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.parallel.batch import (batched_init_state,
                                                   make_batched_scan_fn,
                                                   make_batched_step_fn)
-from visual_odom_tpu_torch.runner.pipeline import (StepOutput, _fetch,
-                                                   chain_poses_host)
+from visual_odom_tpu_torch.runner.pipeline import (_ChunkUploader, _concat,
+                                                   _fetch, _fetch_chunks,
+                                                   _on_current_stream, _sync,
+                                                   chain_poses_host,
+                                                   restore_scan_state,
+                                                   state_arrays)
+from visual_odom_tpu_torch.utils.checkpoint import (BATCH_OUTPUTS,
+                                                    CorruptCheckpoint,
+                                                    load_batch_checkpoint,
+                                                    save_batch_checkpoint)
+
+
+#: the outputs the batched runner keeps (and a snapshot stores), each with
+#: a leading step axis and then B
+_BatchOut = namedtuple("_BatchOut", BATCH_OUTPUTS)
 
 
 def _frame_at(seq, i: int):
@@ -46,9 +62,21 @@ def _frame_at(seq, i: int):
     return seq[j]
 
 
+def _batched_restore_state(config: VOConfig, ckpt: dict, lefts, rights,
+                           device):
+    """Batched state from a snapshot's stacked arrays and the checkpointed
+    frame's (B, H, W) images: the pyramids are rebuilt from them, and
+    sequence b's generator takes row b of ``gen_state`` on ``device``."""
+    return restore_scan_state(config, None, ckpt, lefts, rights,
+                              device=device)
+
+
 def run_sequences_batched(sequences: Sequence, config: VOConfig,
                           intrinsics: CameraIntrinsics, seed: int = 0,
-                          chunk: int = 0, device=None):
+                          chunk: int = 0, checkpoint_path: str = "",
+                          checkpoint_every: int = 0, verbose: bool = False,
+                          snapshot_stats: Optional[list] = None,
+                          device=None):
     """Run B sequences in lockstep. Returns (list of (N_b, 4, 4) float64
     pose arrays, per-sequence stats dicts, wall_seconds).
 
@@ -59,16 +87,32 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
     ``chunk == 0``: one batched step per frame, the next frame read on a
     background thread while the card works (one-step-ahead prefetch), all
     outputs fetched once at the end. ``chunk > 0``: ``chunk`` frames per
-    upload, read one chunk ahead on the thread, outputs fetched once per
-    chunk; the first chunk's read and upload stay out of ``wall_seconds``.
-    Sequence b draws its RANSAC samples from a generator seeded
-    ``seed + b``.
+    upload, read and uploaded by one background thread (two chunks ahead),
+    the outputs kept on the device and fetched once after the loop; the
+    first chunk's read and upload stay out of ``wall_seconds``. Sequence b
+    draws its RANSAC samples from a generator seeded ``seed + b``.
+
+    ``checkpoint_path`` (chunked runs only) makes the run restartable: one
+    atomic snapshot of all B sequences every ``checkpoint_every`` steps,
+    rounded up to whole chunks, so a resumed run's chunks line up with an
+    uninterrupted one's and its result is the same bit for bit. A snapshot
+    fetches the state's arrays in one copy and the outputs not yet fetched
+    in another; a failure between snapshots loses only outputs still on
+    the device. An existing snapshot is resumed from; one that cannot be
+    trusted (torn, a key missing, another B or device kind, a cursor off
+    the chunk grid) is rejected with a warning on stderr and the run starts
+    fresh. ``snapshot_stats``, a list, gets one ``{"step", "ms", "bytes"}``
+    per snapshot written (copies and write).
     """
     dev = resolve_device(device)
     lengths = [len(s) for s in sequences]
     if not lengths or min(lengths) == 0:
         raise ValueError("run_sequences_batched needs sequences of at least "
                          "one frame")
+    if checkpoint_path and not chunk:
+        raise ValueError("batched checkpointing needs chunk > 0 "
+                         "(snapshots land on chunk boundaries)")
+    B = len(sequences)
     n_steps = max(lengths) - 1
 
     def stacked(i):
@@ -76,62 +120,19 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
         return (np.stack([np.asarray(f[0]) for f in fr]),
                 np.stack([np.asarray(f[1]) for f in fr]))
 
-    state = batched_init_state(config, *stacked(0), seed=seed, device=dev)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    fetched = []
-    with ThreadPoolExecutor(max_workers=1) as ex:
-        if chunk:
-            scan = make_batched_scan_fn(config, intrinsics, chunk, device=dev)
-            n_chunks = -(-n_steps // chunk)
-
-            def chunk_at(c):
-                # (chunk, B, H, W); the tail repeats the final frame, whose
-                # steps are cut below.
-                fr = [stacked(min(1 + c * chunk + j, n_steps))
-                      for j in range(chunk)]
-                return (torch.from_numpy(np.stack([f[0] for f in fr])),
-                        torch.from_numpy(np.stack([f[1] for f in fr])))
-
-            def upload(host):
-                return tuple(x.to(dev) for x in host)
-
-            cur = upload(chunk_at(0)) if n_chunks else None
-            sync()
-            t0 = time.perf_counter()
-            for c in range(n_chunks):
-                ahead = ex.submit(chunk_at, c + 1) if c + 1 < n_chunks else None
-                state, out = scan(state, *cur)
-                fetched.append(_fetch(out))
-                cur = upload(ahead.result()) if ahead is not None else None
-            wall = time.perf_counter() - t0
-        else:
-            step = make_batched_step_fn(config, intrinsics, device=dev)
-            pending = ex.submit(stacked, 1) if n_steps else None
-            outs = []
-            sync()
-            t0 = time.perf_counter()
-            for i in range(1, n_steps + 1):
-                lefts, rights = pending.result()
-                if i < n_steps:
-                    pending = ex.submit(stacked, i + 1)
-                state, out = step(state, torch.from_numpy(lefts).to(dev),
-                                  torch.from_numpy(rights).to(dev))
-                outs.append(out)
-            if outs:
-                fetched.append(_fetch(StepOutput(
-                    *(torch.stack(x) for x in zip(*outs)))))
-            wall = time.perf_counter() - t0
-
-    B = len(sequences)
-    if fetched:
-        out = StepOutput(*(np.concatenate(xs)[:n_steps]
-                           for xs in zip(*fetched)))
+    if chunk:
+        parts, wall = _run_chunked(stacked, B, n_steps, config, intrinsics,
+                                   seed, chunk, checkpoint_path,
+                                   checkpoint_every, verbose, snapshot_stats,
+                                   dev)
     else:
-        out = StepOutput(*(np.zeros((0, B)) for _ in StepOutput._fields))
+        parts, wall = _run_stepwise(stacked, n_steps, config, intrinsics,
+                                    seed, dev)
+    if parts:
+        out = _concat([(p,) for p in parts])[0]
+        out = _BatchOut(*(x[:n_steps] for x in out))
+    else:
+        out = _BatchOut(*(np.zeros((0, B)) for _ in _BatchOut._fields))
     poses, stats = [], []
     for b in range(B):
         nb = lengths[b] - 1
@@ -143,3 +144,116 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
             "fallback_frames": int(out.fallback[:nb, b].sum()),
         })
     return poses, stats, wall
+
+
+def _kept(out) -> _BatchOut:
+    return _BatchOut(*(getattr(out, k) for k in _BatchOut._fields))
+
+
+def _run_stepwise(stacked, n_steps, config, intrinsics, seed, dev):
+    """One batched step per frame; returns ([fetched _BatchOut], wall)."""
+    state = batched_init_state(config, *stacked(0), seed=seed, device=dev)
+    step = make_batched_step_fn(config, intrinsics, device=dev)
+    outs = []
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        pending = ex.submit(stacked, 1) if n_steps else None
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in range(1, n_steps + 1):
+            lefts, rights = pending.result()
+            if i < n_steps:
+                pending = ex.submit(stacked, i + 1)
+            state, out = step(state, torch.from_numpy(lefts).to(dev),
+                              torch.from_numpy(rights).to(dev))
+            outs.append(_kept(out))
+        parts = ([_fetch(_BatchOut(*(torch.stack(x) for x in zip(*outs))))]
+                 if outs else [])
+        wall = time.perf_counter() - t0
+    return parts, wall
+
+
+def _run_chunked(stacked, B, n_steps, config, intrinsics, seed, chunk,
+                 checkpoint_path, checkpoint_every, verbose, snapshot_stats,
+                 dev):
+    """The chunked loop with its snapshots; returns ([fetched _BatchOut per
+    part], wall)."""
+    scan = make_batched_scan_fn(config, intrinsics, chunk, device=dev)
+    n_chunks = -(-n_steps // chunk)
+    ck_chunks = (max(1, -(-checkpoint_every // chunk)) if checkpoint_every
+                 else 1)
+
+    start_chunk, prev, state = 0, None, None
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        try:
+            ck = load_batch_checkpoint(checkpoint_path, B, device=dev)
+            steps_done = int(ck["frames_done"])
+            if steps_done % chunk or steps_done > n_steps:
+                raise CorruptCheckpoint(
+                    f"cursor {steps_done} not a chunk-{chunk} boundary "
+                    f"within {n_steps} steps")
+            start_chunk = steps_done // chunk
+            prev = _BatchOut(*(ck["out_" + k] for k in BATCH_OUTPUTS))
+            if start_chunk < n_chunks:
+                state = _batched_restore_state(config, ck,
+                                               *stacked(steps_done), dev)
+            if verbose:
+                print(f"resumed batched scan from {checkpoint_path} "
+                      f"at step {steps_done}")
+        except CorruptCheckpoint as e:
+            print(f"warning: rejecting corrupt checkpoint: {e}",
+                  file=sys.stderr)
+            start_chunk, prev, state = 0, None, None
+    if state is None and start_chunk < n_chunks:
+        state = batched_init_state(config, *stacked(0), seed=seed, device=dev)
+
+    def chunk_at(c):
+        # (chunk, B, H, W); the tail repeats the final frame, whose steps
+        # are cut from each sequence's chain.
+        fr = [stacked(min(1 + c * chunk + j, n_steps)) for j in range(chunk)]
+        return (np.stack([f[0] for f in fr]), np.stack([f[1] for f in fr]),
+                chunk)
+
+    done = [prev] if prev is not None else []    # fetched, per part
+    pending = []                                 # on the device, per chunk
+
+    def fetch_pending():
+        done.extend(c[0] for c in _fetch_chunks(pending))
+        pending.clear()
+
+    up = _ChunkUploader((chunk_at(c) for c in range(start_chunk, n_chunks)),
+                        dev, maxsize=2)
+    chunks_done = start_chunk
+    try:
+        cur = up.get()
+        _sync(dev)
+        t0 = time.perf_counter()
+        while cur is not None:
+            state, out = scan(state, _on_current_stream(cur[0]),
+                              _on_current_stream(cur[1]))
+            pending.append((_kept(out),))
+            chunks_done += 1
+            if (checkpoint_path and chunks_done < n_chunks
+                    and (chunks_done - start_chunk) % ck_chunks == 0):
+                ts = time.perf_counter()
+                arrays = state_arrays(state)
+                fetch_pending()
+                steps_now = chunks_done * chunk
+                outs = _concat([(p,) for p in done])[0]
+                size = save_batch_checkpoint(
+                    checkpoint_path, steps_now, arrays,
+                    {k: v[:steps_now] for k, v in outs._asdict().items()},
+                    device=dev)
+                if snapshot_stats is not None:
+                    snapshot_stats.append({
+                        "step": steps_now, "bytes": size,
+                        "ms": 1e3 * (time.perf_counter() - ts)})
+                if verbose:
+                    print(f"batched checkpoint @ step {steps_now}")
+            cur = up.get()
+        fetch_pending()
+        wall = time.perf_counter() - t0
+    except BaseException:
+        up.cancel()
+        raise
+    up.finish()
+    return done, wall

@@ -686,14 +686,22 @@ def restore_scan_state(config: VOConfig, intrinsics: CameraIntrinsics,
     """A ``VOState`` from a scan snapshot and the checkpointed frame's
     images: the pyramids are rebuilt from frame t0 as the step builds them,
     and the RANSAC generator takes the stored state (on ``device``, the
-    device it was saved from)."""
+    device it was saved from). A batched snapshot (arrays with a leading B,
+    ``gen_state`` (B, bytes)) and (B, H, W) images give the batched state,
+    sequence b's generator from row b."""
     dev = resolve_device(device)
 
     def t(k, dtype):
         return torch.tensor(np.asarray(ckpt[k]), dtype=dtype, device=dev)
 
-    gen = torch.Generator(device=dev)
-    gen.set_state(torch.from_numpy(np.asarray(ckpt["gen_state"], np.uint8)))
+    def generator(state):
+        gen = torch.Generator(device=dev)
+        gen.set_state(torch.from_numpy(np.ascontiguousarray(state)))
+        return gen
+
+    gen_state = np.asarray(ckpt["gen_state"], np.uint8)
+    gen = (tuple(generator(g) for g in gen_state) if gen_state.ndim == 2
+           else generator(gen_state))
     return VOState(
         features=FeatureState(
             points=t("points", torch.float32), ages=t("ages", torch.int32),
@@ -708,12 +716,17 @@ def restore_scan_state(config: VOConfig, intrinsics: CameraIntrinsics,
 def state_arrays(state: VOState) -> dict:
     """The state's resumable arrays (``utils.checkpoint.STATE_KEYS``) on the
     host: the feature arrays and the warm start in one device-to-host copy,
-    and the generator's state (which lives on the host) beside them."""
+    and the generator's state (which lives on the host) beside them; for a
+    batched state, every array with its leading B and one generator state
+    per row."""
     f = state.features
     names = ("points", "ages", "valid", "ids", "next_id", "flow", "disp")
     host = _to_host([getattr(f, k) for k in names] + [state.tvec])
     arrays = dict(zip(names + ("tvec",), host))
-    arrays["gen_state"] = state.generator.get_state().numpy()
+    gens = state.generator
+    arrays["gen_state"] = (np.stack([g.get_state().numpy() for g in gens])
+                           if isinstance(gens, tuple)
+                           else gens.get_state().numpy())
     return arrays
 
 

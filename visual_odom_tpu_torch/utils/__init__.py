@@ -1,1 +1,2 @@
-"""Host utilities: checkpoints (scan and ``VisualOdometry``) and metrics."""
+"""Host utilities: checkpoints (scan, batched and ``VisualOdometry``),
+metrics, the eval notifier and profiling hooks."""

@@ -1,23 +1,26 @@
-"""Checkpoints of the scan runner and of ``VisualOdometry``.
+"""Checkpoints of the scan runner, the batched runner and ``VisualOdometry``.
 
-Port of ``visual_odom_tpu/utils/checkpoint.py`` but its batched half
-(``CorruptCheckpoint``, ``_atomic_savez``, ``save_scan_checkpoint``,
-``load_scan_checkpoint``, ``save_checkpoint``, ``load_checkpoint``,
-``restore_vo``). A snapshot is one ``.npz`` holding the device state's
-resumable arrays. A scan snapshot adds the absolute step cursor, every
-per-frame output fetched so far (``out_*``) and, for a run that collects
-them, every track snapshot (``trk_*``); a ``VisualOdometry`` snapshot adds
-the integrated pose, the frame index and the caller's ``extra_*`` arrays.
+Port of ``visual_odom_tpu/utils/checkpoint.py``. A snapshot is one
+``.npz`` holding the device state's resumable arrays. A scan snapshot adds
+the absolute step cursor, every per-frame output fetched so far (``out_*``)
+and, for a run that collects them, every track snapshot (``trk_*``); a
+batched snapshot (``run_sequences_batched``) holds the same for all B
+lockstep sequences, every array with a leading B (outputs (steps, B,
+...)), and the device kind it was taken on; a ``VisualOdometry`` snapshot
+adds the integrated pose, the frame index and the caller's ``extra_*``
+arrays.
 Pyramids are not stored: they are a pure function of frame t0 and are
 rebuilt at resume. It is written to a temporary file in the same
 directory and moved into place, so a crash never leaves a torn snapshot.
 
 The JAX package stores its PRNG key; the port stores the RANSAC
 generator's state instead (``gen_state``: ``torch.Generator.get_state()``,
-a uint8 tensor on the host whatever the generator's device), and the
-``fallback`` output its ``StepOutput`` carries beside JAX's fields. A
-generator's state fits only a generator of the device that saved it, so a
-snapshot taken on the card resumes on the card.
+a uint8 tensor on the host whatever the generator's device; one row per
+sequence in a batched snapshot), and the ``fallback`` output its
+``StepOutput`` carries beside JAX's fields. A generator's state fits only
+a generator of the device kind that saved it (16 bytes of Philox seed and
+offset on the card, 5,056 of mt19937 on the CPU), so a snapshot taken on
+the card resumes on the card.
 """
 
 from __future__ import annotations
@@ -146,3 +149,63 @@ def restore_vo(vo, ckpt: dict, left_t0, right_t0) -> int:
     vo.state = restore_scan_state(vo.config, vo.intrinsics, ckpt, left_t0,
                                   right_t0, device=vo.device)
     return vo.frame_id + 1
+
+
+# --- batched (B sequences in lockstep) chunk-boundary checkpoints ----------
+
+#: the batched runner's outputs kept in a snapshot (``out_<name>``)
+BATCH_OUTPUTS = ("T_inv", "accept", "num_inliers", "fallback")
+_BATCH_REQUIRED = (("frames_done", "device") + STATE_KEYS
+                   + tuple("out_" + k for k in BATCH_OUTPUTS))
+
+
+def _device_kind(device) -> str:
+    """``"cuda"`` or ``"cpu"`` for a ``torch.device`` or its name."""
+    return getattr(device, "type", str(device).split(":")[0])
+
+
+def save_batch_checkpoint(path: str, frames_done: int, state_arrays: dict,
+                          outs: dict, device="cpu") -> int:
+    """Snapshot the batched scan at a chunk boundary. ``state_arrays``
+    holds STATE_KEYS with a leading B (``gen_state`` (B, bytes));
+    ``outs`` the BATCH_OUTPUTS stacks (steps, B, ...) of the
+    ``frames_done`` steps; ``device`` the device the run is on. Returns
+    the file's bytes."""
+    payload = {"frames_done": np.int64(frames_done),
+               "device": np.array(_device_kind(device))}
+    for k in STATE_KEYS:
+        payload[k] = np.asarray(state_arrays[k])
+    for k in BATCH_OUTPUTS:
+        payload["out_" + k] = np.asarray(outs[k])
+    return _atomic_savez(path, payload)
+
+
+def load_batch_checkpoint(path: str, batch: int, device=None) -> dict:
+    """Load and validate a batched snapshot for a run of ``batch``
+    sequences (on ``device``, when given); raises CorruptCheckpoint on a
+    torn file, a missing key, a cursor that does not fit its outputs, a
+    batch size other than the run's, or a snapshot taken on another device
+    kind (its generators' states restore only there)."""
+    try:
+        with np.load(path) as z:
+            ckpt = {k: z[k] for k in z.files}
+    except Exception as e:
+        raise CorruptCheckpoint(f"{path}: unreadable ({e!r})") from e
+    missing = [k for k in _BATCH_REQUIRED if k not in ckpt]
+    if missing:
+        raise CorruptCheckpoint(f"{path}: missing keys {missing}")
+    if int(ckpt["frames_done"]) != len(ckpt["out_accept"]):
+        raise CorruptCheckpoint(
+            f"{path}: cursor/output mismatch "
+            f"({int(ckpt['frames_done'])} vs {len(ckpt['out_accept'])})")
+    if ckpt["points"].shape[0] != batch:
+        raise CorruptCheckpoint(
+            f"{path}: batch mismatch (snapshot B={ckpt['points'].shape[0]},"
+            f" run B={batch})")
+    saved = str(ckpt["device"])
+    if device is not None and saved != _device_kind(device):
+        raise CorruptCheckpoint(
+            f"{path}: snapshot taken on {saved}, run on "
+            f"{_device_kind(device)}: a RANSAC generator's state "
+            f"restores only on the device kind that saved it")
+    return ckpt
