@@ -142,6 +142,31 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    devkit's ATE is Horn-aligned, so it lies at or below phase 4's
    unaligned figure, printed beside it), with t_err and r_err where a
    course is 100 m or longer.
+11. The command line and the pipelined runner, on phase 10's directories
+   and phase 4's frames (nothing more is rendered or written as PNG),
+   with a calibration file whose floats read back exactly (``repr``).
+   One ``cli`` line per part, each command run in this process through
+   ``runner.cli.main``: (a) ``run`` on "straight" with ``--chunk``
+   CLI_CHUNK (pose file and scorecard: phase 10's stream poses and
+   ``evaluate_sequence`` of them), ``--chunk 0``, the resumable chunked
+   run (``--checkpoint``, a snapshot every CLI_EVERY steps: stopped at its
+   first snapshot by ``--max-frames``, resumed, then run again on the
+   finished snapshot) and ``--ba-window`` CLI_BA_WINDOW (against
+   ``smooth_trajectory_ba`` on phase 8's track snapshots of the scan),
+   each pose file byte for byte phase 4's scan, with its launches per
+   frame and ms per frame; (b) ``run-batch`` over the four directories
+   (chunk CLI_BATCH_CHUNK, snapshots every CLI_BATCH_EVERY steps, ground
+   truth): each file phase 4's batched poses, each sequence under the
+   bench gates, and ``--data-parallel 2`` on the one card refused (exit
+   2); (c) ``eval`` and ``eval-all`` on those files, each ATE phase 10's
+   within EVAL_ATE_TOL. Then ``pipe`` lines: ``run_sequence_pipelined``
+   on "straight" with both stages on this card (two CUDA streams), on
+   both LK routes, every output field bit for bit phase 4's scan of the
+   route (``num_bucketed`` against ``num_matched``, as the JAX package's
+   pipe reports it), the route's launches per frame, its loop under CUDA
+   sync debug mode "error"; ms per frame in two turns with the in-memory
+   scan, and device ms per frame and busy share over PIPE_PROFILE_STEPS
+   frames under torch.profiler.
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -152,10 +177,13 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -255,6 +283,16 @@ KITTI_CRASH_AT = 100
 #: phase 10: eval_all's ATE (read back from the ``%.9e`` pose files)
 #: against the same ATE of the in-memory poses, in metres
 EVAL_ATE_TOL = 1e-6
+#: phase 11: the command line's chunked runs (``--chunk``, the resumable
+#: one's ``--checkpoint-every``), ``run-batch``'s chunk and snapshot
+#: interval, and the window of ``--ba-window``
+CLI_CHUNK = 32
+CLI_EVERY = 32
+CLI_BATCH_CHUNK = 16
+CLI_BATCH_EVERY = 64
+CLI_BA_WINDOW = 8
+#: phase 11: frames of the pipelined runner under torch.profiler
+PIPE_PROFILE_STEPS = 8
 #: phase 8 gate where the JAX package itself misses the ATE budget on the
 #: course: within this factor of its ATE (PR 5's rule for BA)
 VARIANT_ATE_FACTOR = 1.1
@@ -1067,7 +1105,6 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
     ms/frame without the profiler (which slows the host). Frames of
     (B, H, W) pairs profile the batched step (per step, not per frame)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from visual_odom_tpu_torch.parallel import batch
@@ -1109,11 +1146,7 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
         for l, r in up[n_sync:]:
             state, out = step(state, l, r)
         torch.cuda.synchronize()
-    # Device-side events only (kernels, copies): the CPU-side aten ops carry
-    # the same device time again.
-    rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    rows = device_rows(prof)
     if not rows:
         raise AssertionError("profile: the profiler saw no device time")
     device_ms = sum(r[0] for r in rows) / 1e3 / n_frames
@@ -1408,9 +1441,8 @@ def resume_check(frames, config, intr, dev):
     interrupted by a failure at frame RESUME_CRASH_AT, and resumed from its
     last snapshot; without and with track snapshots. The resumed run equals
     the uninterrupted one bit for bit, and both equal ``run_sequence_scan``
-    at the same chunk. Returns the resumed runs' launch counts."""
-    import tempfile
-
+    at the same chunk. Returns the resumed runs' launch counts and the
+    reference scan's track snapshots (phase 11's BA input)."""
     from visual_odom_tpu_torch.runner import pipeline
     from visual_odom_tpu_torch.utils.checkpoint import load_scan_checkpoint
 
@@ -1467,7 +1499,7 @@ def resume_check(frames, config, intr, dev):
             if not (all(eq.values()) and at == RESUME_EVERY
                     and resumed[3] == len(frames) - 1 - at):
                 raise AssertionError(f"resume: not bit for bit: {res}")
-    return launches
+    return launches, ref[4]
 
 
 def variant_check(name, opts, frames, gt, intr, dev, default_profile,
@@ -1550,8 +1582,6 @@ def front_doors(frames, cframes, ref, cref, config, xconfig, intr, dev):
     poses and fetched outputs, quad route) and to its kernel launches per
     frame. One ``front_doors`` line per part. Returns the launches per
     kernel."""
-    import tempfile
-
     from visual_odom_tpu_torch.eval.plot import LiveDisplay
     from visual_odom_tpu_torch.io.kitti import load_poses
     from visual_odom_tpu_torch.runner import pipeline
@@ -1776,13 +1806,13 @@ def image_packages_hidden():
                 sys.modules[m] = mod
 
 
-def kitti_phase(courses, ref, bposes, config, intr, dev):
-    """Phase 10: phase 4's batched courses as KITTI PNG directories, read
-    back through the native decoder only, each run held bit for bit to
-    phase 4's in-memory run. One ``kitti`` line per part. Returns the
-    launches per kernel ({"quad", "quad_batched"})."""
-    import tempfile
-
+def kitti_phase(courses, ref, bposes, config, intr, dev, root):
+    """Phase 10: phase 4's batched courses as KITTI PNG directories under
+    ``root``, read back through the native decoder only (the caller hides
+    the image packages), each run held bit for bit to phase 4's in-memory
+    run. One ``kitti`` line per part. Returns the launches per kernel
+    ({"quad", "quad_batched"}), the directories ({course key: path}) and
+    ``eval_all``'s scores."""
     from visual_odom_tpu_torch.eval.devkit import eval_all
     from visual_odom_tpu_torch.eval.kitti_eval import ate_rmse
     from visual_odom_tpu_torch.io import native
@@ -1804,157 +1834,484 @@ def kitti_phase(courses, ref, bposes, config, intr, dev):
     build_s = time.perf_counter() - t
     if not native.available():
         raise AssertionError("the native runtime did not load")
-    with tempfile.TemporaryDirectory() as root, image_packages_hidden():
-        t = time.perf_counter()
-        dirs, size = write_kitti(courses, BATCH_COURSES, root)
-        write_s = time.perf_counter() - t
-        sframes = courses[("straight", "value")][0]
-        left = os.path.join(dirs[("straight", "value")], "image_0")
-        paths = [os.path.join(left, f"{i:06d}.png")
-                 for i in range(len(sframes))]
-        t = time.perf_counter()
-        decoded = [native.decode_png_gray(p) for p in paths]
-        decode_us = 1e6 * (time.perf_counter() - t) / len(paths)
-        seq = KittiSequence(dirs[("straight", "value")])
-        report("data", dict(
-            library=os.path.basename(lib_path), build_s=build_s,
-            sequences=len(dirs), frames=sum(len(courses[k][0])
-                                            for k in BATCH_COURSES),
-            png_files=2 * sum(len(courses[k][0]) for k in BATCH_COURSES),
-            png_mb=size / 1e6, write_s=write_s, decode_images=len(paths),
-            decode_us_per_image=decode_us, image=f"{W}x{H}"), {
-            "native_available": True,
-            "decoded_equal_rendered": all(
-                np.array_equal(d, f[0]) for d, f in zip(decoded, sframes)),
-            "frame_equal_rendered": all(
-                np.array_equal(a, b) for a, b in zip(seq.frame(7),
-                                                     sframes[7])),
-            "fallbacks_blocked": sys.modules.get("cv2", 0) is None
-            and sys.modules.get("PIL", 0) is None})
+    t = time.perf_counter()
+    dirs, size = write_kitti(courses, BATCH_COURSES, root)
+    write_s = time.perf_counter() - t
+    sframes = courses[("straight", "value")][0]
+    left = os.path.join(dirs[("straight", "value")], "image_0")
+    paths = [os.path.join(left, f"{i:06d}.png")
+             for i in range(len(sframes))]
+    t = time.perf_counter()
+    decoded = [native.decode_png_gray(p) for p in paths]
+    decode_us = 1e6 * (time.perf_counter() - t) / len(paths)
+    seq = KittiSequence(dirs[("straight", "value")])
+    report("data", dict(
+        library=os.path.basename(lib_path), build_s=build_s,
+        sequences=len(dirs), frames=sum(len(courses[k][0])
+                                        for k in BATCH_COURSES),
+        png_files=2 * sum(len(courses[k][0]) for k in BATCH_COURSES),
+        png_mb=size / 1e6, write_s=write_s, decode_images=len(paths),
+        decode_us_per_image=decode_us, image=f"{W}x{H}"), {
+        "native_available": True,
+        "decoded_equal_rendered": all(
+            np.array_equal(d, f[0]) for d, f in zip(decoded, sframes)),
+        "frame_equal_rendered": all(
+            np.array_equal(a, b) for a, b in zip(seq.frame(7),
+                                                 sframes[7])),
+        "fallbacks_blocked": sys.modules.get("cv2", 0) is None
+        and sys.modules.get("PIL", 0) is None})
 
-        # (b) the PNG stream into the scan, in turns with the in-memory scan
-        ref_poses, ref_out = ref
-        n = len(sframes) - 1
-        runs = []
-        order = [("memory", 1), ("png", 1), ("png", 4)]
-        for src, threads in order + order[::-1]:
-            frames = (sframes if src == "memory"
-                      else seq.iter_prefetched(n_threads=4))
-            stats = {}
-            reset_counts()
-            p, out, wall, m = pipeline.run_sequence_scan(
-                frames, config, intr, chunk=CHUNK, warmup=False,
-                upload_threads=threads, stats_out=stats, device=dev)
-            counts = read_counts()
-            got = check_counts(f"kitti stream {src}", config, counts, m, False)
-            if src == "png":
-                launches["quad"] += got
-            runs.append(dict(
-                source=src, upload_threads=threads, steps=m, wall_s=wall,
-                ms_per_frame=1e3 * wall / m, busy_frac=stats["busy_frac"],
-                decode_s=stats["decode_s"], upload_s=stats["upload_s"],
-                poses_vs_scan=bool(np.array_equal(p, ref_poses)),
-                outputs_vs_scan=_same(out, ref_out)))
-        report("stream", dict(course="straight", prefetch_threads=4,
-                              runs=runs, **{
-            f"median_ms_per_frame_{src}_{k}": float(np.median(
-                [r["ms_per_frame"] for r in runs
-                 if (r["source"], r["upload_threads"]) == (src, k)]))
-            for src, k in order}), {
-            "every_run_bit_for_bit": all(
-                r["poses_vs_scan"] and r["outputs_vs_scan"] for r in runs)})
-
-        # (c) the batched runner over the four directories: uninterrupted,
-        # failed after its first snapshot, resumed
-        seqs = [KittiSequence(dirs[k]) for k in BATCH_COURSES]
-        n_steps = max(len(s) for s in seqs) - 1
-        ck = os.path.join(root, "batch.npz")
-        kw = dict(chunk=CHUNK, device=dev)
-
-        def batched(label, run_seqs, steps, **extra):
-            reset_counts()
-            out = run_sequences_batched(run_seqs, config, intr, **kw, **extra)
-            launches["quad_batched"] += check_counts(
-                label, config, read_counts(), steps, True)
-            return out
-
-        full = batched("kitti batched", seqs, -(-n_steps // CHUNK) * CHUNK)
-        crash_stats, resume_stats = [], []
+    # (b) the PNG stream into the scan, in turns with the in-memory scan
+    ref_poses, ref_out = ref
+    n = len(sframes) - 1
+    runs = []
+    order = [("memory", 1), ("png", 1), ("png", 4)]
+    for src, threads in order + order[::-1]:
+        frames = (sframes if src == "memory"
+                  else seq.iter_prefetched(n_threads=4))
+        stats = {}
         reset_counts()
-        try:
-            # the last course is a full-length one (frames past a short
-            # course's end are its last frame)
-            run_sequences_batched(seqs[:-1]
-                                  + [FailingSequence(seqs[-1],
-                                                     KITTI_CRASH_AT)],
-                                  config, intr,
-                                  checkpoint_path=ck,
-                                  checkpoint_every=KITTI_EVERY,
-                                  snapshot_stats=crash_stats, **kw)
-            raise AssertionError("kitti batched: the injected failure did "
-                                 "not surface")
-        except RuntimeError as e:
-            if "injected" not in str(e):
-                raise
-        crash_launches = read_counts()["quad_batched"]
-        launches["quad_batched"] += crash_launches
-        at = crash_stats[-1]["step"]
-        resumed = batched("kitti batched, resumed", seqs,
-                          -(-(n_steps - at) // CHUNK) * CHUNK,
-                          checkpoint_path=ck, checkpoint_every=KITTI_EVERY,
-                          snapshot_stats=resume_stats)
-        per_seq = []
-        for key, p, st in zip(BATCH_COURSES, full[0], full[1]):
-            ate, budget = ate_and_budget(p, courses[key][1])
-            per_seq.append(dict(course="_".join(key), steps=st["frames"] - 1,
-                                accept=st["accept_ratio"], ate_m=ate,
-                                ate_budget_m=budget,
-                                fallback_frames=st["fallback_frames"]))
-        report("batch", dict(
-            batch=len(seqs), steps=n_steps, chunk=CHUNK,
-            checkpoint_every=KITTI_EVERY, crash_at=KITTI_CRASH_AT,
-            snapshot_at=at, wall_full_s=full[2],
-            ms_per_step=1e3 * full[2] / n_steps,
-            aggregate_fps=sum(len(s) - 1 for s in seqs) / full[2],
-            wall_resumed_s=resumed[2], crash_launches=crash_launches,
-            snapshots=crash_stats + resume_stats, sequences=per_seq), {
-            "snapshot_at_expected": at == KITTI_CRASH_AT // KITTI_EVERY
-            * KITTI_EVERY,
-            "poses_vs_batch_path": all(np.array_equal(a, b)
-                                       for a, b in zip(full[0], bposes)),
-            "poses_resumed_vs_batch_path": all(
-                np.array_equal(a, b) for a, b in zip(resumed[0], bposes)),
-            "stats_resumed_vs_full": resumed[1] == full[1],
-            "bench_gates": all(r["accept"] >= 0.9
-                               and r["ate_m"] <= r["ate_budget_m"]
-                               for r in per_seq)})
+        p, out, wall, m = pipeline.run_sequence_scan(
+            frames, config, intr, chunk=CHUNK, warmup=False,
+            upload_threads=threads, stats_out=stats, device=dev)
+        counts = read_counts()
+        got = check_counts(f"kitti stream {src}", config, counts, m, False)
+        if src == "png":
+            launches["quad"] += got
+        runs.append(dict(
+            source=src, upload_threads=threads, steps=m, wall_s=wall,
+            ms_per_frame=1e3 * wall / m, busy_frac=stats["busy_frac"],
+            decode_s=stats["decode_s"], upload_s=stats["upload_s"],
+            poses_vs_scan=bool(np.array_equal(p, ref_poses)),
+            outputs_vs_scan=_same(out, ref_out)))
+    report("stream", dict(course="straight", prefetch_threads=4,
+                          runs=runs, **{
+        f"median_ms_per_frame_{src}_{k}": float(np.median(
+            [r["ms_per_frame"] for r in runs
+             if (r["source"], r["upload_threads"]) == (src, k)]))
+        for src, k in order}), {
+        "every_run_bit_for_bit": all(
+            r["poses_vs_scan"] and r["outputs_vs_scan"] for r in runs)})
 
-        # (d) the devkit over the four results
-        res_dir = os.path.join(root, "results")
-        os.makedirs(res_dir)
-        for key, p in zip(BATCH_COURSES, full[0]):
-            save_poses_kitti(os.path.join(res_dir, "_".join(key) + ".txt"), p)
-        t = time.perf_counter()
-        scores = eval_all(os.path.join(root, "gt"), res_dir,
-                          os.path.join(root, "devkit"), plots=False)
-        eval_s = time.perf_counter() - t
-        rows, eq = [], {}
-        for key, p in zip(BATCH_COURSES, full[0]):
-            name, gt = "_".join(key), courses[key][1]
-            length = float(np.sum(np.linalg.norm(
-                np.diff(gt[:, :3, 3], axis=0), axis=1)))
-            aligned = ate_rmse(gt, p)
-            row = dict(course=name, length_m=length,
-                       ate_m=scores[name]["ate"], ate_in_memory_m=aligned,
-                       ate_unaligned_m=ate_and_budget(p, gt)[0])
-            if length >= 100.0:
-                row.update(t_err_pct=100 * scores[name]["t_err"],
-                           r_err_deg_per_m=57.2957795 * scores[name]["r_err"])
-            rows.append(row)
-            eq[f"ate_{name}"] = (abs(row["ate_m"] - aligned) <= EVAL_ATE_TOL
-                                 and aligned <= row["ate_unaligned_m"] + 1e-9)
-        report("eval", dict(eval_s=eval_s, ate_tol_m=EVAL_ATE_TOL,
-                            sequences=rows, avg=scores.get("avg")), eq)
+    # (c) the batched runner over the four directories: uninterrupted,
+    # failed after its first snapshot, resumed
+    seqs = [KittiSequence(dirs[k]) for k in BATCH_COURSES]
+    n_steps = max(len(s) for s in seqs) - 1
+    ck = os.path.join(root, "batch.npz")
+    kw = dict(chunk=CHUNK, device=dev)
+
+    def batched(label, run_seqs, steps, **extra):
+        reset_counts()
+        out = run_sequences_batched(run_seqs, config, intr, **kw, **extra)
+        launches["quad_batched"] += check_counts(
+            label, config, read_counts(), steps, True)
+        return out
+
+    full = batched("kitti batched", seqs, -(-n_steps // CHUNK) * CHUNK)
+    crash_stats, resume_stats = [], []
+    reset_counts()
+    try:
+        # the last course is a full-length one (frames past a short
+        # course's end are its last frame)
+        run_sequences_batched(seqs[:-1]
+                              + [FailingSequence(seqs[-1],
+                                                 KITTI_CRASH_AT)],
+                              config, intr,
+                              checkpoint_path=ck,
+                              checkpoint_every=KITTI_EVERY,
+                              snapshot_stats=crash_stats, **kw)
+        raise AssertionError("kitti batched: the injected failure did "
+                             "not surface")
+    except RuntimeError as e:
+        if "injected" not in str(e):
+            raise
+    crash_launches = read_counts()["quad_batched"]
+    launches["quad_batched"] += crash_launches
+    at = crash_stats[-1]["step"]
+    resumed = batched("kitti batched, resumed", seqs,
+                      -(-(n_steps - at) // CHUNK) * CHUNK,
+                      checkpoint_path=ck, checkpoint_every=KITTI_EVERY,
+                      snapshot_stats=resume_stats)
+    per_seq = []
+    for key, p, st in zip(BATCH_COURSES, full[0], full[1]):
+        ate, budget = ate_and_budget(p, courses[key][1])
+        per_seq.append(dict(course="_".join(key), steps=st["frames"] - 1,
+                            accept=st["accept_ratio"], ate_m=ate,
+                            ate_budget_m=budget,
+                            fallback_frames=st["fallback_frames"]))
+    report("batch", dict(
+        batch=len(seqs), steps=n_steps, chunk=CHUNK,
+        checkpoint_every=KITTI_EVERY, crash_at=KITTI_CRASH_AT,
+        snapshot_at=at, wall_full_s=full[2],
+        ms_per_step=1e3 * full[2] / n_steps,
+        aggregate_fps=sum(len(s) - 1 for s in seqs) / full[2],
+        wall_resumed_s=resumed[2], crash_launches=crash_launches,
+        snapshots=crash_stats + resume_stats, sequences=per_seq), {
+        "snapshot_at_expected": at == KITTI_CRASH_AT // KITTI_EVERY
+        * KITTI_EVERY,
+        "poses_vs_batch_path": all(np.array_equal(a, b)
+                                   for a, b in zip(full[0], bposes)),
+        "poses_resumed_vs_batch_path": all(
+            np.array_equal(a, b) for a, b in zip(resumed[0], bposes)),
+        "stats_resumed_vs_full": resumed[1] == full[1],
+        "bench_gates": all(r["accept"] >= 0.9
+                           and r["ate_m"] <= r["ate_budget_m"]
+                           for r in per_seq)})
+
+    # (d) the devkit over the four results
+    res_dir = os.path.join(root, "results")
+    os.makedirs(res_dir)
+    for key, p in zip(BATCH_COURSES, full[0]):
+        save_poses_kitti(os.path.join(res_dir, "_".join(key) + ".txt"), p)
+    t = time.perf_counter()
+    scores = eval_all(os.path.join(root, "gt"), res_dir,
+                      os.path.join(root, "devkit"), plots=False)
+    eval_s = time.perf_counter() - t
+    rows, eq = [], {}
+    for key, p in zip(BATCH_COURSES, full[0]):
+        name, gt = "_".join(key), courses[key][1]
+        length = float(np.sum(np.linalg.norm(
+            np.diff(gt[:, :3, 3], axis=0), axis=1)))
+        aligned = ate_rmse(gt, p)
+        row = dict(course=name, length_m=length,
+                   ate_m=scores[name]["ate"], ate_in_memory_m=aligned,
+                   ate_unaligned_m=ate_and_budget(p, gt)[0])
+        if length >= 100.0:
+            row.update(t_err_pct=100 * scores[name]["t_err"],
+                       r_err_deg_per_m=57.2957795 * scores[name]["r_err"])
+        rows.append(row)
+        eq[f"ate_{name}"] = (abs(row["ate_m"] - aligned) <= EVAL_ATE_TOL
+                             and aligned <= row["ate_unaligned_m"] + 1e-9)
+    report("eval", dict(eval_s=eval_s, ate_tol_m=EVAL_ATE_TOL,
+                        sequences=rows, avg=scores.get("avg")), eq)
+    return launches, dirs, scores
+
+
+def write_calibration(path, intr):
+    """``intr`` as an OpenCV-YAML calibration file, each float written with
+    ``repr`` so that ``load_calibration`` reads back the very same
+    floats."""
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\n")
+        for k in ("fx", "fy", "cx", "cy", "bf"):
+            f.write(f"Camera.{k}: {getattr(intr, k)!r}\n")
+        f.write(f"Camera.width: {intr.width}\nCamera.height: {intr.height}\n")
+
+
+def run_cli(argv):
+    """The port's ``cli.main(argv)`` in this process (nothing is rebuilt):
+    (exit code, stdout, stderr, seconds)."""
+    from visual_odom_tpu_torch.runner import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([str(a) for a in argv])
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t
+
+
+def poses_file_bytes(path, poses):
+    from visual_odom_tpu_torch.io.kitti import save_poses_kitti
+
+    save_poses_kitti(path, poses)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def loop_ms_per_frame(stdout):
+    """The ms per frame of the command's own "N frames in S s" line."""
+    m = re.search(r"(\d+) frames in ([0-9.]+)s", stdout)
+    return 1e3 * float(m.group(2)) / int(m.group(1)) if m else None
+
+
+def cli_phase(courses, dirs, scores, ref, tracks, bposes, config, intr, dev,
+              root):
+    """Phase 11, the command line, in this process on phase 10's KITTI
+    directories (nothing is rendered or written as PNG again) and a
+    calibration file of the bench's camera. One ``cli`` line per part:
+    (a) ``run`` on "straight": ``--chunk`` CLI_CHUNK, ``--chunk 0``, the
+    resumable chunked run (stopped at its first snapshot, resumed, run
+    again), and ``--ba-window`` CLI_BA_WINDOW, each pose file byte for byte
+    the poses of phase 4's scan (or of ``smooth_trajectory_ba`` on that
+    scan's track snapshots), with the kernel's launches; (b) ``run-batch``
+    over the four directories (chunk CLI_BATCH_CHUNK, snapshots), each
+    file phase 4's batched poses, under the bench gates, and a
+    ``--data-parallel 2`` mesh refused; (c) ``eval`` and ``eval-all`` on
+    those files against phase 10's ``eval_all``. Returns the launches per
+    kernel ({"quad", "quad_batched"})."""
+    from visual_odom_tpu_torch.ba.window import smooth_trajectory_ba
+    from visual_odom_tpu_torch.config import load_calibration
+    from visual_odom_tpu_torch.eval.kitti_eval import evaluate_sequence
+    from visual_odom_tpu_torch.io.kitti import load_poses
+
+    launches = {"quad": 0, "quad_batched": 0}
+    work = os.path.join(root, "cli")
+    os.makedirs(work)
+    calib = os.path.join(work, "calib.yaml")
+    write_calibration(calib, intr)
+    ref_poses = ref[0]
+    key = ("straight", "value")
+    name = "_".join(key)
+    seq_dir, gt_file = dirs[key], os.path.join(root, "gt", name + ".txt")
+    n_steps = len(ref_poses) - 1
+
+    def report(part, res, eq):
+        res.update(eq)
+        print("cli", json.dumps({"part": part, **res}))
+        if not all(eq.values()):
+            raise AssertionError(f"cli, {part}: {eq}")
+
+    def counted(label, argv, steps, batched=False):
+        """One command, its launches held to ``steps`` steps of the route."""
+        reset_counts()
+        rc, out, err, sec = run_cli(argv)
+        if rc != 0:
+            raise AssertionError(f"cli {label}: exit {rc}: {err[-2000:]}")
+        got = check_counts(f"cli {label}", config, read_counts(), steps,
+                           batched)
+        launches["quad_batched" if batched else "quad"] += got
+        return out, sec, got
+
+    # (a) run, on the straight course
+    gt = load_poses(gt_file)
+    n = min(len(gt), len(ref_poses))
+    want_score = json.dumps(evaluate_sequence(gt[:n], ref_poses[:n]),
+                            indent=2)
+    want = poses_file_bytes(os.path.join(work, "want.txt"), ref_poses)
+    base = ["run", seq_dir, calib]
+    runs, eq = [], {"calibration_round_trip": load_calibration(calib) == intr}
+
+    def run_row(label, out_file, out, sec, got, **kw):
+        runs.append(dict(variant=label, command_s=sec,
+                         command_ms_per_frame=1e3 * sec / n_steps,
+                         loop_ms_per_frame=loop_ms_per_frame(out),
+                         launches=got, **kw))
+
+    o = os.path.join(work, "chunk.txt")
+    # the scan's warm-up steps its first chunk once on a throwaway state
+    out, sec, got = counted("chunk", base + [gt_file, "--chunk", CLI_CHUNK,
+                                             "--output", o],
+                            n_steps + CLI_CHUNK)
+    run_row("chunk", o, out, sec, got)
+    eq["chunk_file_vs_scan"] = read_bytes(o) == want
+    eq["chunk_scorecard"] = out[out.index("{"):].strip() == want_score
+
+    o = os.path.join(work, "run.txt")
+    out, sec, got = counted("run", base + ["--chunk", 0, "--output", o,
+                                           "--quiet"], n_steps)
+    run_row("run", o, out, sec, got)
+    eq["run_file_vs_scan"] = read_bytes(o) == want
+
+    o, ck = os.path.join(work, "resumable.txt"), os.path.join(work, "ck.npz")
+    argv = base + ["--chunk", CLI_CHUNK, "--checkpoint", ck,
+                   "--checkpoint-every", CLI_EVERY, "--output", o]
+    # stopped at its first snapshot (the warm-up steps one frame), resumed
+    # from it, and run again on the finished snapshot
+    out, sec, got = counted("resumable, first part",
+                            argv + ["--max-frames", CLI_EVERY + 1],
+                            CLI_EVERY + 1)
+    run_row("resumable_first_part", o, out, sec, got)
+    eq["first_part_snapshot"] = os.path.exists(ck)
+    out, sec, got = counted("resumable, resumed", argv, n_steps - CLI_EVERY + 1)
+    run_row("resumable_resumed", o, out, sec, got)
+    eq["resumed_says_so"] = f"resumed scan from {ck} at step {CLI_EVERY}" in out
+    eq["resumed_file_vs_scan"] = read_bytes(o) == want
+    out, sec, got = counted("resumable, again", argv, 0)
+    run_row("resumable_again", o, out, sec, got)
+    eq["again_file_unchanged"] = read_bytes(o) == want
+
+    o = os.path.join(work, "ba.txt")
+    out, sec, got = counted("ba", base + ["--chunk", CLI_CHUNK, "--ba-window",
+                                          CLI_BA_WINDOW, "--output", o,
+                                          "--quiet"], n_steps + CLI_CHUNK)
+    run_row("ba_window", o, out, sec, got)
+    t = time.perf_counter()
+    smoothed = smooth_trajectory_ba(tracks, ref_poses[:len(tracks) + 1], intr,
+                                    window=CLI_BA_WINDOW, max_landmarks=256,
+                                    min_track_len=3, huber_delta=1.5,
+                                    device=dev)
+    ba_s = time.perf_counter() - t
+    eq["ba_file_vs_direct"] = read_bytes(o) == poses_file_bytes(
+        os.path.join(work, "want_ba.txt"), smoothed)
+    eq["ba_moved_poses"] = not np.array_equal(smoothed, ref_poses)
+    report("run", dict(course=name, steps=n_steps, chunk=CLI_CHUNK,
+                       checkpoint_every=CLI_EVERY, ba_window=CLI_BA_WINDOW,
+                       direct_ba_s=ba_s, runs=runs), eq)
+
+    # (b) run-batch over the four directories
+    out_dir = os.path.join(work, "batch")
+    seqs = [dirs[k] for k in BATCH_COURSES]
+    b_steps = max(len(courses[k][0]) for k in BATCH_COURSES) - 1
+    argv = ["run-batch", *seqs, "--calibration", calib, "--out-dir", out_dir,
+            "--gt-dir", os.path.join(root, "gt"), "--chunk", CLI_BATCH_CHUNK,
+            "--checkpoint", os.path.join(work, "batch.npz"),
+            "--checkpoint-every", CLI_BATCH_EVERY]
+    out, sec, got = counted("run-batch", argv,
+                            -(-b_steps // CLI_BATCH_CHUNK) * CLI_BATCH_CHUNK,
+                            batched=True)
+    per_seq, eq = [], {}
+    for k, p in zip(BATCH_COURSES, bposes):
+        cname = "_".join(k)
+        f = os.path.join(out_dir, cname + ".txt")
+        got_poses = load_poses(f)
+        ate, budget = ate_and_budget(got_poses, courses[k][1])
+        # a rejected frame leaves the pose where it was
+        moved = np.any(got_poses[1:] != got_poses[:-1], axis=(1, 2))
+        per_seq.append(dict(course=cname, steps=len(got_poses) - 1,
+                            accept=float(moved.mean()), ate_m=ate,
+                            ate_budget_m=budget))
+        eq[f"file_vs_batch_path_{cname}"] = read_bytes(f) == poses_file_bytes(
+            os.path.join(work, "want_" + cname + ".txt"), p)
+    eq["bench_gates"] = all(r["accept"] >= 0.9 and r["ate_m"] <= r["ate_budget_m"]
+                            for r in per_seq)
+    summary = json.loads(out[out.index("{"):])
+    eq["summary_names"] = sorted(summary) == sorted(
+        "_".join(k) for k in BATCH_COURSES)
+    rc, _, err, _ = run_cli(argv[:-4] + ["--data-parallel", 2])
+    eq["data_parallel_2_refused"] = (rc == 2 and "mesh wants 2 devices, "
+                                     "only 1 available" in err)
+    report("run_batch", dict(batch=len(seqs), steps=b_steps,
+                             chunk=CLI_BATCH_CHUNK,
+                             checkpoint_every=CLI_BATCH_EVERY,
+                             command_s=sec, launches=got,
+                             ms_per_step=1e3 * sec / b_steps,
+                             batch_refusal=err.strip(), sequences=per_seq), eq)
+
+    # (c) eval and eval-all on those files
+    rows, eq = [], {}
+    for k in BATCH_COURSES:
+        cname = "_".join(k)
+        rc, out, _, _ = run_cli(["eval", "--gt", os.path.join(
+            root, "gt", cname + ".txt"), "--result", os.path.join(
+                out_dir, cname + ".txt")])
+        ate = json.loads(out)["ate_rmse_m"]
+        rows.append(dict(course=cname, ate_m=ate,
+                         phase10_ate_m=scores[cname]["ate"]))
+        eq[f"eval_{cname}"] = (rc == 0 and abs(ate - scores[cname]["ate"])
+                               <= EVAL_ATE_TOL)
+    rc, _, _, sec = run_cli(["eval-all", "--gt-dir", os.path.join(root, "gt"),
+                             "--result-dir", out_dir, "--out-dir",
+                             os.path.join(work, "devkit"), "--no-plots"])
+    with open(os.path.join(work, "devkit", "summary.json")) as f:
+        summary = json.load(f)
+    eq["eval_all_exit"] = rc == 0
+    for k in BATCH_COURSES:
+        cname = "_".join(k)
+        eq[f"eval_all_{cname}"] = (abs(summary[cname]["ate"]
+                                       - scores[cname]["ate"]) <= EVAL_ATE_TOL)
+    report("eval", dict(ate_tol_m=EVAL_ATE_TOL, eval_all_s=sec,
+                        sequences=rows), eq)
+    return launches
+
+
+def device_rows(prof):
+    """(device µs, op name, calls) of every device-side event (kernels,
+    copies), largest first: the CPU-side aten ops carry the same device
+    time again."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+
+
+def pipe_phase(frames, ref, xref, config, xconfig, intr, dev):
+    """Phase 11 ``pipe``: ``run_sequence_pipelined`` on "straight" with both
+    stages on this card (two streams), on both LK routes: every output
+    equal to phase 4's scan of the route bit for bit (``num_bucketed``
+    against ``num_matched``, the JAX package's pipe's count), the route's
+    launches per frame, the loop under sync-debug "error" (no host sync);
+    then ms per frame in two turns with the in-memory scan, and device ms
+    per frame and busy share over PIPE_PROFILE_STEPS frames under
+    torch.profiler. Returns the launches per kernel ({"quad", "level"})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from visual_odom_tpu_torch.parallel import pipe
+    from visual_odom_tpu_torch.runner import pipeline
+
+    launches = {"quad": 0, "level": 0}
+    devices = [dev, dev]
+    n = len(frames) - 1
+    real_loop = pipe._pipeline_loop
+    strict = []
+
+    def strict_loop(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            strict.append(True)
+
+    for cfg, (ref_poses, ref_out) in ((config, ref), (xconfig, xref)):
+        route = cfg.resolved_lk_backend()
+        reset_counts()
+        pipe._pipeline_loop = strict_loop
+        try:
+            poses, out, wall = pipe.run_sequence_pipelined(
+                frames, cfg, intr, devices=devices)
+        finally:
+            pipe._pipeline_loop = real_loop
+        counts = read_counts()
+        got = check_counts(f"pipe {route}", cfg, counts, n, False)
+        launches["quad" if route == "pallas" else "level"] += got
+        eq = {"poses_vs_scan": bool(np.array_equal(poses, ref_poses)),
+              "loop_without_host_sync": strict.pop() is True}
+        for field in ref_out._fields:
+            want = getattr(ref_out, "num_matched" if field == "num_bucketed"
+                           else field)
+            eq[f"{field}_vs_scan"] = bool(np.array_equal(getattr(out, field),
+                                                         want))
+        res = dict(part="bit_exact", route=route, steps=n, wall_s=wall,
+                   ms_per_frame=1e3 * wall / n, launch_counts=counts, **eq)
+        print("pipe", json.dumps(res))
+        if not all(eq.values()):
+            raise AssertionError(f"pipe, {route}: {eq}")
+
+    # ms per frame in two turns with the in-memory scan, the quad route
+    turns = []
+    for door in ("scan", "pipe", "pipe", "scan"):
+        if door == "scan":
+            p, _, wall, m = pipeline.run_sequence_scan(
+                frames, config, intr, chunk=CHUNK, warmup=False, device=dev)
+        else:
+            p, _, wall = pipe.run_sequence_pipelined(frames, config, intr,
+                                                     devices=devices)
+            m = n
+        turns.append(dict(door=door, ms_per_frame=1e3 * wall / m,
+                          poses_vs_scan=bool(np.array_equal(p, ref[0]))))
+    steady = {d: float(np.median([r["ms_per_frame"] for r in turns
+                                  if r["door"] == d])) for d in ("scan", "pipe")}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe.run_sequence_pipelined(frames[:PIPE_PROFILE_STEPS + 1], config,
+                                    intr, devices=devices)
+    rows = device_rows(prof)
+    if not rows:
+        raise AssertionError("pipe profile: the profiler saw no device time")
+    device_ms = sum(r[0] for r in rows) / 1e3 / PIPE_PROFILE_STEPS
+    res = dict(part="turns", route="pallas", turns=turns,
+               median_ms_per_frame_scan=steady["scan"],
+               median_ms_per_frame_pipe=steady["pipe"],
+               pipe_over_scan=steady["pipe"] / steady["scan"],
+               profiled_steps=PIPE_PROFILE_STEPS,
+               device_ms_per_frame=device_ms,
+               device_ops_per_frame=sum(r[2] for r in rows)
+               / PIPE_PROFILE_STEPS,
+               device_busy_share=device_ms / steady["pipe"],
+               top_device_ops=[{"name": k[:90],
+                                "ms_per_frame": us / 1e3 / PIPE_PROFILE_STEPS}
+                               for us, k, _ in rows[:5]],
+               every_turn_bit_for_bit=all(r["poses_vs_scan"] for r in turns))
+    print("pipe", json.dumps(res))
+    if not res["every_turn_bit_for_bit"]:
+        raise AssertionError(f"pipe turns: {res}")
     return launches
 
 
@@ -2101,14 +2458,16 @@ def main() -> int:
     t = time.perf_counter()
     xconfig = VOConfig.for_image(H, W, lk_backend="xla")
     cframes, cgt = courses[("straight", "checker")]
-    runs, xruns, refs = [], [], []
+    runs, xruns, refs, xrefs = [], [], [], []
     for name, fr, g in (("straight", frames, gt),
                         ("straight_checker", cframes, cgt)):
         res, poses, fetched = run_main_path(name, fr, g, config, intr, dev)
         runs.append(res)
         refs.append((poses, fetched))
-        xruns.append(run_main_path(name, fr, g, xconfig, intr, dev,
-                                   ref_poses=poses)[0])
+        xres, xposes, xfetched = run_main_path(name, fr, g, xconfig, intr,
+                                               dev, ref_poses=poses)
+        xruns.append(xres)
+        xrefs.append((xposes, xfetched))
     batched_run, bposes = run_batched_path(courses, config, intr, dev)
     xbatched_run = run_batched_path(courses, xconfig, intr, dev,
                                     ref_poses=bposes)[0]
@@ -2141,7 +2500,8 @@ def main() -> int:
 
     # ---- phase 8: resume, mono rotation, Shi-Tomasi, on "straight" -----
     t = time.perf_counter()
-    resume_launches = resume_check(frames, config, intr, dev)
+    resume_launches, straight_tracks = resume_check(frames, config, intr,
+                                                    dev)
     variants = {name: variant_check(name, opts, frames, gt, intr, dev,
                                     default_prof, JAX_VARIANTS[name])
                 for name, opts in (("mono", dict(mono_rotation=True)),
@@ -2154,10 +2514,19 @@ def main() -> int:
                                 xconfig, intr, dev)
     print(f"phase 9: {time.perf_counter() - t:.1f} s")
 
-    # ---- phase 10: KITTI PNG input, restartable batch, devkit -------------
-    t = time.perf_counter()
-    kitti_launches = kitti_phase(courses, refs[0], bposes, config, intr, dev)
-    print(f"phase 10: {time.perf_counter() - t:.1f} s")
+    # ---- phases 10-11: KITTI PNG input, the command line, the pipe --------
+    with tempfile.TemporaryDirectory() as root, image_packages_hidden():
+        t = time.perf_counter()
+        kitti_launches, dirs, scores = kitti_phase(courses, refs[0], bposes,
+                                                   config, intr, dev, root)
+        print(f"phase 10: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        cli_launches = cli_phase(courses, dirs, scores, refs[0],
+                                 straight_tracks, bposes, config, intr, dev,
+                                 root)
+        pipe_launches = pipe_phase(frames, refs[0], xrefs[0], config, xconfig,
+                                   intr, dev)
+        print(f"phase 11: {time.perf_counter() - t:.1f} s")
 
     default = lk_cuda.variant()
 
@@ -2215,18 +2584,22 @@ def main() -> int:
              "mono": variants["mono"][0],
              "shi_tomasi": variants["shi_tomasi"][0],
              "front_doors": door_launches["quad"],
-             "kitti_stream": kitti_launches["quad"]},
+             "kitti_stream": kitti_launches["quad"],
+             "cli": cli_launches["quad"],
+             "pipe": pipe_launches["quad"]},
             quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
             {"batched_path": batched_run["kernel_launches"],
-             "kitti_batched": kitti_launches["quad_batched"]}, bquads,
+             "kitti_batched": kitti_launches["quad_batched"],
+             "cli_batch": cli_launches["quad_batched"]}, bquads,
             bquads[0], False, wquad),
         row("lk_level_kernel", REPLACES_LEVEL,
             {"main_path": sum(r["kernel_launches"] for r in xruns),
              "loop_edges": xloops["launch_counts"]["level"],
              "mono": variants["mono"][1],
              "shi_tomasi": variants["shi_tomasi"][1],
-             "front_doors": door_launches["level"]},
+             "front_doors": door_launches["level"],
+             "pipe": pipe_launches["level"]},
             levels, finest(levels), True),
         row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
             {"batched_path": xbatched_run["kernel_launches"]}, blevels,

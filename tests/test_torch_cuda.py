@@ -12,7 +12,9 @@ card, bit for bit the uninterrupted run; the same for the restartable
 batched runner, whose chunks between snapshots never wait for the card and
 whose card snapshot a CPU run refuses; and a KITTI directory of PNGs
 streamed through the native prefetcher and two upload threads, bit for bit
-the in-memory scan.
+the in-memory scan. The pipelined runner on two streams of one card, bit
+for bit the scan and never waiting for the card in its loop, and the
+command line's chunked run on the card.
 
 Every test here needs an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip where there is no card. This file imports neither JAX nor the
@@ -840,3 +842,96 @@ def test_kitti_stream_on_card_equals_scan(cuda_device, tmp_path):
     np.testing.assert_array_equal(got[0], ref[0])
     for a, b in zip(got[1], ref[1]):
         np.testing.assert_array_equal(a, b)
+
+
+# --- the pipelined runner and the command line on the card ----------------
+
+
+@pytest.mark.parametrize("route", ["pallas", "xla"])
+@pytest.mark.parametrize("mode", ["default", "mono"])
+def test_pipe_on_one_card_equals_scan(cuda_device, monkeypatch, route, mode):
+    """The two stages on two streams of one card: every output equals the
+    scan's bit for bit (``num_bucketed`` is ``num_matched``, as in the JAX
+    package's pipe), and the whole loop runs under sync-debug "error": no
+    host sync between its first upload and its last backend stage."""
+    from visual_odom_tpu_torch.parallel import pipe
+
+    intr, _, frames = _small("mono", frames=9)
+    cfg = VOConfig.for_image(120, 160, ransac_iterations=200,
+                             mono_rotation=mode == "mono", lk_backend=route)
+    ref = pipeline.run_sequence_scan(frames, cfg, intr, chunk=4,
+                                     device=cuda_device)
+    real = pipe._pipeline_loop
+    strict = []
+
+    def strict_loop(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            strict.append(True)
+
+    monkeypatch.setattr(pipe, "_pipeline_loop", strict_loop)
+    poses, out, wall = pipe.run_sequence_pipelined(
+        frames, cfg, intr, devices=[cuda_device, cuda_device])
+    assert strict == [True] and wall > 0
+    np.testing.assert_array_equal(poses, ref[0])
+    for field in out._fields:
+        want = getattr(ref[1], "num_matched" if field == "num_bucketed"
+                       else field)
+        np.testing.assert_array_equal(getattr(out, field), want,
+                                      err_msg=field)
+
+
+def test_pipe_across_two_cards_equals_scan(cuda_device):
+    """Frontend on card 0, backend on card 1 (the packet copied between
+    them, ordered by both stages' streams): the outputs equal the scan's on
+    card 0 bit for bit, but ``num_bucketed``; skips with fewer than two
+    cards."""
+    from visual_odom_tpu_torch.parallel import pipe
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    intr, _, frames = _small("mono", frames=9)
+    cfg = VOConfig.for_image(120, 160, ransac_iterations=200)
+    ref = pipeline.run_sequence_scan(frames, cfg, intr, chunk=4,
+                                     device="cuda:0")
+    poses, out, _ = pipe.run_sequence_pipelined(frames, cfg, intr)
+    np.testing.assert_array_equal(poses, ref[0])
+    for field in out._fields:
+        want = getattr(ref[1], "num_matched" if field == "num_bucketed"
+                       else field)
+        np.testing.assert_array_equal(getattr(out, field), want,
+                                      err_msg=field)
+
+
+def test_pipe_with_one_visible_card_raises(cuda_device, monkeypatch):
+    from visual_odom_tpu_torch.parallel import pipe
+
+    intr, cfg, frames = _small("mono")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs two devices"):
+        pipe.run_sequence_pipelined(frames, cfg, intr)
+
+
+def test_cli_chunked_run_on_card_equals_scan(cuda_device, tmp_path):
+    """``run synthetic --chunk 8`` on the card (the default ``--device``)
+    writes ``run_sequence_scan``'s poses."""
+    from visual_odom_tpu_torch.io.kitti import load_poses, save_poses_kitti
+    from visual_odom_tpu_torch.runner import cli
+
+    calib = tmp_path / "calib.yaml"
+    calib.write_text("%YAML:1.0\n" + "".join(
+        f"Camera.{k}: {v!r}\n" for k, v in SMALL.items()))
+    out = tmp_path / "poses.txt"
+    assert cli.main(["run", "synthetic", str(calib), "--max-frames", "17",
+                     "--chunk", "8", "--quiet", "--output", str(out)]) == 0
+    intr = CameraIntrinsics(**SMALL)
+    seq = SyntheticStereoSequence(intr, num_frames=17)
+    ref = pipeline.run_sequence_scan(iter(seq), VOConfig.for_image(120, 160),
+                                     intr, chunk=8, device=cuda_device)
+    ref_file = tmp_path / "ref.txt"
+    save_poses_kitti(str(ref_file), ref[0])
+    assert out.read_bytes() == ref_file.read_bytes()
+    assert load_poses(str(out)).shape == (17, 4, 4)

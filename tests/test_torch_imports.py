@@ -18,16 +18,18 @@ FORBIDDEN = ("jax", "jaxlib", "visual_odom_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "backend_courses.py",
                                         ROOT / "scripts" / "door_turns.py",
-                                        ROOT / "scripts" / "kitti_turns.py"]
+                                        ROOT / "scripts" / "kitti_turns.py",
+                                        ROOT / "scripts" / "pipe_turns.py"]
 #: modules the back end, the checkpoints, mono rotation, the front doors'
-#: host I/O, the KITTI input, evaluation and utilities added; the import
-#: check must reach them
+#: host I/O, the KITTI input, evaluation, utilities, the command line and
+#: the multi-device helpers added; the import check must reach them
 BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
            "runner.loopclosure", "utils.checkpoint", "backend.essential",
            "backend.five_point", "utils.metrics", "io.kitti", "eval.plot",
            "io.native", "io.camera", "io.gyro", "core.frame",
            "eval.kitti_eval", "eval.devkit", "utils.notify",
-           "utils.profiling", "parallel.batch_eval")
+           "utils.profiling", "parallel.batch_eval", "runner.cli",
+           "parallel.mesh", "parallel.pipe")
 
 
 def _imported_modules(path: pathlib.Path):

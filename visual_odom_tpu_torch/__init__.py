@@ -16,8 +16,11 @@ the front doors ``run_sequence_scan`` (with ``preupload``,
 ``upload_threads`` and ``stats_out``), ``run_sequence_scan_resumable``,
 ``VisualOdometry``, ``run_sequence``, ``run_sequence_resumable`` and
 ``run_sequence_buffered``; ``parallel.batch_eval.run_sequences_batched``
-for B sequences in lockstep. They run on CUDA unless the caller passes
-``device="cpu"``; without a card and without that request they raise.
+for B sequences in lockstep; ``parallel.pipe.run_sequence_pipelined``, the
+step in two stages on two devices or two streams of one card; and the
+command line, ``python -m visual_odom_tpu_torch.runner.cli``. They run on
+CUDA unless the caller passes ``device="cpu"`` (``--device cpu``); without
+a card and without that request they raise.
 """
 
 from __future__ import annotations

@@ -147,6 +147,86 @@ def init_vo_state(config: VOConfig, intrinsics: CameraIntrinsics, left0,
         generator=seeded_generator(seed, dev))
 
 
+def make_frontend_fn(config: VOConfig, device=None):
+    """The step's first half, ``frontend(features, lk_l0, lk_r0, left_t1,
+    right_t1) -> (lk_l1, lk_r1, bucketed, match, fallback)``: the new
+    pair's pyramids, FAST (or Shi-Tomasi) and bucketing on L(t0), and the
+    circular match under the skip policy, on the LK route
+    ``config.lk_backend`` picks. ``make_step_fn`` and the pipelined runner's
+    frontend stage (``parallel.pipe``) both run it."""
+    dev = resolve_device(device)
+    params = _lk_params(config)
+
+    def frontend(features: FeatureState, lk_l0: LKImage, lk_r0: LKImage,
+                 left_t1, right_t1):
+        lk_l1 = prep_image(left_t1, config, dev)
+        lk_r1 = prep_image(right_t1, config, dev)
+
+        pad = lk_l0.pad
+        h, w = lk_l0.shapes[0]
+        raw_l0 = lk_l0.pyramid[0][..., pad:pad + h, pad:pad + w]
+        bucketed = detect_and_bucket(raw_l0, features, config)
+
+        match, fallback = skip_mode_match(lk_l0, lk_r0, lk_l1, lk_r1,
+                                          bucketed, params, config)
+        return lk_l1, lk_r1, bucketed, match, fallback
+
+    return frontend
+
+
+def make_backend_fn(config: VOConfig, intrinsics: CameraIntrinsics,
+                    device=None):
+    """The step's second half, ``backend(points_l0, points_r0, points_l1,
+    valid, tvec, generator, uniforms=None, ess_uniforms=None) -> (pnp,
+    rvec, gate, accept, keep)``: triangulation (``safe3d`` where a point is
+    not valid), PnP-RANSAC warm-started at ``tvec``, the optional mono
+    rotation, and the rotation / scale / inlier-floor gates; ``keep`` says
+    whether the solution may seed the next solve. PnP's uniforms and then
+    the essential RANSAC's are drawn from ``generator``, in that order.
+    ``make_step_fn`` and the pipelined runner's backend stage both run
+    it."""
+    dev = resolve_device(device)
+    P_l = torch.as_tensor(intrinsics.proj_left(), device=dev)
+    P_r = torch.as_tensor(intrinsics.proj_right(), device=dev)
+    K = torch.as_tensor(intrinsics.intrinsic_matrix(), device=dev)
+    floor = config.resolved_min_accept_inliers()
+    zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
+    safe3d = torch.tensor([0.0, 0.0, 10.0], dtype=torch.float32, device=dev)
+
+    def backend(points_l0, points_r0, points_l1, valid, tvec, generator,
+                uniforms=None, ess_uniforms=None):
+        pts3d = triangulate_points(P_l, P_r, points_l0, points_r0)
+        pts3d = torch.where(valid[..., None], pts3d, safe3d)
+
+        pnp = pnp_ransac(pts3d, points_l1, valid, K, zero3, tvec,
+                         generator=generator,
+                         iterations=config.ransac_iterations,
+                         reproj_threshold=config.ransac_reproj_threshold,
+                         sample_size=config.ransac_sample_size,
+                         refine_iters=config.pnp_refine_iters,
+                         uniforms=uniforms)
+
+        rvec_out = pnp.rvec
+        if config.mono_rotation:
+            ess = find_essential_ransac(
+                points_l0, points_l1, valid,
+                float(intrinsics.fx), (float(intrinsics.cx),
+                                       float(intrinsics.cy)),
+                generator=generator, uniforms=ess_uniforms)
+            rvec_out = rodrigues_inverse(ess.R)
+
+        gate = gate_and_integrate(rvec_out, pnp.tvec)
+        accept = gate.accept
+        if floor > 0:
+            # Beyond-reference scene-cut / tracking-loss floor.
+            accept = accept & (pnp.num_inliers >= floor)
+        # Only an accepted solution may seed the next solve.
+        keep = accept & config.use_extrinsic_guess
+        return pnp, rvec_out, gate, accept, keep
+
+    return backend
+
+
 def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
                  with_tracks: bool = False, device=None):
     """Build the per-frame step ``step(state, left_t1, right_t1,
@@ -158,63 +238,27 @@ def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     batched state, (B, H, W) frames and uniforms with a leading B, it is
     the batched step.
 
+    The step is ``make_frontend_fn``'s half and then ``make_backend_fn``'s.
     ``config.mono_rotation`` takes the rotation from the essential matrix
     of L(t0) -> L(t1) (``find_essential_ransac``, the reference's optional
     branch, src/visualOdometry.cpp:152-157) and the translation from PnP.
     Each frame draws PnP's uniforms and then the essential RANSAC's from
     the sequence's generator, in that order."""
     dev = resolve_device(device)
-    P_l = torch.as_tensor(intrinsics.proj_left(), device=dev)
-    P_r = torch.as_tensor(intrinsics.proj_right(), device=dev)
-    K = torch.as_tensor(intrinsics.intrinsic_matrix(), device=dev)
-    params = _lk_params(config)
-    floor = config.resolved_min_accept_inliers()
+    frontend = make_frontend_fn(config, dev)
+    backend = make_backend_fn(config, intrinsics, dev)
     zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
-    safe3d = torch.tensor([0.0, 0.0, 10.0], dtype=torch.float32, device=dev)
 
     def step(state: VOState, left_t1, right_t1, uniforms=None,
              ess_uniforms=None):
-        lk_l1 = prep_image(left_t1, config, dev)
-        lk_r1 = prep_image(right_t1, config, dev)
-
-        pad = state.lk_l0.pad
-        h, w = state.lk_l0.shapes[0]
-        raw_l0 = state.lk_l0.pyramid[0][..., pad:pad + h, pad:pad + w]
-        bucketed = detect_and_bucket(raw_l0, state.features, config)
-
-        match, fallback = skip_mode_match(state.lk_l0, state.lk_r0, lk_l1,
-                                          lk_r1, bucketed, params, config)
-
-        pts3d = triangulate_points(P_l, P_r, match.points_l0, match.points_r0)
-        pts3d = torch.where(match.valid[..., None], pts3d, safe3d)
-
-        pnp = pnp_ransac(pts3d, match.points_l1, match.valid, K, zero3,
-                         state.tvec, generator=state.generator,
-                         iterations=config.ransac_iterations,
-                         reproj_threshold=config.ransac_reproj_threshold,
-                         sample_size=config.ransac_sample_size,
-                         refine_iters=config.pnp_refine_iters,
-                         uniforms=uniforms)
-
-        rvec_out = pnp.rvec
-        if config.mono_rotation:
-            ess = find_essential_ransac(
-                match.points_l0, match.points_l1, match.valid,
-                float(intrinsics.fx), (float(intrinsics.cx),
-                                       float(intrinsics.cy)),
-                generator=state.generator, uniforms=ess_uniforms)
-            rvec_out = rodrigues_inverse(ess.R)
-
-        gate = gate_and_integrate(rvec_out, pnp.tvec)
-        accept = gate.accept
-        if floor > 0:
-            # Beyond-reference scene-cut / tracking-loss floor.
-            accept = accept & (pnp.num_inliers >= floor)
-        # Only an accepted solution may seed the next solve.
-        keep = accept & config.use_extrinsic_guess
+        lk_l1, lk_r1, bucketed, match, fallback = frontend(
+            state.features, state.lk_l0, state.lk_r0, left_t1, right_t1)
+        pnp, rvec_out, gate, accept, keep = backend(
+            match.points_l0, match.points_r0, match.points_l1, match.valid,
+            state.tvec, state.generator, uniforms, ess_uniforms)
         new_state = VOState(features=commit_tracked_state(match), lk_l0=lk_l1,
                             lk_r0=lk_r1,
-                           tvec=torch.where(keep[..., None], pnp.tvec, zero3),
+                            tvec=torch.where(keep[..., None], pnp.tvec, zero3),
                             generator=state.generator)
         out = StepOutput(
             T_inv=gate.T_inv, accept=accept, scale=gate.scale,
