@@ -168,6 +168,33 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    scan, and device ms per frame and busy share over PIPE_PROFILE_STEPS
    frames under torch.profiler.
 
+12. The multi-device paths, on meshes built from this card named once per
+   position (nothing more is rendered). ``sharded_ba``:
+   ``sharded_ba_solve`` over MODEL_SHARDS landmark shards against
+   ``ba_solve`` on the card at SHARDED_BA_PROBLEMS' sizes, ms per GN
+   iteration of both. ``ring_ba``: ``ring_ba_solve`` over RING_WINDOWS
+   windows of a RING_POSES-pose, RING_LANDMARKS-landmark trajectory against
+   ``ba_solve`` (halo 2; auto halo with Huber 1.5), ms per GN round beside
+   ``ba_solve``'s ms per iteration; the same problem through
+   ``make_ring_window_solver``; ``smooth_trajectory_ba`` with that solver on
+   phase 8's track snapshots against the default solver; the branch each
+   problem took, at least one on the ring. ``posegraph_sharded``:
+   ``close_loops(mesh=)`` on phase 7's loop course against phase 7's run,
+   the closure before and after. ``batch_mesh``: phase 4's batched courses,
+   MESH_STEPS steps, on each of MESH_SHAPES and both LK routes, each against
+   the one-device run at its rows' batch (phase 4's for one data row; a
+   run per row of its own sequences for two: cuBLAS's kernels depend on
+   the batch) bit for bit, or SAME_TOL with the largest difference, and
+   against phase 4's run (printed), under the bench gates (the checker
+   course's ATE gated at full length only, as phase 4 explains), every chunk
+   under sync debug mode "error", the quad's launches split into
+   ``model`` slices. ``cli``:
+   ``run --ba-window CLI_BA_WINDOW --ba-ring RING_WINDOWS`` (one visible
+   card: the one-device branch) byte for byte phase 11's ``--ba-window``
+   file; ``run-batch --data-parallel 2`` refused on one card and, through
+   a device list of this card named twice, stepped on a (2, 1) mesh to the
+   poses of its rows' one-device runs.
+
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
 the port is not beside this script.
@@ -308,6 +335,39 @@ LOOP_ATE_FACTOR = 1.05
 #: (tests/test_posegraph.py:106)
 BA_CARD_CPU_TOL = 5e-4
 NODE_CARD_CPU_TOL = 2e-4
+#: phase 12: meshes over this card named several times. Landmark-sharded
+#: BA over MODEL_SHARDS shards on (poses, landmarks) problems of the short
+#: and the km-scale BA config, held as tests/test_parallel.py:32-37 holds
+#: the JAX package's
+MODEL_SHARDS = 4
+SHARDED_BA_PROBLEMS = ((8, 256), (16, 384))
+SHARDED_BA_ITERS = 8
+SHARDED_POSE_TOL = 1e-4
+SHARDED_LM_TOL = 1e-3
+#: the ring over RING_WINDOWS windows on a long synthetic trajectory, held
+#: as tests/test_ring_ba.py:71 and :128 hold the JAX package's (the exact
+#: halo; auto halo with Huber) and tests/test_ba_window.py:122 its
+#: smoothing. Tracks span up to 5 keyframes (obs_window 2, halo 4): with
+#: 3-keyframe tracks a 64-pose chain is too weakly coupled for the CG in
+#: float32 (Huber: 1.6e-3 from ba_solve on this card at 256 iterations,
+#: the JAX package's ring 2.5e-3 on the CPU). 32 CG iterations (the
+#: default) leave ~0.2 in both packages; 256 reach ~1e-5
+RING_WINDOWS = 4
+RING_POSES, RING_LANDMARKS = 64, 1024
+RING_OBS_WINDOW = 2
+RING_HALO = 4
+RING_CG_ITERS = 256
+RING_ROUNDS = 10
+RING_TOL = 1e-4
+RING_HUBER_TOL = 5e-4
+RING_SMOOTH_TOL = 5e-4
+#: phase 4's batched courses on (data, model) meshes, each against the
+#: one-device run at its rows' batch (tests/test_torch_batch.py:59's bound
+#: where a pose is not bit for bit); 32 steps, one chunk, keep phase 12
+#: near its 90 s (each mesh run issues every row's ops from one thread)
+MESH_STEPS = 32
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+SAME_TOL = 1e-5
 
 
 def kitti_intrinsics(height: int, width: int):
@@ -1414,7 +1474,7 @@ def backend_loops(frames, poses, gt, config, xconfig, intr, dev):
     if not diff < NODE_CARD_CPU_TOL:
         raise AssertionError(f"pose graph on the card differs from the CPU: "
                              f"{pg}")
-    return res, xres, pg
+    return res, xres, pg, new_poses
 
 
 class RandomAccess:
@@ -2315,6 +2375,359 @@ def pipe_phase(frames, ref, xref, config, xconfig, intr, dev):
     return launches
 
 
+def card_mesh(axes, dev):
+    """A mesh of the given axes over ``dev`` named once per position."""
+    from visual_odom_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(axes, devices=[dev] * int(np.prod(list(axes.values()))))
+
+
+def sharded_ba_phase(dev):
+    """Phase 12 ``sharded_ba``: ``sharded_ba_solve`` over MODEL_SHARDS
+    landmark shards against ``ba_solve`` on the card, on a problem of each
+    of SHARDED_BA_PROBLEMS' sizes; ms per GN iteration of both."""
+    from visual_odom_tpu_torch.ba import problem, schur
+    from visual_odom_tpu_torch.parallel.sharded_ba import sharded_ba_solve
+
+    mesh = card_mesh({"data": 1, "model": MODEL_SHARDS}, dev)
+    for n_poses, n_landmarks in SHARDED_BA_PROBLEMS:
+        p, _, _ = problem.synthetic_ba_problem(
+            num_poses=n_poses, num_landmarks=n_landmarks, seed=7,
+            obs_window=None if n_poses <= 8 else 2, device=dev)
+        ref = schur.ba_solve(p, iterations=SHARDED_BA_ITERS)
+        got = sharded_ba_solve(p, mesh, iterations=SHARDED_BA_ITERS)
+        res = dict(poses=n_poses, landmarks=n_landmarks, shards=MODEL_SHARDS,
+                   iterations=SHARDED_BA_ITERS,
+                   max_abs_dpose=float((got.poses - ref.poses).abs().max()),
+                   max_abs_dlandmark=float(
+                       (got.landmarks - ref.landmarks).abs().max()),
+                   pose_tol=SHARDED_POSE_TOL, landmark_tol=SHARDED_LM_TOL,
+                   ms_per_iteration=time_ms(lambda: sharded_ba_solve(
+                       p, mesh, iterations=1), reps=5, warm=1),
+                   ba_solve_ms_per_iteration=time_ms(lambda: schur.ba_solve(
+                       p, iterations=1), reps=5, warm=1))
+        print("sharded_ba", json.dumps(res))
+        if not (res["max_abs_dpose"] < SHARDED_POSE_TOL
+                and res["max_abs_dlandmark"] < SHARDED_LM_TOL):
+            raise AssertionError(f"sharded BA differs from ba_solve: {res}")
+
+
+def ring_phase(tracks, poses, intr, dev):
+    """Phase 12 ``ring_ba``: ``ring_ba_solve`` over RING_WINDOWS windows of
+    a RING_POSES x RING_LANDMARKS synthetic trajectory against
+    ``ba_solve`` (halo RING_HALO; auto halo with Huber 1.5 and one gross
+    outlier),
+    the same problem through ``make_ring_window_solver``, and
+    ``smooth_trajectory_ba`` with that solver on phase 8's track snapshots
+    against the default solver; which branch each problem took, and ms
+    per GN round beside ``ba_solve``'s ms per iteration."""
+    import torch
+
+    from visual_odom_tpu_torch.ba import problem, schur, window
+    from visual_odom_tpu_torch.parallel import ring_ba
+
+    mesh = card_mesh({"seq": RING_WINDOWS}, dev)
+    p, _, _ = problem.synthetic_ba_problem(
+        num_poses=RING_POSES, num_landmarks=RING_LANDMARKS, pixel_noise=0.2,
+        pose_perturb=0.015, landmark_perturb=0.08, seed=3,
+        obs_window=RING_OBS_WINDOW, device=dev)
+    obs = p.observations.clone()
+    w, l = np.argwhere(p.mask.cpu().numpy())[0]
+    obs[w, l, :2] += 25.0
+    ring_problems = 0
+    for label, prob, kw, tol in (
+            (f"halo{RING_HALO}", p, dict(halo=RING_HALO, rounds=RING_ROUNDS),
+             RING_TOL),
+            ("auto_halo_huber", p._replace(observations=obs),
+             dict(halo=None, rounds=8, huber_delta=1.5), RING_HUBER_TOL)):
+        huber = kw.get("huber_delta", 0.0)
+        ref = schur.ba_solve(prob, iterations=kw["rounds"], huber_delta=huber)
+        got = ring_ba.ring_ba_solve(prob, mesh, cg_iters=RING_CG_ITERS, **kw)
+        res = dict(part=label, poses=RING_POSES, landmarks=RING_LANDMARKS,
+                   obs_window=RING_OBS_WINDOW, windows=RING_WINDOWS,
+                   cg_iters=RING_CG_ITERS,
+                   halo=ring_ba.required_ring_halo(prob) if kw["halo"] is None
+                   else kw["halo"], rounds=kw["rounds"], huber_delta=huber,
+                   max_abs_dpose=float((got.poses - ref.poses).abs().max()),
+                   tol=tol, gauge_fixed=bool(torch.equal(got.poses[0],
+                                                         prob.poses[0])),
+                   ms_per_round=time_ms(lambda: ring_ba.ring_ba_solve(
+                       prob, mesh, cg_iters=RING_CG_ITERS,
+                       **dict(kw, rounds=1)), reps=3, warm=1),
+                   ba_solve_ms_per_iteration=time_ms(lambda: schur.ba_solve(
+                       prob, iterations=1, huber_delta=huber), reps=5,
+                       warm=1))
+        print("ring_ba", json.dumps(res))
+        if not (res["max_abs_dpose"] < tol and res["gauge_fixed"]):
+            raise AssertionError(f"ring BA differs from ba_solve: {res}")
+
+    solver = ring_ba.make_ring_window_solver(mesh, cg_iters=RING_CG_ITERS)
+    got = solver(p)
+    ref = schur.ba_solve(p, iterations=8, huber_delta=1.5)
+    res = dict(part="window_solver", branches=dict(solver.branches),
+               max_abs_dpose=float((got.poses - ref.poses).abs().max()),
+               tol=RING_SMOOTH_TOL)
+    print("ring_ba", json.dumps(res))
+    ring_problems += solver.branches["ring"]
+    if not res["max_abs_dpose"] < RING_SMOOTH_TOL:
+        raise AssertionError(f"ring window solver: {res}")
+
+    kw = BA_SHORT
+    solver = ring_ba.make_ring_window_solver(mesh)
+    start = poses[:len(tracks) + 1]
+    t = time.perf_counter()
+    ring = window.smooth_trajectory_ba(
+        tracks, start, intr, window=kw["window"], solver=solver,
+        max_landmarks=kw["max_landmarks"], min_track_len=kw["min_track_len"],
+        device=dev)
+    ring_s = time.perf_counter() - t
+    ref = window.smooth_trajectory_ba(
+        tracks, start, intr, window=kw["window"], iterations=kw["iterations"],
+        max_landmarks=kw["max_landmarks"], min_track_len=kw["min_track_len"],
+        huber_delta=kw["huber_delta"], device=dev)
+    ring_problems += solver.branches["ring"]
+    res = dict(part="smoothing", course="straight_value",
+               window=kw["window"], windows=len(start) // kw["window"],
+               branches=dict(solver.branches), wall_s=ring_s,
+               max_abs_dpose=float(np.abs(ring - ref).max()),
+               tol=RING_SMOOTH_TOL, ring_problems_in_phase=ring_problems)
+    print("ring_ba", json.dumps(res))
+    if not (res["max_abs_dpose"] < RING_SMOOTH_TOL and ring_problems >= 1):
+        raise AssertionError(f"ring smoothing: {res}")
+
+
+def posegraph_sharded_phase(frames, poses, gt, ref_poses, config, intr, dev):
+    """Phase 12 ``posegraph_sharded``: ``close_loops`` on phase 7's loop
+    course with the graph solved edge-sharded over MODEL_SHARDS shards,
+    against phase 7's ``close_loops`` (``mesh=None``); the closure before
+    and after; ms per sharded and single solve. Returns its quad
+    launches (one loop-edge measurement: 2)."""
+    from visual_odom_tpu_torch.ba import posegraph
+    from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
+    from visual_odom_tpu_torch.runner import loopclosure
+
+    mesh = card_mesh({"data": 1, "model": MODEL_SHARDS}, dev)
+    lf = SyntheticStereoSequence._loop_schedule(len(frames))[2]
+    reset_counts()
+    new_poses, info = loopclosure.close_loops(
+        poses, lambda i: frames[i], config, intr, gt_loop_pair=(0, lf),
+        mesh=mesh, device=dev)
+    counts = read_counts()
+    graph = info.graph
+    res = dict(shards=MODEL_SHARDS, edges=info.edges,
+               nodes=int(graph.nodes.shape[0]),
+               graph_edges=int(graph.edges.shape[0]),
+               closure_before_m=info.closure_before_m,
+               closure_after_m=info.closure_after_m,
+               ate_after_m=ate_and_budget(new_poses, gt)[0],
+               max_abs_dpose_vs_single=float(np.abs(new_poses
+                                                    - ref_poses).max()),
+               tol=NODE_CARD_CPU_TOL, launch_counts=counts,
+               sharded_solve_ms=time_ms(
+                   lambda: posegraph.sharded_posegraph_solve(graph, mesh),
+                   reps=3, warm=1),
+               solve_ms=time_ms(lambda: posegraph.posegraph_solve(graph),
+                                reps=3, warm=1))
+    print("posegraph_sharded", json.dumps(res))
+    if not (res["max_abs_dpose_vs_single"] < NODE_CARD_CPU_TOL
+            and info.closure_after_m < info.closure_before_m):
+        raise AssertionError(f"sharded pose graph: {res}")
+    return counts["quad"]
+
+
+def _poses_agree(got, want):
+    """(bit for bit, largest |difference|) of two pose lists."""
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    return same, max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+
+
+def batch_mesh_phase(courses, bposes, xbposes, config, xconfig, intr, dev):
+    """Phase 12 ``batch_mesh``: phase 4's batched courses, MESH_STEPS
+    steps, through ``run_sequences_batched(mesh=)`` on each of MESH_SHAPES
+    (this card named once per position), on both LK routes. Each mesh is
+    held bit for bit (or within SAME_TOL, the largest difference printed)
+    to the one-device run at its rows' batch: phase 4's batched run of the
+    route (its first MESH_STEPS steps) for one data row; for two, one
+    one-device batched run per row of that row's sequences, seeded as the
+    row seeds them (cuBLAS picks its kernels by batch size: the coarsest
+    pyramid level of a batch of 2 differs in the last bits from the same
+    rows of a batch of 4). Each is also compared with phase 4's run
+    (printed), every sequence held to the bench gates (the checker
+    course's ATE only at its full length, in phase 4: over its first
+    steps the JAX package misses the budget too, see phase 4), every chunk
+    stepped under CUDA sync debug mode "error", and the quad's launches
+    counted per mesh position (each row's 3 quads a step split into
+    ``model`` launches of n/model slots). Returns the launches per kernel
+    ({"quad_batched", "level_batched"}) and the quad route's per-row
+    reference poses."""
+    import torch
+
+    from visual_odom_tpu_torch.ops import lk_cuda
+    from visual_odom_tpu_torch.parallel import batch_eval
+    from visual_odom_tpu_torch.parallel.mesh import split_ranges
+
+    seqs = [courses[k][0][:MESH_STEPS + 1] for k in BATCH_COURSES]
+    launches = {"quad_batched": 0, "level_batched": 0}
+    row_refs = {}
+    real_scan = batch_eval.make_batched_scan_fn
+    strict = []
+
+    def strict_scan_fn(*args, **kwargs):
+        scan = real_scan(*args, **kwargs)
+
+        def scan_strict(state, lefts, rights):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return scan(state, lefts, rights)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                strict.append(lefts.shape[0])
+
+        return scan_strict
+
+    for cfg, ref in ((config, bposes), (xconfig, xbposes)):
+        route = cfg.resolved_lk_backend()
+        unsharded = [r[:MESH_STEPS + 1] for r in ref]
+        by_rows = {1: unsharded, 2: [p for a, b in split_ranges(len(seqs), 2)
+                                     for p in batch_eval.run_sequences_batched(
+                                         seqs[a:b], cfg, intr, seed=a,
+                                         chunk=CHUNK, device=dev)[0]]}
+        row_refs[route] = by_rows[2]
+        for rows, cols in MESH_SHAPES:
+            want = by_rows[rows]
+            mesh = card_mesh({"data": rows, "model": cols}, dev)
+            reset_counts()
+            strict.clear()
+            batch_eval.make_batched_scan_fn = strict_scan_fn
+            try:
+                with recorded_calls(lk_cuda, "lk_quad_cuda") as quads:
+                    poses, stats, wall = batch_eval.run_sequences_batched(
+                        seqs, cfg, intr, chunk=CHUNK, mesh=mesh)
+            finally:
+                batch_eval.make_batched_scan_fn = real_scan
+            counts = read_counts()
+            same, diff = _poses_agree(poses, want)
+            diff_unsharded = _poses_agree(poses, unsharded)
+            per_seq = []
+            for k, p, st in zip(BATCH_COURSES, poses, stats):
+                ate, budget = ate_and_budget(p, courses[k][1][:MESH_STEPS + 1])
+                per_seq.append(dict(course="_".join(k),
+                                    accept=st["accept_ratio"], ate_m=ate,
+                                    ate_budget_m=budget,
+                                    ate_gated=k[1] != "checker"))
+            expected = dict.fromkeys(counts, 0)
+            if route == "pallas":
+                expected["quad_batched"] = (LAUNCHES_PER_FRAME * rows * cols
+                                            * MESH_STEPS)
+            else:
+                expected["level_batched"] = (LEVEL_LAUNCHES_PER_FRAME * rows
+                                             * MESH_STEPS)
+            slots = sorted(set(int(q[3].shape[-2]) for q in quads))
+            batches = sorted(set(int(q[3].shape[0]) for q in quads))
+            res = dict(route=route, mesh=mesh.shape, steps=MESH_STEPS,
+                       wall_s=wall, ms_per_step=1e3 * wall / MESH_STEPS,
+                       reference=("phase 4, batch 4" if rows == 1 else
+                                  f"one device, batch {len(seqs) // rows}"),
+                       bit_for_bit=same, max_abs_dpose=diff, tol=SAME_TOL,
+                       bit_for_bit_vs_phase4=diff_unsharded[0],
+                       max_abs_dpose_vs_phase4=diff_unsharded[1],
+                       chunks_without_host_sync=len(strict),
+                       launch_counts=counts,
+                       launches_per_mesh_position=sum(counts.values())
+                       / (rows * cols if route == "pallas" else rows),
+                       quad_slots=slots, quad_batch=batches,
+                       sequences=per_seq)
+            print("batch_mesh", json.dumps(res))
+            want_slots = ([] if route != "pallas" else sorted(
+                {-(-384 // cols), 384 // cols, -(-64 // cols), 64 // cols}))
+            if not ((same or diff < SAME_TOL) and counts == expected
+                    and len(strict) == MESH_STEPS // CHUNK
+                    and slots == want_slots
+                    and all(r["accept"] >= 0.9
+                            and (r["ate_m"] <= r["ate_budget_m"]
+                                 or not r["ate_gated"]) for r in per_seq)):
+                raise AssertionError(f"batch mesh {mesh.shape}, {route}: {res}")
+            for k in launches:
+                launches[k] += counts[k]
+    return launches, row_refs["pallas"]
+
+
+def cli_mesh_phase(dirs, root, bposes, row_poses, config, dev):
+    """Phase 12 ``cli``: (a) ``run --ba-window CLI_BA_WINDOW --ba-ring
+    RING_WINDOWS`` on "straight": the "seq" mesh is the visible cards, so on
+    one card the solver takes its one-device branch (``ba_solve`` at the
+    default solver's settings) and the pose file is phase 11's
+    ``--ba-window`` file byte for byte; (b) ``run-batch --data-parallel 2``
+    on one card exits 2 with make_mesh's message; (c) through a device list
+    of this card named twice, ``run-batch --data-parallel 2`` steps a (2, 1)
+    mesh to its pose files, each the poses of the one-device run of its
+    data row (``batch_mesh_phase``'s ``row_poses``, MESH_STEPS steps).
+    Returns the launches per kernel ({"quad", "quad_batched"})."""
+    from visual_odom_tpu_torch.io.kitti import load_poses
+    from visual_odom_tpu_torch.runner import cli
+
+    work = os.path.join(root, "cli")
+    calib = os.path.join(work, "calib.yaml")
+    straight = dirs[("straight", "value")]
+    n_steps = len(bposes[0]) - 1
+    eq, res = {}, {}
+
+    o = os.path.join(work, "ba_ring.txt")
+    reset_counts()
+    rc, out, err, sec = run_cli(["run", straight, calib, "--chunk", CLI_CHUNK,
+                                 "--ba-window", CLI_BA_WINDOW, "--ba-ring",
+                                 RING_WINDOWS, "--output", o, "--quiet"])
+    if rc != 0:
+        raise AssertionError(f"cli --ba-ring: exit {rc}: {err[-2000:]}")
+    quad = check_counts("cli --ba-ring", config, read_counts(),
+                        n_steps + CLI_CHUNK, False)
+    eq["ba_ring_file_vs_ba_window_file"] = read_bytes(o) == read_bytes(
+        os.path.join(work, "ba.txt"))
+    res["ba_ring_command_s"] = sec
+
+    out_dir = os.path.join(work, "batch_mesh")
+    argv = ["run-batch", *(dirs[k] for k in BATCH_COURSES), "--calibration",
+            calib, "--out-dir", out_dir, "--chunk", CLI_BATCH_CHUNK,
+            "--max-frames", MESH_STEPS + 1, "--data-parallel", 2]
+    rc, _, refusal, _ = run_cli(argv)
+    eq["data_parallel_2_refused_on_one_card"] = (
+        rc == 2 and "mesh wants 2 devices, only 1 available" in refusal)
+    real = cli._mesh_devices
+    cli._mesh_devices = lambda device: [dev, dev]
+    reset_counts()
+    try:
+        rc, out, err, sec = run_cli(argv)
+    finally:
+        cli._mesh_devices = real
+    if rc != 0:
+        raise AssertionError(f"cli run-batch on a mesh: exit {rc}: "
+                             f"{err[-2000:]}")
+    counts = read_counts()
+    batched = counts["quad_batched"]
+    eq["run_batch_mesh_launches"] = counts == dict(
+        dict.fromkeys(counts, 0),
+        quad_batched=LAUNCHES_PER_FRAME * 2 * MESH_STEPS)
+    got = [load_poses(os.path.join(out_dir, "_".join(k) + ".txt"))
+           for k in BATCH_COURSES]
+    want = row_poses
+    eq["run_batch_mesh_files"] = all(
+        read_bytes(os.path.join(out_dir, "_".join(k) + ".txt"))
+        == poses_file_bytes(os.path.join(work, "want_mesh.txt"), p)
+        for k, p in zip(BATCH_COURSES, want)) or (
+        max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        < SAME_TOL)
+    res.update(run_batch_mesh={"data": 2, "model": 1},
+               run_batch_command_s=sec, launch_counts=counts,
+               run_batch_max_abs_dpose=max(float(np.abs(a - b).max())
+                                           for a, b in zip(got, want)),
+               refusal=refusal.strip())
+    res.update(eq)
+    print("cli", json.dumps({"part": "mesh", **res}))
+    if not all(eq.values()):
+        raise AssertionError(f"cli, mesh: {eq}")
+    return {"quad": quad, "quad_batched": batched}
+
+
 def main() -> int:
     import torch
 
@@ -2469,8 +2882,8 @@ def main() -> int:
         xruns.append(xres)
         xrefs.append((xposes, xfetched))
     batched_run, bposes = run_batched_path(courses, config, intr, dev)
-    xbatched_run = run_batched_path(courses, xconfig, intr, dev,
-                                    ref_poses=bposes)[0]
+    xbatched_run, xbposes = run_batched_path(courses, xconfig, intr, dev,
+                                             ref_poses=bposes)
 
     print(f"phase 4: {time.perf_counter() - t:.1f} s")
 
@@ -2493,8 +2906,8 @@ def main() -> int:
     scan, lposes, snaps = backend_scan(lframes, lgt, config, intr, dev)
     tracks_cost(lframes, config, intr, dev)
     backend_ba(snaps, lposes, lgt, intr, dev)
-    loops, xloops, _ = backend_loops(lframes, lposes, lgt, config, xconfig,
-                                     intr, dev)
+    loops, xloops, _, loop_poses = backend_loops(lframes, lposes, lgt,
+                                                 config, xconfig, intr, dev)
     del snaps
     print(f"phase 7: {time.perf_counter() - t:.1f} s")
 
@@ -2527,6 +2940,19 @@ def main() -> int:
         pipe_launches = pipe_phase(frames, refs[0], xrefs[0], config, xconfig,
                                    intr, dev)
         print(f"phase 11: {time.perf_counter() - t:.1f} s")
+
+        # ---- phase 12: the multi-device paths, on meshes of this card -----
+        t = time.perf_counter()
+        sharded_ba_phase(dev)
+        ring_phase(straight_tracks, refs[0][0], intr, dev)
+        mesh_loop_launches = posegraph_sharded_phase(
+            lframes, lposes, lgt, loop_poses, config, intr, dev)
+        mesh_launches, row_poses = batch_mesh_phase(courses, bposes, xbposes,
+                                                    config, xconfig, intr,
+                                                    dev)
+        cli_mesh_launches = cli_mesh_phase(dirs, root, bposes, row_poses,
+                                           config, dev)
+        print(f"phase 12: {time.perf_counter() - t:.1f} s")
 
     default = lk_cuda.variant()
 
@@ -2586,12 +3012,16 @@ def main() -> int:
              "front_doors": door_launches["quad"],
              "kitti_stream": kitti_launches["quad"],
              "cli": cli_launches["quad"],
-             "pipe": pipe_launches["quad"]},
+             "pipe": pipe_launches["quad"],
+             "mesh_loop_edges": mesh_loop_launches,
+             "cli_ba_ring": cli_mesh_launches["quad"]},
             quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
             {"batched_path": batched_run["kernel_launches"],
              "kitti_batched": kitti_launches["quad_batched"],
-             "cli_batch": cli_launches["quad_batched"]}, bquads,
+             "cli_batch": cli_launches["quad_batched"],
+             "batch_mesh": mesh_launches["quad_batched"],
+             "cli_batch_mesh": cli_mesh_launches["quad_batched"]}, bquads,
             bquads[0], False, wquad),
         row("lk_level_kernel", REPLACES_LEVEL,
             {"main_path": sum(r["kernel_launches"] for r in xruns),
@@ -2602,7 +3032,8 @@ def main() -> int:
              "pipe": pipe_launches["level"]},
             levels, finest(levels), True),
         row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
-            {"batched_path": xbatched_run["kernel_launches"]}, blevels,
+            {"batched_path": xbatched_run["kernel_launches"],
+             "batch_mesh": mesh_launches["level_batched"]}, blevels,
             finest(blevels), True, finest(wlevels))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

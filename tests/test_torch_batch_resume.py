@@ -1,6 +1,6 @@
 """The port's restartable batched runner: ``run_sequences_batched`` with
 ``checkpoint_path`` / ``checkpoint_every``, ``save_batch_checkpoint`` /
-``load_batch_checkpoint`` and ``_batched_restore_state``.
+``load_batch_checkpoint`` and ``parallel.batch.restore_batched_state``.
 
 - The counterpart of
   tests/test_cli_batch.py::test_batched_resume_bitwise_matches_uninterrupted,

@@ -15,11 +15,17 @@ the JAX package's and against the port's entry points called directly.
 - ``eval`` and ``eval-all``: both packages' CLIs print the same JSON
   (1e-9) and write the same errors file and ``summary.json``.
 - ``run-batch`` over two KITTI directories of PNGs equals
-  ``run_sequences_batched`` called directly.
+  ``run_sequences_batched`` called directly, also on a patched device list
+  of two CPU devices as a (2, 1) and a (1, 2) mesh.
+- ``run --ba-ring``: on a patched list of four CPU devices its pose file
+  equals ``smooth_trajectory_ba`` with ``make_ring_window_solver`` on the
+  same snapshots (the ring branch taken where the window affords the
+  halo); on ``--device cpu`` the ring has one device and the file equals
+  ``--ba-window`` alone.
 - The kill-and-resume subprocess test of
   tests/test_fault_injection.py:59-106, with ``--device cpu``.
-- Refusals (exit 2): ``--ba-ring``, a ``run-batch`` mesh of more than one
-  device or more data rows than devices, ``bench``. Without a card and
+- Refusals (exit 2): a ``run-batch`` mesh of more data rows than devices,
+  ``bench``. Without a card and
   without ``--device cpu`` the stepping subcommands exit 1 with
   ``resolve_device``'s message; ``--live`` without a display exits 1;
   ``rgbd`` without a camera raises.
@@ -167,7 +173,8 @@ def direct(tmp_path_factory):
     ba = dict(window=4, max_landmarks=256, min_track_len=3, huber_delta=1.5,
               device="cpu")
     return {"seq": seq, "dir": d, "run": poses, "results": results,
-            "scan": scan[0],
+            "scan": scan[0], "run_snaps": snaps,
+            "scan_snaps": (scan[0][:len(scan[4]) + 1], scan[4]),
             "run_ba": smooth_trajectory_ba(snaps, poses, intr, **ba),
             "scan_ba": smooth_trajectory_ba(
                 scan[4], scan[0][:len(scan[4]) + 1], intr, **ba)}
@@ -441,13 +448,6 @@ def test_kill_and_resume_matches_uninterrupted(calib, tmp_path):
 # --- refusals -----------------------------------------------------------------
 
 
-def test_ba_ring_refused(calib, capsys):
-    rc = cli.main(["run", "synthetic", calib, "--device", "cpu",
-                   "--ba-window", "4", "--ba-ring"])
-    assert rc == 2
-    assert "ring BA" in capsys.readouterr().err
-
-
 def test_bench_refused(capsys):
     assert cli.main(["bench", "--quick"]) == 2
     assert "ROADMAP item 10" in capsys.readouterr().err
@@ -461,22 +461,117 @@ def test_run_batch_mesh_of_more_data_rows_than_devices(kitti_dirs, calib,
     assert rc == 2
     err = capsys.readouterr().err
     assert "mesh wants 2 devices, only 1 available" in err
-    assert "sharded batched step" in err
 
 
-def test_run_batch_multi_device_mesh_refused(kitti_dirs, calib, tmp_path,
-                                             monkeypatch, capsys):
-    """Two visible cards make a (2, 1) mesh, which waits for the sharded
-    batched step; nothing is stepped."""
+# --- the multi-device paths on patched CPU device lists ------------------------
+
+
+def _cpus(n):
+    return lambda device: [torch.device("cpu")] * n
+
+
+@pytest.mark.parametrize("data", [2, 1])
+def test_run_batch_on_a_mesh_equals_one_device(kitti_dirs, calib, tmp_path,
+                                               monkeypatch, capsys, data):
+    """Two devices make a (2, 1) mesh (the default data axis) or, with
+    ``--data-parallel 1``, a (1, 2) one; the pose files are the one-device
+    run's, byte for byte."""
     _, dirs = kitti_dirs
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert mesh.data_model_mesh().shape == {"data": 2, "model": 1}
-    rc = cli.main(["run-batch", *dirs, "--calibration", calib, "--out-dir",
-                   str(tmp_path)])
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert "{'data': 2, 'model': 1}" in err and "ROADMAP item 18b" in err
+    monkeypatch.setattr(cli, "_mesh_devices", _cpus(2))
+    out = tmp_path / "out"
+    argv = ["run-batch", *dirs, "--calibration", calib, "--out-dir",
+            str(out), "--chunk", "2", "--device", "cpu"] + FAST
+    if data == 1:
+        argv += ["--data-parallel", "1"]
+    assert cli.main(argv) == 0
+    assert "frames/s aggregate" in capsys.readouterr().out
+    ref, _, _ = run_sequences_batched([KittiSequence(d) for d in dirs],
+                                      VOConfig.for_image(H, W, **CFG),
+                                      CameraIntrinsics(**INTR), chunk=2,
+                                      device="cpu")
+    for name, poses in zip(("05", "06"), ref):
+        assert (out / f"{name}.txt").read_bytes() == _file_of(
+            poses, tmp_path / "ref.txt")
+
+
+@pytest.mark.parametrize("chunk", [True, False], ids=["chunk", "run"])
+def test_ba_ring_on_four_devices_equals_ring_smoothing(calib, direct,
+                                                       tmp_path, monkeypatch,
+                                                       chunk):
+    """``--ba-ring`` over a patched list of four CPU devices: the pose file
+    is ``smooth_trajectory_ba`` with the ring solver on a four-device "seq"
+    mesh, on the door's own snapshots (4-frame windows: every window falls
+    back to ``ba_solve``, as JAX's solver does)."""
+    from visual_odom_tpu_torch.parallel.ring_ba import make_ring_window_solver
+
+    monkeypatch.setattr(cli, "_mesh_devices", _cpus(4))
+    out = tmp_path / "poses.txt"
+    argv = (["run", "synthetic", calib, "--max-frames", str(N_FRAMES),
+             "--quiet", "--device", "cpu", "--output", str(out),
+             "--ba-window", "4", "--ba-ring"] + FAST
+            + (["--chunk", "4"] if chunk else []))
+    assert cli.main(argv) == 0
+    intr = CameraIntrinsics(**INTR)
+    poses, snaps = (direct["scan_snaps"] if chunk
+                    else (direct["run"], direct["run_snaps"]))
+    solver = make_ring_window_solver(mesh.make_mesh(
+        {"seq": 4}, devices=["cpu"] * 4))
+    ref = smooth_trajectory_ba(snaps, poses, intr, window=4, solver=solver,
+                               max_landmarks=256, min_track_len=3,
+                               device="cpu")
+    assert solver.branches["single"] == N_FRAMES // 4
+    assert out.read_bytes() == _file_of(ref, tmp_path / "ref.txt")
+
+
+def test_ba_ring_engages_the_ring_branch(calib, tmp_path, monkeypatch):
+    """``--ba-ring 2`` with 16-frame windows of short tracks (age cap 4):
+    the window's solve runs on a two-window ring, and the pose file is
+    ``smooth_trajectory_ba`` with that ring solver on the snapshots the
+    command collected."""
+    from visual_odom_tpu_torch.ba import window
+    from visual_odom_tpu_torch.parallel import ring_ba
+
+    monkeypatch.setattr(cli, "_mesh_devices", _cpus(4))
+    solves, inputs = [], []
+    real_solve, real_smooth = ring_ba.ring_ba_solve, window.smooth_trajectory_ba
+
+    def counted(problem, mesh_, **kw):
+        solves.append(mesh_.shape)
+        return real_solve(problem, mesh_, **kw)
+
+    def recorded(snaps, poses, *args, **kw):
+        inputs.append((snaps, poses.copy()))
+        return real_smooth(snaps, poses, *args, **kw)
+
+    monkeypatch.setattr(ring_ba, "ring_ba_solve", counted)
+    monkeypatch.setattr(window, "smooth_trajectory_ba", recorded)
+    out = tmp_path / "poses.txt"
+    argv = ["run", "synthetic", calib, "--max-frames", "17", "--quiet",
+            "--device", "cpu", "--output", str(out), "--chunk", "8",
+            "--ba-window", "16", "--ba-ring", "2", "--age-threshold", "4"] + FAST
+    assert cli.main(argv) == 0
+    assert solves == [{"seq": 2}]
+    (snaps, poses), = inputs
+    solver = ring_ba.make_ring_window_solver(
+        mesh.make_mesh({"seq": 2}, devices=["cpu"] * 2))
+    ref = real_smooth(snaps, poses, CameraIntrinsics(**INTR), window=16,
+                      solver=solver, max_landmarks=256, min_track_len=3,
+                      device="cpu")
+    assert solver.branches == {"ring": 1, "single": 0}
+    assert out.read_bytes() == _file_of(ref, tmp_path / "ref.txt")
+
+
+def test_ba_ring_on_cpu_is_the_window_alone(calib, direct, tmp_path):
+    """On ``--device cpu`` the ring has one device: the solver takes its
+    ``ba_solve`` branch at the default solver's settings, so the pose file
+    equals ``--ba-window`` alone, byte for byte."""
+    out = tmp_path / "poses.txt"
+    argv = (["run", "synthetic", calib, "--max-frames", str(N_FRAMES),
+             "--quiet", "--device", "cpu", "--output", str(out),
+             "--ba-window", "4", "--ba-ring", "--chunk", "4"] + FAST)
+    assert cli.main(argv) == 0
+    assert out.read_bytes() == _file_of(direct["scan_ba"],
+                                        tmp_path / "ref.txt")
 
 
 @pytest.mark.parametrize("command", ["run", "run-batch"])

@@ -935,3 +935,164 @@ def test_cli_chunked_run_on_card_equals_scan(cuda_device, tmp_path):
     save_poses_kitti(str(ref_file), ref[0])
     assert out.read_bytes() == ref_file.read_bytes()
     assert load_poses(str(out)).shape == (17, 4, 4)
+
+
+# ---- the multi-device paths (parallel/) ----------------------------------------
+
+
+def _cards(n):
+    """The first ``n`` cards; skips with fewer visible."""
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _ring_problem(dev, num_poses=16):
+    return problem.synthetic_ba_problem(
+        num_poses=num_poses, num_landmarks=128, pixel_noise=0.2,
+        pose_perturb=0.015, landmark_perturb=0.08, seed=3, obs_window=1,
+        device=dev)[0]
+
+
+def test_sharded_ba_and_ring_on_one_card(cuda_device):
+    """Four landmark shards and a four-window ring, each on ``cuda:0``
+    named four times, against ``ba_solve`` on the card (poses 1e-4,
+    landmarks 1e-3; tests/test_parallel.py:32-37, test_ring_ba.py:71)."""
+    from visual_odom_tpu_torch.parallel.mesh import make_mesh
+    from visual_odom_tpu_torch.parallel.ring_ba import ring_ba_solve
+    from visual_odom_tpu_torch.parallel.sharded_ba import sharded_ba_solve
+
+    dev = torch.device("cuda", 0)
+    p = problem.synthetic_ba_problem(num_poses=8, num_landmarks=256, seed=7,
+                                     device=dev)[0]
+    ref = schur.ba_solve(p, iterations=4)
+    got = sharded_ba_solve(p, make_mesh({"data": 1, "model": 4},
+                                        devices=[dev] * 4), iterations=4)
+    assert float((got.poses - ref.poses).abs().max()) < 1e-4
+    assert float((got.landmarks - ref.landmarks).abs().max()) < 1e-3
+    p = _ring_problem(dev)
+    ref = schur.ba_solve(p, iterations=10)
+    got = ring_ba_solve(p, make_mesh({"seq": 4}, devices=[dev] * 4), halo=2,
+                        rounds=10)
+    assert float((got.poses - ref.poses).abs().max()) < 1e-4
+    assert torch.equal(got.poses[0], p.poses[0])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_across_cards_matches_ba_solve(cuda_device, n):
+    """The ring over ``n`` cards, its halos and sums copied between them."""
+    from visual_odom_tpu_torch.parallel.mesh import make_mesh
+    from visual_odom_tpu_torch.parallel.ring_ba import ring_ba_solve
+
+    cards = _cards(n)
+    p = _ring_problem(cards[0])
+    ref = schur.ba_solve(p, iterations=10)
+    got = ring_ba_solve(p, make_mesh({"seq": n}, devices=cards), halo=2,
+                        rounds=10)
+    assert got.poses.device == cards[0]
+    assert float((got.poses - ref.poses).abs().max()) < 1e-4
+
+
+def _mesh_run(cfg, intr, frames, mesh=None, device=None, seed=0):
+    from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
+
+    return run_sequences_batched(frames, cfg, intr, chunk=4, mesh=mesh,
+                                 device=device, seed=seed)
+
+
+def _row_runs(cfg, intr, frames, rows, dev):
+    """The one-device runs of each data row's sequences, seeded as the row
+    seeds them: a mesh's reference (cuBLAS picks its kernels by batch
+    size, so a row of 2 is not bit for bit the same rows of a batch of 3
+    or 4)."""
+    from visual_odom_tpu_torch.parallel.mesh import split_ranges
+
+    return [p for a, b in split_ranges(len(frames), rows)
+            for p in _mesh_run(cfg, intr, frames[a:b], device=dev,
+                               seed=a)[0]]
+
+
+def test_batch_mesh_on_one_card_never_waits(cuda_device, monkeypatch):
+    """A (2, 2) mesh of ``cuda:0`` named four times over three sequences:
+    every chunk stepped under sync-debug "error", each row's quads split
+    into two launches, the poses of its rows' one-device runs bit for
+    bit."""
+    from visual_odom_tpu_torch.parallel import batch_eval
+    from visual_odom_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    intr, cfg, frames = _batch(frames=9)
+    frames = frames + [frames[0]]
+    ref = _row_runs(cfg, intr, frames, 2, dev)
+    real = batch_eval.make_batched_scan_fn
+    strict = []
+
+    def strict_scan_fn(*args, **kwargs):
+        scan = real(*args, **kwargs)
+
+        def run(state, lefts, rights):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return scan(state, lefts, rights)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                strict.append(lefts.shape[0])
+
+        return run
+
+    monkeypatch.setattr(batch_eval, "make_batched_scan_fn", strict_scan_fn)
+    before = lk_cuda.lk_circular_quad.batched_launches
+    got = _mesh_run(cfg, intr, frames, mesh=make_mesh(
+        {"data": 2, "model": 2}, devices=[dev] * 4))
+    assert strict == [4, 4]
+    assert lk_cuda.lk_circular_quad.batched_launches - before == 3 * 4 * 8
+    for a, b in zip(got[0], ref):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("shape, route", [((2, 1), "pallas"),
+                                          ((2, 2), "pallas"),
+                                          ((2, 1), "xla")],
+                         ids=["2x1", "2x2", "2x1-xla"])
+def test_batch_mesh_across_cards_equals_row_runs(cuda_device, shape, route):
+    """Two data rows (and two model columns) on separate cards, so the LK
+    kernels launch on cards other than the current one: the poses of each
+    row's one-device run on card 0, bit for bit."""
+    import dataclasses
+
+    from visual_odom_tpu_torch.parallel.mesh import make_mesh
+
+    cards = _cards(shape[0] * shape[1])
+    intr, cfg, frames = _batch(frames=9)
+    cfg = dataclasses.replace(cfg, lk_backend=route)
+    ref = _row_runs(cfg, intr, frames, shape[0], cards[0])
+    got = _mesh_run(cfg, intr, frames, mesh=make_mesh(
+        {"data": shape[0], "model": shape[1]}, devices=cards))
+    for a, b in zip(got[0], ref):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sharded_posegraph_across_two_cards(cuda_device):
+    """The drifted-circle graph edge-sharded over two cards against the
+    one-card solve (2e-4, tests/test_posegraph.py:106); ``close_loops``'s
+    solve takes the same path with ``mesh=``."""
+    from visual_odom_tpu_torch.parallel.mesh import make_mesh
+
+    cards = _cards(2)
+    n = 40
+    th = 2 * np.pi * np.arange(n) / n
+    truth = np.tile(np.eye(4), (n, 1, 1))
+    truth[:, 0, 0] = truth[:, 2, 2] = np.cos(th)
+    truth[:, 0, 2], truth[:, 2, 0] = np.sin(th), -np.sin(th)
+    truth[:, 0, 3], truth[:, 2, 3] = 10 * np.sin(th), 10 * (1 - np.cos(th))
+    rng = np.random.default_rng(3)
+    est = truth.copy()
+    est[:, :3, 3] += np.cumsum(rng.normal(0, 0.02, (n, 3)), axis=0)
+    graph = posegraph.build_keyframe_graph(
+        est, np.arange(n), [(0, n - 1, np.linalg.inv(truth[0]) @ truth[-1],
+                             10.0)], device=cards[0])
+    ref = posegraph.posegraph_solve(graph, iterations=8).nodes
+    got = posegraph.sharded_posegraph_solve(
+        graph, make_mesh({"model": 2}, devices=cards), iterations=8).nodes
+    assert got.device == cards[0]
+    assert float((got - ref).abs().max()) < NODE_TOL

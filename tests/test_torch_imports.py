@@ -22,14 +22,15 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "pipe_turns.py"]
 #: modules the back end, the checkpoints, mono rotation, the front doors'
 #: host I/O, the KITTI input, evaluation, utilities, the command line and
-#: the multi-device helpers added; the import check must reach them
+#: the multi-device paths added; the import check must reach them
 BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
            "runner.loopclosure", "utils.checkpoint", "backend.essential",
            "backend.five_point", "utils.metrics", "io.kitti", "eval.plot",
            "io.native", "io.camera", "io.gyro", "core.frame",
            "eval.kitti_eval", "eval.devkit", "utils.notify",
            "utils.profiling", "parallel.batch_eval", "runner.cli",
-           "parallel.mesh", "parallel.pipe")
+           "parallel.mesh", "parallel.pipe", "parallel.collectives",
+           "parallel.sharded_ba", "parallel.ring_ba", "parallel.batch")
 
 
 def _imported_modules(path: pathlib.Path):

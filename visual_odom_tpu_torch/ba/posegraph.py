@@ -1,7 +1,7 @@
 """Pose-graph optimization, the loop-closure back end.
 
-Port of ``visual_odom_tpu/ba/posegraph.py`` (the single-device solve and the
-host-side graph glue). Given keyframe world poses, sequential odometry edges
+Port of ``visual_odom_tpu/ba/posegraph.py``: the solve on one device or
+edge-sharded over a mesh axis, and the host-side graph glue. Given keyframe world poses, sequential odometry edges
 and measured loop edges, a damped Gauss-Newton solve redistributes the
 accumulated drift around the graph.
 
@@ -17,6 +17,10 @@ accumulated drift around the graph.
 - H (6N x 6N) and b assemble by scatter-add of the per-edge blocks (a node
   sits in several edges: ``index_put_`` with ``accumulate=True``); the
   damped normal solve is one dense ``torch.linalg.solve_ex``.
+- ``sharded_posegraph_solve`` splits the EDGE axis over a mesh axis: each
+  shard's (H, b) sums meet in one ``psum`` (``parallel.collectives``), the
+  solve is replicated. Communication per GN iteration: one (6N)^2 + 6N
+  sum, independent of E.
 """
 
 from __future__ import annotations
@@ -88,8 +92,10 @@ def _edge_val_and_jac(*args):
     return torch.func.vmap(one)(*args)
 
 
-def _assemble(nodes, edges, rel_inv, weight, damping: float):
-    """(H (6N, 6N), b (N, 6), cost) at delta = 0, gauge node 0 pinned."""
+def _edge_terms(nodes, edges, rel_inv, weight):
+    """These edges' terms of the normal equations at delta = 0, alone:
+    (H (6N, 6N), b (N, 6), cost), no gauge and no damping. An edge shard's
+    partial sums (``sharded_posegraph_solve``)."""
     N = nodes.shape[0]
     zero = torch.zeros((edges.shape[0], 6), dtype=nodes.dtype,
                        device=nodes.device)
@@ -116,15 +122,34 @@ def _assemble(nodes, edges, rel_inv, weight, damping: float):
     add_blocks(ej, ei, torch.einsum("eab,eac->ebc", Jj, Ji))
     b.index_put_((ei,), -torch.einsum("eab,ea->eb", Ji, r), accumulate=True)
     b.index_put_((ej,), -torch.einsum("eab,ea->eb", Jj, r), accumulate=True)
+    return H, b, torch.sum(r * r)
 
+
+def _pin_and_damp(H, b, damping: float):
+    """The whole graph's (H, b) with the gauge and the damping, applied
+    once: node 0 pinned, then diagonal-relative Levenberg damping."""
+    N = b.shape[0]
     # Gauge: pin node 0 (strong prior on its tangent staying zero).
-    gauge = torch.arange(6 * N, device=nodes.device) < 6
-    H = H + torch.diag(gauge.to(nodes.dtype) * 1e6)
+    gauge = torch.arange(6 * N, device=H.device) < 6
+    H = H + torch.diag(gauge.to(H.dtype) * 1e6)
     b = torch.cat([torch.zeros_like(b[:1]), b[1:]])
     # Levenberg damping, scale-aware (diagonal-relative).
     H = H + torch.diag(damping * torch.clamp(torch.diagonal(H), min=1e-6))
-    cost = torch.sum(r * r)
+    return H, b
+
+
+def _assemble(nodes, edges, rel_inv, weight, damping: float):
+    """(H (6N, 6N), b (N, 6), cost) at delta = 0, gauge node 0 pinned."""
+    H, b, cost = _edge_terms(nodes, edges, rel_inv, weight)
+    H, b = _pin_and_damp(H, b, damping)
     return H, b, cost
+
+
+def _gn_update(nodes, H, b):
+    """Nodes moved by the solve of the pinned, damped system."""
+    N = nodes.shape[0]
+    delta = torch.linalg.solve_ex(H, b.reshape(6 * N))[0].reshape(N, 6)
+    return _retract(nodes, delta)
 
 
 def posegraph_solve(graph: PoseGraph, iterations: int = 10,
@@ -133,11 +158,9 @@ def posegraph_solve(graph: PoseGraph, iterations: int = 10,
     graph with refined nodes. Node 0 is the gauge and does not move."""
     rel_inv = _se3_inv(graph.rel)
     nodes = graph.nodes
-    N = nodes.shape[0]
     for _ in range(iterations):
         H, b, _ = _assemble(nodes, graph.edges, rel_inv, graph.weight, damping)
-        delta = torch.linalg.solve_ex(H, b.reshape(6 * N))[0].reshape(N, 6)
-        nodes = _retract(nodes, delta)
+        nodes = _gn_update(nodes, H, b)
     return graph._replace(nodes=nodes)
 
 
@@ -145,6 +168,48 @@ def _se3_inv(T: torch.Tensor) -> torch.Tensor:
     """Inverse of (..., 4, 4) rigid transforms."""
     R_t = T[..., :3, :3].transpose(-1, -2)
     return se3_matrix(R_t, -(R_t @ T[..., :3, 3:])[..., 0])
+
+
+def sharded_posegraph_solve(graph: PoseGraph, mesh, iterations: int = 10,
+                            damping: float = 1e-4,
+                            axis: str = "model") -> PoseGraph:
+    """``posegraph_solve`` with the EDGE axis split over ``mesh``'s
+    ``axis`` devices (``parallel.mesh.axis_devices``); nodes replicated.
+
+    The edges are padded to a multiple of the axis size with zero-weight
+    self-edges on node 0 (exact: weight 0 contributes nothing) and split
+    contiguously. Each shard accumulates only its edges' H, b and cost
+    (``_edge_terms``); one ``psum`` meets them, and the gauge and the
+    damping go on once, after it. The solve and the retraction run on each
+    shard's device. Returns the graph, on its own device, with the solved
+    nodes."""
+    from visual_odom_tpu_torch.parallel.collectives import psum, replicated
+    from visual_odom_tpu_torch.parallel.mesh import axis_devices
+
+    devs = axis_devices(mesh, axis)
+    D = len(devs)
+    E = graph.edges.shape[0]
+    pad = (-E) % D
+    dev = graph.nodes.device
+    edges = torch.cat([graph.edges, torch.zeros((pad, 2), dtype=graph.edges.dtype,
+                                                device=dev)])
+    rel = torch.cat([graph.rel, torch.eye(4, dtype=graph.rel.dtype,
+                                          device=dev).expand(pad, 4, 4)])
+    weight = torch.cat([graph.weight, torch.zeros(pad, dtype=graph.weight.dtype,
+                                                  device=dev)])
+    rel_inv = _se3_inv(rel)
+    per = (E + pad) // D
+    shards = [(edges[k * per:(k + 1) * per].to(d),
+               rel_inv[k * per:(k + 1) * per].to(d),
+               weight[k * per:(k + 1) * per].to(d))
+              for k, d in enumerate(devs)]
+    nodes = [graph.nodes.to(d) for d in devs]
+    for _ in range(iterations):
+        H, b, _ = zip(*(_edge_terms(n, *s) for n, s in zip(nodes, shards)))
+        nodes = replicated(
+            devs, lambda n, H, b: _gn_update(n, *_pin_and_damp(H, b, damping)),
+            nodes, psum(H), psum(b))
+    return graph._replace(nodes=nodes[0].to(dev))
 
 
 # ---------------------------------------------------------------------------

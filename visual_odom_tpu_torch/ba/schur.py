@@ -14,11 +14,19 @@ Port of ``visual_odom_tpu/ba/schur.py``. The two-block structure
 - S is dense (6W, 6W) with W ~ 4..16 keyframes: a single small solve;
 - the gauge is fixed by a large prior on pose 0 (the window's anchor).
 
+The step is split where a landmark-sharded solve (``parallel.sharded_ba``)
+meets its collective: ``schur_parts`` gives one shard's sums over its
+landmarks, ``solve_reduced`` applies damping and the gauge prior once to the
+summed system, and ``back_substitute`` updates the shard's landmarks.
+``ba_gauss_newton_step`` is the three on one shard.
+
 Everything stays on the problem's device: no step reads a value back to the
 host (the non-finite guard is a ``torch.where``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -66,26 +74,31 @@ def _jacobian_blocks(problem: BAProblem, huber_delta: float = 0.0):
     return A, B, r
 
 
-def ba_gauss_newton_step(problem: BAProblem, damping: float = 1e-4,
-                         anchor=None, anchor_w=None,
-                         huber_delta: float = 0.0) -> BAProblem:
-    """One damped GN step. Returns the updated problem.
+class SchurParts(NamedTuple):
+    """The reduced camera system's terms that are sums over landmarks: a
+    landmark shard's partial sums, or (after a ``psum`` over the shards,
+    ``parallel.sharded_ba``) the whole problem's."""
 
-    anchor (W, 6) / anchor_w (W,) add per-pose quadratic priors
-    0.5 * w_i * ||pose_i - anchor_i||^2, e.g. to pin a window's boundary
-    keyframes to externally known estimates. Default (None) anchors pose 0
-    to itself with a large weight, the classic gauge prior (dp_0 ~ 0).
-    """
-    poses = problem.poses
-    W = poses.shape[0]
-    eye3, eye6, eyeW = (torch.eye(k, dtype=poses.dtype, device=poses.device)
-                        for k in (3, 6, W))
-    if anchor is None:
-        anchor = poses
-    if anchor_w is None:
-        # Built on the device: a scalar written by index would be copied
-        # from the host.
-        anchor_w = eyeW[0] * _GAUGE_PRIOR
+    Hpp: torch.Tensor       # (W, 6, 6)
+    bp: torch.Tensor        # (W, 6)
+    S_red: torch.Tensor     # (W, W, 6, 6)  sum_l Hpl_l Hll_l^-1 Hpl_l'
+    rhs_red: torch.Tensor   # (W, 6)        sum_l Hpl_l Hll_l^-1 bl_l
+
+
+class LandmarkBlocks(NamedTuple):
+    """Per-landmark blocks, local to the landmark's shard: what the
+    back-substitution needs."""
+
+    Hpl: torch.Tensor       # (W, L, 6, 3)
+    Hll_inv: torch.Tensor   # (L, 3, 3), damped
+    bl: torch.Tensor        # (L, 3)
+
+
+def schur_parts(problem: BAProblem, damping: float = 1e-4,
+                huber_delta: float = 0.0):
+    """The GN step's landmark contractions over ``problem``'s landmarks.
+    Returns (SchurParts, LandmarkBlocks)."""
+    eye3 = torch.eye(3, dtype=problem.poses.dtype, device=problem.poses.device)
     A, B, r = _jacobian_blocks(problem, huber_delta=huber_delta)
 
     # Block accumulations (contractions over landmarks).
@@ -97,32 +110,68 @@ def ba_gauss_newton_step(problem: BAProblem, damping: float = 1e-4,
 
     # LM damping + batched 3x3 landmark-block inverse. The _ex forms skip
     # the error check, which would read the device's status on the host; a
-    # singular system is caught by the non-finite guard below.
+    # singular system is caught by the non-finite guard.
     Hll_inv = torch.linalg.inv_ex(Hll + damping * eye3)[0]   # (L, 3, 3)
 
     # Schur complement: contraction over landmarks.
     HplWinv = torch.einsum("wlij,ljk->wlik", Hpl, Hll_inv)
     S_red = torch.einsum("wlik,vljk->wvij", HplWinv, Hpl)
     rhs_red = torch.einsum("wlik,lk->wi", HplWinv, bl)
+    return (SchurParts(Hpp, bp, S_red, rhs_red),
+            LandmarkBlocks(Hpl, Hll_inv, bl))
 
+
+def solve_reduced(parts: SchurParts, poses: torch.Tensor,
+                  damping: float = 1e-4, anchor=None,
+                  anchor_w=None) -> torch.Tensor:
+    """The pose update dp (W, 6) of the whole problem's reduced system:
+    LM damping and the anchor priors are applied here, once, after the
+    landmark sums."""
+    W = poses.shape[0]
+    eye6, eyeW = (torch.eye(k, dtype=poses.dtype, device=poses.device)
+                  for k in (6, W))
+    if anchor is None:
+        anchor = poses
+    if anchor_w is None:
+        # Built on the device: a scalar written by index would be copied
+        # from the host.
+        anchor_w = eyeW[0] * _GAUGE_PRIOR
     # Block-diagonal Hpp with LM damping (an outer product with the
     # identity: exact), minus the reduction; then the per-pose anchor priors
     # (gauge by default), added in that order as the JAX package adds them.
-    S = torch.einsum("wv,wij->wvij", eyeW, Hpp + damping * eye6) - S_red
+    S = torch.einsum("wv,wij->wvij", eyeW, parts.Hpp + damping * eye6) \
+        - parts.S_red
     S = S + torch.einsum("wv,w,ij->wvij", eyeW, anchor_w, eye6)
-    rhs = bp - rhs_red
+    rhs = parts.bp - parts.rhs_red
     rhs = rhs + anchor_w[:, None] * (poses - anchor)
 
     S_dense = S.permute(0, 2, 1, 3).reshape(W * 6, W * 6)
-    dp = torch.linalg.solve_ex(S_dense, rhs.reshape(W * 6))[0].reshape(W, 6)
+    return torch.linalg.solve_ex(S_dense, rhs.reshape(W * 6))[0].reshape(W, 6)
 
-    # Landmark back-substitution.
-    corr = torch.einsum("wlij,wi->lj", Hpl, dp)
-    dx = torch.einsum("lij,lj->li", Hll_inv, bl - corr)
 
+def back_substitute(blocks: LandmarkBlocks, dp: torch.Tensor) -> torch.Tensor:
+    """The landmark update dx (L, 3) of these landmarks, given dp."""
+    corr = torch.einsum("wlij,wi->lj", blocks.Hpl, dp)
+    return torch.einsum("lij,lj->li", blocks.Hll_inv, blocks.bl - corr)
+
+
+def ba_gauss_newton_step(problem: BAProblem, damping: float = 1e-4,
+                         anchor=None, anchor_w=None,
+                         huber_delta: float = 0.0) -> BAProblem:
+    """One damped GN step. Returns the updated problem.
+
+    anchor (W, 6) / anchor_w (W,) add per-pose quadratic priors
+    0.5 * w_i * ||pose_i - anchor_i||^2, e.g. to pin a window's boundary
+    keyframes to externally known estimates. Default (None) anchors pose 0
+    to itself with a large weight, the classic gauge prior (dp_0 ~ 0).
+    It is ``parallel.sharded_ba``'s step on one landmark shard.
+    """
+    parts, blocks = schur_parts(problem, damping, huber_delta)
+    dp = solve_reduced(parts, problem.poses, damping, anchor, anchor_w)
+    dx = back_substitute(blocks, dp)
     ok = torch.isfinite(dp).all() & torch.isfinite(dx).all()
     return problem._replace(
-        poses=torch.where(ok, poses - dp, poses),
+        poses=torch.where(ok, problem.poses - dp, problem.poses),
         landmarks=torch.where(ok, problem.landmarks - dx, problem.landmarks))
 
 

@@ -43,8 +43,8 @@ def circular_match(img_l0: LKImage, img_r0: LKImage, img_l1: LKImage,
                    img_r1: LKImage, bucketed: FeatureState,
                    params: LKParams = LKParams(),
                    circle_threshold: float = 0.0, backend: str = "pallas",
-                   seeding: bool = True,
-                   seed_start_level: int = None) -> CircularMatchResult:
+                   seeding: bool = True, seed_start_level: int = None,
+                   slot_devices=None) -> CircularMatchResult:
     """Track the bucketed features around the quad and filter.
 
     ``backend`` picks the route: "pallas" runs the quad as one
@@ -54,6 +54,9 @@ def circular_match(img_l0: LKImage, img_r0: LKImage, img_l1: LKImage,
     ``seeding`` starts each leg from the feature's previous flow/disparity
     (clamped to +-(cols/4, rows/4), so a corrupt carry degrades to a bad
     seed); coarse-level skipping (``seed_start_level``) applies only then.
+    ``slot_devices`` splits the quad route's launch over a mesh row's
+    "model" devices (``lk_circular_quad``); the per-leg route runs on the
+    operands' device.
     """
     if backend not in LK_BACKENDS:
         raise ValueError(f"backend must be one of {LK_BACKENDS}, got "
@@ -79,7 +82,7 @@ def circular_match(img_l0: LKImage, img_r0: LKImage, img_l1: LKImage,
     if backend == "pallas":
         pts_r0, pts_r1, pts_l1, pts_ret, legs_ok = lk_circular_quad(
             img_l0, img_r0, img_r1, img_l1, pts_l0, valid_in, params,
-            flow=flow, disp=disp, start_level=sl)
+            flow=flow, disp=disp, start_level=sl, slot_devices=slot_devices)
     else:
         def track(img_i, img_j, pts, init):
             return lk_track_pyramid(img_i, img_j, pts, valid_in, params,
@@ -122,7 +125,7 @@ def commit_tracked_state(result: CircularMatchResult) -> FeatureState:
 
 
 def skip_mode_match(img_l0, img_r0, img_l1, img_r1, bucketed: FeatureState,
-                    params: LKParams, config):
+                    params: LKParams, config, slot_devices=None):
     """Circular match under VOConfig's skip policy.
 
     "fixed": one quad at the safe level. "adaptive": the fast quad
@@ -137,7 +140,8 @@ def skip_mode_match(img_l0, img_r0, img_l1, img_r1, bucketed: FeatureState,
     level launches (fast quad 4 legs x 2 levels, probe and safe quad 4 x 3
     each, at the default levels). In a batched state ``aliased`` is (B,):
     each sequence picks its own result, as the JAX package's vmapped
-    ``lax.cond`` (a select) does.
+    ``lax.cond`` (a select) does. ``slot_devices`` splits every quad
+    launch over a mesh row's "model" devices (``circular_match``).
 
     Returns (CircularMatchResult, fallback () bool, or (B,) batched).
     """
@@ -149,7 +153,8 @@ def skip_mode_match(img_l0, img_r0, img_l1, img_r1, bucketed: FeatureState,
                               config.circle_threshold,
                               backend=config.resolved_lk_backend(),
                               seeding=config.predictive_seeding,
-                              seed_start_level=start_level)
+                              seed_start_level=start_level,
+                              slot_devices=slot_devices)
 
     if not (config.lk_skip_mode == "adaptive"
             and config.predictive_seeding

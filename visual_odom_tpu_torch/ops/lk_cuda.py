@@ -460,13 +460,16 @@ def lk_quad_cuda(planes, shapes, pad: int, pts: torch.Tensor,
     status = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
     ptr_arr = np.asarray(ptrs, dtype=np.int64)
     dim_arr = np.asarray(dims, dtype=np.int32)
-    err = _library().lk_quad_launch(
-        ptr_arr.ctypes.data, dim_arr.ctypes.data, pts.data_ptr(),
-        flow.data_ptr(), disp.data_ptr(), valid_i.data_ptr(),
-        out.data_ptr(), status.data_ptr(), n, batch, start_level, pad,
-        params.max_iters, float(params.eps * params.eps),
-        float(params.min_eig_threshold), int(doublestep), int(packed),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # The runtime launches on the current device: make it the operands'
+    # (a mesh row's slices lie on other cards than the process's first).
+    with torch.cuda.device(dev):
+        err = _library().lk_quad_launch(
+            ptr_arr.ctypes.data, dim_arr.ctypes.data, pts.data_ptr(),
+            flow.data_ptr(), disp.data_ptr(), valid_i.data_ptr(),
+            out.data_ptr(), status.data_ptr(), n, batch, start_level, pad,
+            params.max_iters, float(params.eps * params.eps),
+            float(params.min_eig_threshold), int(doublestep), int(packed),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lk_quad_kernel launch failed: CUDA error {err}")
     if lead:
@@ -512,12 +515,14 @@ def lk_level_cuda(I: torch.Tensor, J: torch.Tensor, rows: int, cols: int,
         _check_superblock(J, "J")
     out = torch.empty(lead + (n, 2), dtype=torch.float32, device=dev)
     ok = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
-    err = _library().lk_level_launch(
-        I.data_ptr(), J.data_ptr(), prev.data_ptr(), init.data_ptr(),
-        valid_i.data_ptr(), out.data_ptr(), ok.data_ptr(), rows, cols, stride,
-        plane_rows, pad, n, batch, int(finest), params.max_iters,
-        float(params.eps * params.eps), float(params.min_eig_threshold),
-        int(doublestep), int(packed), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):    # launch on the operands' device
+        err = _library().lk_level_launch(
+            I.data_ptr(), J.data_ptr(), prev.data_ptr(), init.data_ptr(),
+            valid_i.data_ptr(), out.data_ptr(), ok.data_ptr(), rows, cols,
+            stride, plane_rows, pad, n, batch, int(finest), params.max_iters,
+            float(params.eps * params.eps), float(params.min_eig_threshold),
+            int(doublestep), int(packed),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lk_level_kernel launch failed: CUDA error {err}")
     if lead:
@@ -530,7 +535,8 @@ def lk_level_cuda(I: torch.Tensor, J: torch.Tensor, rows: int, cols: int,
 def lk_circular_quad(img_l0: LKImage, img_r0: LKImage, img_r1: LKImage,
                      img_l1: LKImage, pts: torch.Tensor, valid: torch.Tensor,
                      params: LKParams = LKParams(), flow: torch.Tensor = None,
-                     disp: torch.Tensor = None, start_level: int = None):
+                     disp: torch.Tensor = None, start_level: int = None,
+                     slot_devices=None):
     """The whole circular quad, one kernel launch on CUDA.
 
     Returns (pts_r0, pts_r1, pts_l1, pts_l0_return, status), as
@@ -539,7 +545,16 @@ def lk_circular_quad(img_l0: LKImage, img_r0: LKImage, img_r1: LKImage,
     leading batch dim on the images' planes and on ``pts`` / ``valid`` /
     ``flow`` / ``disp`` it is ``vmap(lk_circular_quad_pallas)``: B
     sequences in one launch.
+
+    ``slot_devices`` (a mesh row's "model" devices, the first where the
+    operands lie) splits the slots into contiguous slices, one per device:
+    the images are copied to each, each slice is one launch there, and the
+    results are gathered back in slot order. LK is per feature, so this is
+    the unsplit quad bit for bit.
     """
+    if slot_devices is not None and len(slot_devices) > 1:
+        return _split_slots((img_l0, img_r0, img_r1, img_l1), pts, valid,
+                            params, flow, disp, start_level, slot_devices)
     shapes = img_l0.shapes
     for im in (img_r0, img_r1, img_l1):
         if im.shapes != shapes or im.pad != img_l0.pad:
@@ -560,6 +575,35 @@ def lk_circular_quad(img_l0: LKImage, img_r0: LKImage, img_r1: LKImage,
     else:
         raise ValueError(f"no LK implementation for device {pts.device}")
     return out[0], out[1], out[2], out[3], status
+
+
+def _split_slots(images, pts, valid, params, flow, disp, start_level,
+                 devices):
+    """``lk_circular_quad`` with its slots split contiguously over
+    ``devices`` (an empty slice launches nothing); results on ``pts``'s
+    device. Copies between devices are ordered by their streams."""
+    home = pts.device
+    if flow is None:
+        flow = torch.zeros_like(pts)
+    if disp is None:
+        disp = torch.zeros_like(pts)
+    parts = []
+    for dev, idx in zip(devices, np.array_split(np.arange(pts.shape[-2]),
+                                                len(devices))):
+        if not len(idx):
+            continue
+        a, b = int(idx[0]), int(idx[-1]) + 1
+
+        def on(x):
+            return x[..., a:b, :].contiguous().to(dev)
+
+        ims = [im._replace(pyramid=tuple(p.to(dev) for p in im.pyramid))
+               for im in images]
+        parts.append(lk_circular_quad(
+            *ims, on(pts), valid[..., a:b].contiguous().to(dev), params,
+            flow=on(flow), disp=on(disp), start_level=start_level))
+    return tuple(torch.cat([p[i].to(home) for p in parts],
+                           dim=-2 if i < 4 else -1) for i in range(5))
 
 
 lk_circular_quad.launches = 0

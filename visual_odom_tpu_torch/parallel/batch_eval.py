@@ -1,4 +1,5 @@
-"""Multi-sequence batched evaluation: B sequences in lockstep on one card.
+"""Multi-sequence batched evaluation: B sequences in lockstep on one card or
+over a (data, model) device mesh.
 
 Port of ``visual_odom_tpu/parallel/batch_eval.py`` (BASELINE.json eval
 config 5, all KITTI sequences at once). B sequences advance through the
@@ -35,14 +36,15 @@ import torch
 from visual_odom_tpu_torch import resolve_device
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.parallel.batch import (batched_init_state,
+                                                  batched_state_arrays,
                                                   make_batched_scan_fn,
-                                                  make_batched_step_fn)
+                                                  make_batched_step_fn,
+                                                  restore_batched_state)
+from visual_odom_tpu_torch.parallel.mesh import Mesh
 from visual_odom_tpu_torch.runner.pipeline import (_ChunkUploader, _concat,
                                                    _fetch, _fetch_chunks,
                                                    _on_current_stream, _sync,
-                                                   chain_poses_host,
-                                                   restore_scan_state,
-                                                   state_arrays)
+                                                   chain_poses_host)
 from visual_odom_tpu_torch.utils.checkpoint import (BATCH_OUTPUTS,
                                                     CorruptCheckpoint,
                                                     load_batch_checkpoint,
@@ -62,13 +64,10 @@ def _frame_at(seq, i: int):
     return seq[j]
 
 
-def _batched_restore_state(config: VOConfig, ckpt: dict, lefts, rights,
-                           device):
-    """Batched state from a snapshot's stacked arrays and the checkpointed
-    frame's (B, H, W) images: the pyramids are rebuilt from them, and
-    sequence b's generator takes row b of ``gen_state`` on ``device``."""
-    return restore_scan_state(config, None, ckpt, lefts, rights,
-                              device=device)
+def _sync_all(dev, mesh) -> None:
+    """Wait for ``dev``, or for every device of ``mesh``."""
+    for d in dict.fromkeys(mesh.devices.flat if mesh is not None else [dev]):
+        _sync(d)
 
 
 def run_sequences_batched(sequences: Sequence, config: VOConfig,
@@ -76,7 +75,7 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
                           chunk: int = 0, checkpoint_path: str = "",
                           checkpoint_every: int = 0, verbose: bool = False,
                           snapshot_stats: Optional[list] = None,
-                          device=None):
+                          device=None, mesh: Optional[Mesh] = None):
     """Run B sequences in lockstep. Returns (list of (N_b, 4, 4) float64
     pose arrays, per-sequence stats dicts, wall_seconds).
 
@@ -103,8 +102,18 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
     the chunk grid) is rejected with a warning on stderr and the run starts
     fresh. ``snapshot_stats``, a list, gets one ``{"step", "ms", "bytes"}``
     per snapshot written (copies and write).
+
+    ``mesh`` (a ``parallel.mesh.data_model_mesh``, in place of ``device``)
+    runs the sharded batched step (``parallel.batch``): the sequences split
+    over its data rows, each quad launch over a row's model devices; frames
+    are uploaded to and outputs fetched from its first device. A run
+    resumed on the same mesh equals the uninterrupted one bit for bit.
     """
-    dev = resolve_device(device)
+    if mesh is not None and device is not None:
+        raise ValueError("run_sequences_batched takes a device or a mesh, "
+                         "not both")
+    dev = resolve_device(mesh.devices.flat[0] if mesh is not None
+                         else device)
     lengths = [len(s) for s in sequences]
     if not lengths or min(lengths) == 0:
         raise ValueError("run_sequences_batched needs sequences of at least "
@@ -124,10 +133,10 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
         parts, wall = _run_chunked(stacked, B, n_steps, config, intrinsics,
                                    seed, chunk, checkpoint_path,
                                    checkpoint_every, verbose, snapshot_stats,
-                                   dev)
+                                   dev, mesh)
     else:
         parts, wall = _run_stepwise(stacked, n_steps, config, intrinsics,
-                                    seed, dev)
+                                    seed, dev, mesh)
     if parts:
         out = _concat([(p,) for p in parts])[0]
         out = _BatchOut(*(x[:n_steps] for x in out))
@@ -150,14 +159,20 @@ def _kept(out) -> _BatchOut:
     return _BatchOut(*(getattr(out, k) for k in _BatchOut._fields))
 
 
-def _run_stepwise(stacked, n_steps, config, intrinsics, seed, dev):
+def _on(dev, mesh):
+    """The runner's ``device=`` / ``mesh=`` keywords, one of them set."""
+    return dict(mesh=mesh) if mesh is not None else dict(device=dev)
+
+
+def _run_stepwise(stacked, n_steps, config, intrinsics, seed, dev, mesh):
     """One batched step per frame; returns ([fetched _BatchOut], wall)."""
-    state = batched_init_state(config, *stacked(0), seed=seed, device=dev)
-    step = make_batched_step_fn(config, intrinsics, device=dev)
+    state = batched_init_state(config, *stacked(0), seed=seed,
+                               **_on(dev, mesh))
+    step = make_batched_step_fn(config, intrinsics, **_on(dev, mesh))
     outs = []
     with ThreadPoolExecutor(max_workers=1) as ex:
         pending = ex.submit(stacked, 1) if n_steps else None
-        _sync(dev)
+        _sync_all(dev, mesh)
         t0 = time.perf_counter()
         for i in range(1, n_steps + 1):
             lefts, rights = pending.result()
@@ -174,10 +189,10 @@ def _run_stepwise(stacked, n_steps, config, intrinsics, seed, dev):
 
 def _run_chunked(stacked, B, n_steps, config, intrinsics, seed, chunk,
                  checkpoint_path, checkpoint_every, verbose, snapshot_stats,
-                 dev):
+                 dev, mesh):
     """The chunked loop with its snapshots; returns ([fetched _BatchOut per
     part], wall)."""
-    scan = make_batched_scan_fn(config, intrinsics, chunk, device=dev)
+    scan = make_batched_scan_fn(config, intrinsics, chunk, **_on(dev, mesh))
     n_chunks = -(-n_steps // chunk)
     ck_chunks = (max(1, -(-checkpoint_every // chunk)) if checkpoint_every
                  else 1)
@@ -194,8 +209,9 @@ def _run_chunked(stacked, B, n_steps, config, intrinsics, seed, chunk,
             start_chunk = steps_done // chunk
             prev = _BatchOut(*(ck["out_" + k] for k in BATCH_OUTPUTS))
             if start_chunk < n_chunks:
-                state = _batched_restore_state(config, ck,
-                                               *stacked(steps_done), dev)
+                state = restore_batched_state(config, ck,
+                                              *stacked(steps_done),
+                                              **_on(dev, mesh))
             if verbose:
                 print(f"resumed batched scan from {checkpoint_path} "
                       f"at step {steps_done}")
@@ -204,7 +220,8 @@ def _run_chunked(stacked, B, n_steps, config, intrinsics, seed, chunk,
                   file=sys.stderr)
             start_chunk, prev, state = 0, None, None
     if state is None and start_chunk < n_chunks:
-        state = batched_init_state(config, *stacked(0), seed=seed, device=dev)
+        state = batched_init_state(config, *stacked(0), seed=seed,
+                                   **_on(dev, mesh))
 
     def chunk_at(c):
         # (chunk, B, H, W); the tail repeats the final frame, whose steps
@@ -225,7 +242,7 @@ def _run_chunked(stacked, B, n_steps, config, intrinsics, seed, chunk,
     chunks_done = start_chunk
     try:
         cur = up.get()
-        _sync(dev)
+        _sync_all(dev, mesh)
         t0 = time.perf_counter()
         while cur is not None:
             state, out = scan(state, _on_current_stream(cur[0]),
@@ -235,7 +252,7 @@ def _run_chunked(stacked, B, n_steps, config, intrinsics, seed, chunk,
             if (checkpoint_path and chunks_done < n_chunks
                     and (chunks_done - start_chunk) % ck_chunks == 0):
                 ts = time.perf_counter()
-                arrays = state_arrays(state)
+                arrays = batched_state_arrays(state)
                 fetch_pending()
                 steps_now = chunks_done * chunk
                 outs = _concat([(p,) for p in done])[0]

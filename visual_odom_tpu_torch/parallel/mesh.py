@@ -40,6 +40,24 @@ class Mesh:
         return int(self.devices.size)
 
 
+def axis_devices(mesh: Mesh, axis: str) -> list:
+    """The devices along ``axis``, at index 0 of every other axis: the
+    shards of a value split over ``axis`` and replicated over the rest."""
+    k = mesh.axis_names.index(axis)
+    index = [0] * mesh.devices.ndim
+    index[k] = slice(None)
+    return list(mesh.devices[tuple(index)])
+
+
+def split_ranges(n: int, parts: int) -> list:
+    """Contiguous (start, stop) ranges cutting ``n`` items into ``parts``,
+    their sizes differing by at most one (the first ranges take the
+    extra), as ``numpy.array_split`` cuts."""
+    sizes = [len(a) for a in np.array_split(np.arange(n), parts)]
+    stops = np.cumsum(sizes)
+    return [(int(b - s), int(b)) for s, b in zip(sizes, stops)]
+
+
 def visible_devices() -> list:
     """Every visible CUDA device; raises without a card."""
     resolve_device("cuda")

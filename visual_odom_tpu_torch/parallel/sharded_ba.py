@@ -1,0 +1,69 @@
+"""Distributed windowed bundle adjustment: landmark-sharded Schur reduction.
+
+Port of ``visual_odom_tpu/parallel/sharded_ba.py``. The reduced camera
+system
+
+    S   = Hpp - sum_l  Hpl_l Hll_l^-1 Hpl_l'
+    rhs = bp  - sum_l  Hpl_l Hll_l^-1 bl_l
+
+is a sum over LANDMARKS, so with the landmark axis split over the mesh's
+"model" devices each shard contracts its own landmarks
+(``ba.schur.schur_parts``) and one ``psum`` per GN iteration meets the
+four sums (``parallel.collectives``; the JAX package gets the same
+collective from a sharding constraint). The small dense solve of S (6W x
+6W) is replicated on every shard's device, with damping and the gauge
+prior applied once after the sum (``ba.schur.solve_reduced``); landmark
+back-substitution is local to each shard. Communication per GN iteration:
+(W, 6, 6), (W, 6), (W, W, 6, 6) and (W, 6) floats and one flag per shard,
+independent of L.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from visual_odom_tpu_torch.ba.problem import BAProblem
+from visual_odom_tpu_torch.ba.schur import (SchurParts, back_substitute,
+                                            schur_parts, solve_reduced)
+from visual_odom_tpu_torch.parallel.collectives import psum, replicated
+from visual_odom_tpu_torch.parallel.mesh import (Mesh, axis_devices,
+                                                 split_ranges)
+
+
+def sharded_ba_solve(problem: BAProblem, mesh: Mesh, iterations: int = 10,
+                     damping: float = 1e-4) -> BAProblem:
+    """GN bundle adjustment with the landmark axis sharded over the mesh's
+    "model" devices (an uneven split is allowed); poses replicated.
+
+    The same iteration as ``ba.schur.ba_solve``: with one shard it is
+    ``ba_solve`` bit for bit, with more the landmark sums are added in
+    another order. The non-finite guard is global: a non-finite update on
+    any shard leaves every shard's poses and landmarks where they were.
+    Returns the problem, on its own device, with the solved poses and
+    landmarks."""
+    devs = axis_devices(mesh, "model")
+    home = problem.poses.device
+    ranges = split_ranges(problem.landmarks.shape[0], len(devs))
+    shards = [problem._replace(
+        poses=problem.poses.to(d), landmarks=problem.landmarks[a:b].to(d),
+        observations=problem.observations[:, a:b].to(d),
+        mask=problem.mask[:, a:b].to(d)) for d, (a, b) in zip(devs, ranges)]
+    for _ in range(iterations):
+        parts, blocks = zip(*(schur_parts(s, damping) for s in shards))
+        summed = [SchurParts(*xs) for xs in zip(
+            *(psum([getattr(p, k) for p in parts])
+              for k in SchurParts._fields))]
+        dp = replicated(devs,
+                        lambda S, poses: solve_reduced(S, poses, damping),
+                        summed, [s.poses for s in shards])
+        dx = [back_substitute(b, d) for b, d in zip(blocks, dp)]
+        # shards with a non-finite update, counted on every device
+        bad = psum([(~(torch.isfinite(d).all() & torch.isfinite(x).all()))
+                    .to(torch.int32) for d, x in zip(dp, dx)])
+        shards = [s._replace(
+            poses=torch.where(n > 0, s.poses, s.poses - d),
+            landmarks=torch.where(n > 0, s.landmarks, s.landmarks - x))
+            for s, d, x, n in zip(shards, dp, dx, bad)]
+    return problem._replace(
+        poses=shards[0].poses.to(home),
+        landmarks=torch.cat([s.landmarks.to(home) for s in shards]))

@@ -13,10 +13,10 @@ reference invocation.
 
 `run` and `run-batch` step VO on `--device` (default `cuda`; `cpu` runs
 the plain PyTorch path and must be asked for): without a card and without
-`--device cpu` they exit non-zero. Three things wait for later work and
-exit 2 with a message: `--ba-ring` and a `run-batch` mesh of more than one
-device (the multi-device back end and the sharded batched step), and
-`bench` (the port's benchmark).
+`--device cpu` they exit non-zero. A mesh (`run --ba-ring`'s "seq" ring,
+`run-batch`'s (data, model) mesh) spans every visible card for `cuda` and
+the one named device for `cuda:N` or `cpu`. `bench` waits for the port's
+benchmark and exits 2 with a message.
 
 The devkit scorer the reference ships but never wires up
 (src/evaluate/evaluate_odometry.cpp:471-497 — main commented out) is a
@@ -64,12 +64,7 @@ _CONFIG_FLAGS = [
     ("lk-backend", "lk_backend", str),
 ]
 
-#: what each refused option waits for (ROADMAP.md)
-_WAITS_FOR_RING = ("--ba-ring waits for the sequence-parallel ring BA "
-                   "(parallel/ring_ba.py, ROADMAP item 18b); run without it")
-_WAITS_FOR_SHARDING = ("waits for the sharded batched step (ROADMAP item "
-                       "18b); run on one device: --device cuda:0 (or cpu) "
-                       "--data-parallel 1")
+#: what the refused subcommand waits for (ROADMAP.md)
 _WAITS_FOR_BENCH = ("bench waits for the port's benchmark (ROADMAP item 10); "
                     "bench.py belongs to the JAX package")
 
@@ -92,6 +87,34 @@ def add_device_flag(parser) -> None:
                              "card) or cpu (the plain PyTorch path)")
 
 
+def _mesh_devices(device: str) -> list:
+    """The devices a command's mesh spans: every visible card for "cuda",
+    the one named device for "cuda:N" or "cpu"."""
+    import torch
+
+    from visual_odom_tpu_torch.parallel.mesh import visible_devices
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return visible_devices()
+    return [dev]
+
+
+def _ring_solver(args):
+    """``--ba-ring [K]``: the sequence-parallel ring solver over a "seq"
+    mesh of min(K, available) devices (all of them without K), exact
+    (auto-halo from the observed track spans; ``ba_solve`` when the mesh
+    cannot afford the halo or has one device). None without the flag."""
+    if not args.ba_ring:
+        return None
+    from visual_odom_tpu_torch.parallel.mesh import make_mesh
+    from visual_odom_tpu_torch.parallel.ring_ba import make_ring_window_solver
+
+    devs = _mesh_devices(args.device)
+    n_dev = min(args.ba_ring, len(devs)) if args.ba_ring > 0 else len(devs)
+    return make_ring_window_solver(make_mesh({"seq": n_dev}, devs[:n_dev]))
+
+
 def config_from_args(args, h: int, w: int):
     from visual_odom_tpu_torch.config import VOConfig
 
@@ -112,9 +135,6 @@ def _cmd_run(args) -> int:
     from visual_odom_tpu_torch.io.kitti import save_poses_kitti
     from visual_odom_tpu_torch.runner.pipeline import run_sequence
 
-    if args.ba_ring:
-        print(_WAITS_FOR_RING, file=sys.stderr)
-        return 2
     intr = load_calibration(args.calibration)
     seq = None  # the random-access sequence (KITTI dir or synthetic)
 
@@ -204,6 +224,7 @@ def _cmd_run(args) -> int:
 
             poses = smooth_trajectory_ba(snaps, poses[: len(snaps) + 1],
                                          intr, window=args.ba_window,
+                                         solver=_ring_solver(args),
                                          max_landmarks=args.ba_landmarks,
                                          min_track_len=args.ba_min_track_len,
                                          huber_delta=args.ba_huber,
@@ -272,6 +293,7 @@ def _cmd_run(args) -> int:
             poses, results, snaps = out
             poses = smooth_trajectory_ba(snaps, poses, intr,
                                          window=args.ba_window,
+                                         solver=_ring_solver(args),
                                          max_landmarks=args.ba_landmarks,
                                          min_track_len=args.ba_min_track_len,
                                          huber_delta=args.ba_huber,
@@ -372,11 +394,9 @@ class _Limited:
 
 
 def _cmd_run_batch(args) -> int:
-    """Lockstep run of several sequences (BASELINE.json eval config 5) on
-    the one device of a (data, model) mesh."""
+    """Lockstep run of several sequences (BASELINE.json eval config 5) over
+    a (data, model) mesh."""
     import os
-
-    import torch
 
     from visual_odom_tpu_torch.config import load_calibration
     from visual_odom_tpu_torch.eval.kitti_eval import evaluate_sequence
@@ -388,19 +408,11 @@ def _cmd_run_batch(args) -> int:
     from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
     from visual_odom_tpu_torch.parallel.mesh import data_model_mesh
 
-    # "cuda" names every visible card, "cuda:N" and "cpu" one device.
-    dev = torch.device(args.device)
     try:
-        mesh = data_model_mesh(
-            data=args.data_parallel or None,
-            devices=None if dev.type == "cuda" and dev.index is None
-            else [dev])
+        mesh = data_model_mesh(data=args.data_parallel or None,
+                               devices=_mesh_devices(args.device))
     except ValueError as e:
-        print(f"run-batch: {e}; {_WAITS_FOR_SHARDING}", file=sys.stderr)
-        return 2
-    if mesh.size > 1:
-        print(f"run-batch: a mesh of {mesh.shape} {_WAITS_FOR_SHARDING}",
-              file=sys.stderr)
+        print(f"run-batch: {e}", file=sys.stderr)
         return 2
 
     intr = load_calibration(args.calibration)
@@ -416,8 +428,7 @@ def _cmd_run_batch(args) -> int:
     poses_list, stats, wall = run_sequences_batched(
         seqs, cfg, intr, chunk=args.chunk,
         checkpoint_path=args.checkpoint or "",
-        checkpoint_every=args.checkpoint_every,
-        device=mesh.devices.flat[0])
+        checkpoint_every=args.checkpoint_every, mesh=mesh)
     total_frames = sum(len(s) for s in seqs)
     print(f"{total_frames} frames / {len(seqs)} sequences in {wall:.1f}s "
           f"({total_frames / wall:.1f} frames/s aggregate)")
@@ -486,9 +497,9 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--ba-huber", type=float, default=1.5,
                     help="Huber delta (px) for the BA robust loss")
     pr.add_argument("--ba-ring", type=int, nargs="?", const=-1, default=0,
-                    help="shard each BA window's solve over a device ring; "
-                         "refused until the port's ring BA lands "
-                         "(ROADMAP item 18b)")
+                    help="shard each BA window's solve over a device ring "
+                         "(optionally: number of devices; default all). "
+                         "Exact: auto-halo with unsharded fallback.")
     pr.add_argument("--loop-close", action="store_true",
                     help="after the run: detect revisits in the estimate, "
                          "measure loop edges with real VO steps, solve the "

@@ -24,7 +24,8 @@ from visual_odom_tpu_torch import resolve_device
 from visual_odom_tpu_torch.ba.posegraph import (PoseGraph, _so3_log_stable,
                                                 build_keyframe_graph,
                                                 posegraph_solve,
-                                                redistribute_poses)
+                                                redistribute_poses,
+                                                sharded_posegraph_solve)
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.core.lie import rodrigues
 from visual_odom_tpu_torch.runner.pipeline import init_vo_state, make_step_fn
@@ -150,6 +151,7 @@ def close_loops(
     min_separation: int = 100,
     min_edge_inliers: int = 30,
     gn_iterations: int = 10,
+    mesh=None,
     gt_loop_pair: Optional[tuple] = None,
     max_measurements: int = 8,
     device=None,
@@ -165,6 +167,9 @@ def close_loops(
       min_edge_inliers: PnP consensus floor for accepting a measured loop
         edge: a failed wide-baseline match must not write a garbage
         constraint into the graph.
+      mesh: optional ``parallel.mesh.Mesh``: solves the graph edge-sharded
+        over its "model" axis (``sharded_posegraph_solve``) instead of on
+        ``device`` alone.
       gt_loop_pair: optional (i, j) for the closure metric frames (a loop
         course knows its schedule).
 
@@ -231,7 +236,9 @@ def close_loops(
         return poses, info
 
     graph = build_keyframe_graph(poses, kf, edges, device=dev)
-    solved = posegraph_solve(graph, iterations=gn_iterations)
+    solved = (sharded_posegraph_solve(graph, mesh, iterations=gn_iterations)
+              if mesh is not None else
+              posegraph_solve(graph, iterations=gn_iterations))
     new_poses = redistribute_poses(poses, kf, solved.nodes.cpu().numpy())
     return new_poses, info._replace(closure_after_m=closure(new_poses),
                                     graph=graph)

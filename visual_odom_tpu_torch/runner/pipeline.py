@@ -147,13 +147,15 @@ def init_vo_state(config: VOConfig, intrinsics: CameraIntrinsics, left0,
         generator=seeded_generator(seed, dev))
 
 
-def make_frontend_fn(config: VOConfig, device=None):
+def make_frontend_fn(config: VOConfig, device=None, slot_devices=None):
     """The step's first half, ``frontend(features, lk_l0, lk_r0, left_t1,
     right_t1) -> (lk_l1, lk_r1, bucketed, match, fallback)``: the new
     pair's pyramids, FAST (or Shi-Tomasi) and bucketing on L(t0), and the
     circular match under the skip policy, on the LK route
     ``config.lk_backend`` picks. ``make_step_fn`` and the pipelined runner's
-    frontend stage (``parallel.pipe``) both run it."""
+    frontend stage (``parallel.pipe``) both run it. ``slot_devices`` (a
+    mesh row's "model" devices, ``device`` first) splits each quad launch's
+    slots over them (``ops.lk_cuda.lk_circular_quad``)."""
     dev = resolve_device(device)
     params = _lk_params(config)
 
@@ -168,7 +170,8 @@ def make_frontend_fn(config: VOConfig, device=None):
         bucketed = detect_and_bucket(raw_l0, features, config)
 
         match, fallback = skip_mode_match(lk_l0, lk_r0, lk_l1, lk_r1,
-                                          bucketed, params, config)
+                                          bucketed, params, config,
+                                          slot_devices=slot_devices)
         return lk_l1, lk_r1, bucketed, match, fallback
 
     return frontend
@@ -228,7 +231,7 @@ def make_backend_fn(config: VOConfig, intrinsics: CameraIntrinsics,
 
 
 def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
-                 with_tracks: bool = False, device=None):
+                 with_tracks: bool = False, device=None, slot_devices=None):
     """Build the per-frame step ``step(state, left_t1, right_t1,
     uniforms=None, ess_uniforms=None) -> (new_state, StepOutput)``, or
     ``(new_state, StepOutput, TrackSnapshot)`` ``with_tracks``.
@@ -243,9 +246,11 @@ def make_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     of L(t0) -> L(t1) (``find_essential_ransac``, the reference's optional
     branch, src/visualOdometry.cpp:152-157) and the translation from PnP.
     Each frame draws PnP's uniforms and then the essential RANSAC's from
-    the sequence's generator, in that order."""
+    the sequence's generator, in that order. ``slot_devices`` splits the
+    LK quad's slots over a mesh row's "model" devices (``make_frontend_fn``;
+    ``parallel.batch`` passes them)."""
     dev = resolve_device(device)
-    frontend = make_frontend_fn(config, dev)
+    frontend = make_frontend_fn(config, dev, slot_devices)
     backend = make_backend_fn(config, intrinsics, dev)
     zero3 = torch.zeros(3, dtype=torch.float32, device=dev)
 
