@@ -187,13 +187,33 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    the batch) bit for bit, or SAME_TOL with the largest difference, and
    against phase 4's run (printed), under the bench gates (the checker
    course's ATE gated at full length only, as phase 4 explains), every chunk
-   under sync debug mode "error", the quad's launches split into
-   ``model`` slices. ``cli``:
+   under sync debug mode "error", each LK launch (the quad's, or the
+   per-leg route's level launches) split into ``model`` slices. ``cli``:
    ``run --ba-window CLI_BA_WINDOW --ba-ring RING_WINDOWS`` (one visible
    card: the one-device branch) byte for byte phase 11's ``--ba-window``
    file; ``run-batch --data-parallel 2`` refused on one card and, through
    a device list of this card named twice, stepped on a (2, 1) mesh to the
    poses of its rows' one-device runs.
+13. The same paths across processes, one rank per mesh position, on this
+   card (``ranks`` lines): GLOO_RANKS ranks over gloo (an explicit choice:
+   NCCL refuses two ranks on one card) and one rank over NCCL at world
+   size 1, spawned together (``chip_smoke.py --rank ...``), each with
+   RANK_TIMEOUT s; a failed or late rank fails the phase. The gloo ranks
+   first record whether gloo's all-gather and broadcast take CUDA
+   tensors, and two more processes whether its ``batch_isend_irecv`` does
+   (it does not: the port's gloo ``ppermute`` goes through the host; the
+   probe may end its own processes, which is recorded). Every rank
+   runs a ring ``ppermute`` (at world size 1 a send to itself through
+   NCCL's ``batch_isend_irecv``), ``sharded_ba_solve`` at
+   SHARDED_BA_PROBLEMS[0], ``ring_ba_solve`` on phase 12's problem,
+   ``close_loops(mesh=)`` on phase 7's chain with the frames phase 12
+   read (passed in an ``.npz``), and phase 4's batched courses (an
+   ``.npy``) for MESH_STEPS steps on RANK_MESHES on both LK routes. Each
+   result is held bit for bit to its one-process counterpart on the same
+   mesh shape (phase 12's batched runs; the solves and the loop closure
+   on this card named once per rank, computed meanwhile), with each
+   rank's launches per path, and on NCCL every chunk under sync debug
+   mode "error".
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -227,7 +247,7 @@ BATCH = 4
 SWEEP_B = (1, 4, 11)
 #: the batch at which the instances are timed again, where the card fills
 WIDE_B = 11
-SWEEP_STEPS = 32
+SWEEP_STEPS = 16
 LAUNCHES_PER_FRAME = 3        # fast quad + probe + safe quad (masked)
 #: per-leg route: 4 legs x (2 fast + 3 probe + 3 safe) levels
 LEVEL_LAUNCHES_PER_FRAME = 32
@@ -363,11 +383,20 @@ RING_HUBER_TOL = 5e-4
 RING_SMOOTH_TOL = 5e-4
 #: phase 4's batched courses on (data, model) meshes, each against the
 #: one-device run at its rows' batch (tests/test_torch_batch.py:59's bound
-#: where a pose is not bit for bit); 32 steps, one chunk, keep phase 12
-#: near its 90 s (each mesh run issues every row's ops from one thread)
-MESH_STEPS = 32
+#: where a pose is not bit for bit); 16 steps, one chunk (cut from 32 to
+#: make room for phase 13: each mesh run issues every row's ops from one
+#: thread)
+MESH_STEPS = 16
+MESH_CHUNK = 16
 MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
 SAME_TOL = 1e-5
+#: phase 13: ranks on this card over gloo (two processes may not share one
+#: card under NCCL), and each spawned rank's time limit (s)
+GLOO_RANKS = 2
+RANK_TIMEOUT = 240
+SEND_PROBE_TIMEOUT = 60
+#: phase 13's meshes of ranks, by world size
+RANK_MESHES = {2: ((2, 1), (1, 2)), 1: ((1, 1),)}
 
 
 def kitti_intrinsics(height: int, width: int):
@@ -380,17 +409,46 @@ def kitti_intrinsics(height: int, width: int):
                             width=width, height=height)
 
 
+#: courses built in a render worker process, by their arguments
+_COURSES = {}
+
+
+def _render_frames(args):
+    """Frames ``lo``..``hi`` of one course, in a render worker process."""
+    from visual_odom_tpu_torch.io.synthetic import make_course
+
+    name, family, n, height, width, lo, hi = args
+    key = (name, family, n, height, width)
+    if key not in _COURSES:
+        _COURSES[key] = make_course(name, kitti_intrinsics(height, width),
+                                    num_frames=n, texture_family=family)
+    return [_COURSES[key].frame(i) for i in range(lo, hi)]
+
+
 def render_courses(specs, height, width):
-    """{(name, family): (frames, gt poses)}: each course is built once and
-    its frames rendered on a thread pool (numpy releases the GIL)."""
+    """{(name, family): (frames, gt poses)}: each course's frames rendered
+    in chunks on a pool of spawned worker processes, one per core (the
+    renderer holds the GIL for much of a frame, so threads reach ~2x on 8
+    cores); a frame depends only on the course and its index."""
+    import multiprocessing
+
     from visual_odom_tpu_torch.io.synthetic import make_course
 
     intr = kitti_intrinsics(height, width)
-    out = {}
-    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+    workers = os.cpu_count() or 1
+    jobs, out = [], {}
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
         for name, family, n in specs:
+            cuts = np.linspace(0, n, min(n, 2 * workers) + 1).astype(int)
+            jobs.append((name, family, n, [
+                ex.submit(_render_frames, (name, family, n, height, width,
+                                           int(lo), int(hi)))
+                for lo, hi in zip(cuts[:-1], cuts[1:]) if hi > lo]))
+        for name, family, n, futures in jobs:
             seq = make_course(name, intr, num_frames=n, texture_family=family)
-            out[(name, family)] = (list(ex.map(seq.frame, range(n))), seq.poses)
+            out[(name, family)] = ([f for fu in futures for f in fu.result()],
+                                   seq.poses)
     return out
 
 
@@ -2501,17 +2559,24 @@ def posegraph_sharded_phase(frames, poses, gt, ref_poses, config, intr, dev):
     course with the graph solved edge-sharded over MODEL_SHARDS shards,
     against phase 7's ``close_loops`` (``mesh=None``); the closure before
     and after; ms per sharded and single solve. Returns its quad
-    launches (one loop-edge measurement: 2)."""
+    launches (one loop-edge measurement: 2) and the frames it read, by
+    index (phase 13 hands the ranks those alone)."""
     from visual_odom_tpu_torch.ba import posegraph
     from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
     from visual_odom_tpu_torch.runner import loopclosure
 
     mesh = card_mesh({"data": 1, "model": MODEL_SHARDS}, dev)
     lf = SyntheticStereoSequence._loop_schedule(len(frames))[2]
+    read = set()
+
+    def frame(i):
+        read.add(int(i))
+        return frames[i]
+
     reset_counts()
     new_poses, info = loopclosure.close_loops(
-        poses, lambda i: frames[i], config, intr, gt_loop_pair=(0, lf),
-        mesh=mesh, device=dev)
+        poses, frame, config, intr, gt_loop_pair=(0, lf), mesh=mesh,
+        device=dev)
     counts = read_counts()
     graph = info.graph
     res = dict(shards=MODEL_SHARDS, edges=info.edges,
@@ -2532,7 +2597,7 @@ def posegraph_sharded_phase(frames, poses, gt, ref_poses, config, intr, dev):
     if not (res["max_abs_dpose_vs_single"] < NODE_CARD_CPU_TOL
             and info.closure_after_m < info.closure_before_m):
         raise AssertionError(f"sharded pose graph: {res}")
-    return counts["quad"]
+    return counts["quad"], sorted(read)
 
 
 def _poses_agree(got, want):
@@ -2556,10 +2621,11 @@ def batch_mesh_phase(courses, bposes, xbposes, config, xconfig, intr, dev):
     course's ATE only at its full length, in phase 4: over its first
     steps the JAX package misses the budget too, see phase 4), every chunk
     stepped under CUDA sync debug mode "error", and the quad's launches
-    counted per mesh position (each row's 3 quads a step split into
-    ``model`` launches of n/model slots). Returns the launches per kernel
-    ({"quad_batched", "level_batched"}) and the quad route's per-row
-    reference poses."""
+    counted per mesh position (each row's 3 quads a step, or its 32 level
+    launches, split into ``model`` launches of n/model slots). Returns the
+    launches per kernel ({"quad_batched", "level_batched"}) and the
+    one-device reference poses by route and data rows ({route: {1: phase
+    4's, 2: the rows' own}})."""
     import torch
 
     from visual_odom_tpu_torch.ops import lk_cuda
@@ -2591,8 +2657,8 @@ def batch_mesh_phase(courses, bposes, xbposes, config, xconfig, intr, dev):
         by_rows = {1: unsharded, 2: [p for a, b in split_ranges(len(seqs), 2)
                                      for p in batch_eval.run_sequences_batched(
                                          seqs[a:b], cfg, intr, seed=a,
-                                         chunk=CHUNK, device=dev)[0]]}
-        row_refs[route] = by_rows[2]
+                                         chunk=MESH_CHUNK, device=dev)[0]]}
+        row_refs[route] = by_rows
         for rows, cols in MESH_SHAPES:
             want = by_rows[rows]
             mesh = card_mesh({"data": rows, "model": cols}, dev)
@@ -2602,7 +2668,7 @@ def batch_mesh_phase(courses, bposes, xbposes, config, xconfig, intr, dev):
             try:
                 with recorded_calls(lk_cuda, "lk_quad_cuda") as quads:
                     poses, stats, wall = batch_eval.run_sequences_batched(
-                        seqs, cfg, intr, chunk=CHUNK, mesh=mesh)
+                        seqs, cfg, intr, chunk=MESH_CHUNK, mesh=mesh)
             finally:
                 batch_eval.make_batched_scan_fn = real_scan
             counts = read_counts()
@@ -2621,7 +2687,7 @@ def batch_mesh_phase(courses, bposes, xbposes, config, xconfig, intr, dev):
                                             * MESH_STEPS)
             else:
                 expected["level_batched"] = (LEVEL_LAUNCHES_PER_FRAME * rows
-                                             * MESH_STEPS)
+                                             * cols * MESH_STEPS)
             slots = sorted(set(int(q[3].shape[-2]) for q in quads))
             batches = sorted(set(int(q[3].shape[0]) for q in quads))
             res = dict(route=route, mesh=mesh.shape, steps=MESH_STEPS,
@@ -2634,14 +2700,14 @@ def batch_mesh_phase(courses, bposes, xbposes, config, xconfig, intr, dev):
                        chunks_without_host_sync=len(strict),
                        launch_counts=counts,
                        launches_per_mesh_position=sum(counts.values())
-                       / (rows * cols if route == "pallas" else rows),
+                       / (rows * cols),
                        quad_slots=slots, quad_batch=batches,
                        sequences=per_seq)
             print("batch_mesh", json.dumps(res))
             want_slots = ([] if route != "pallas" else sorted(
                 {-(-384 // cols), 384 // cols, -(-64 // cols), 64 // cols}))
             if not ((same or diff < SAME_TOL) and counts == expected
-                    and len(strict) == MESH_STEPS // CHUNK
+                    and len(strict) == MESH_STEPS // MESH_CHUNK
                     and slots == want_slots
                     and all(r["accept"] >= 0.9
                             and (r["ate_m"] <= r["ate_budget_m"]
@@ -2649,7 +2715,7 @@ def batch_mesh_phase(courses, bposes, xbposes, config, xconfig, intr, dev):
                 raise AssertionError(f"batch mesh {mesh.shape}, {route}: {res}")
             for k in launches:
                 launches[k] += counts[k]
-    return launches, row_refs["pallas"]
+    return launches, row_refs
 
 
 def cli_mesh_phase(dirs, root, bposes, row_poses, config, dev):
@@ -2726,6 +2792,372 @@ def cli_mesh_phase(dirs, root, bposes, row_poses, config, dev):
     if not all(eq.values()):
         raise AssertionError(f"cli, mesh: {eq}")
     return {"quad": quad, "quad_batched": batched}
+
+
+def _rank_inputs(root, lposes, lgt_pair, lframes, loop_read, courses):
+    """Phase 13's inputs for the spawned ranks, under ``root``: phase 7's
+    chain and the loop frames ``close_loops`` reads (``loop.npz``), and
+    the batched courses' first MESH_STEPS + 1 frames (``batch.npy``,
+    (courses, frames, 2, H, W) uint8)."""
+    np.savez(os.path.join(root, "loop.npz"), poses=lposes,
+             pair=np.asarray(lgt_pair), index=np.asarray(loop_read),
+             frames=np.asarray([np.stack(lframes[i]) for i in loop_read],
+                               dtype=np.uint8).reshape(
+                 (len(loop_read), 2) + np.shape(lframes[0][0])))
+    np.save(os.path.join(root, "batch.npy"), np.stack([
+        np.stack([np.stack(f) for f in courses[k][0][:MESH_STEPS + 1]])
+        for k in BATCH_COURSES]))
+
+
+def _probe_gloo_cuda(dev) -> dict:
+    """Whether gloo's all-gather and broadcast take CUDA tensors, each
+    tried once on a group of its own."""
+    import torch
+    import torch.distributed as dist
+
+    me, world = dist.get_rank(), dist.get_world_size()
+    res = {}
+    for op in ("all_gather", "broadcast"):
+        group = dist.new_group(list(range(world)), backend="gloo")
+        x = torch.full((4,), float(me + 1), device=dev)
+        if op == "all_gather":
+            out = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(out, x, group=group)
+            res[op] = [float(o[0]) for o in out] == [r + 1.0
+                                                     for r in range(world)]
+        else:
+            dist.broadcast(x, src=0, group=group)
+            res[op] = float(x[0]) == 1.0
+        dist.destroy_process_group(group)
+    return res
+
+
+def send_probe_main(argv) -> int:
+    """``chip_smoke.py --gloo-send-probe PORT RANK``: two ranks over gloo
+    exchange CUDA tensors with ``batch_isend_irecv``; prints "sent" when
+    that works (gloo's TCP pairs write from host memory, so it may end the
+    process instead)."""
+    import torch
+    import torch.distributed as dist
+
+    port, rank = argv
+    rank = int(rank)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    x = torch.full((4,), float(rank + 1), device=dev)
+    y = torch.empty_like(x)
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                     dist.P2POp(dist.irecv, y, 1 - rank)]):
+        w.wait()
+    print("sent" if float(y[0]) == 2.0 - rank else "wrong", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 13 (``chip_smoke.py --rank BACKEND WORLD RANK PORT
+    DIR``) on ``cuda:0``: the multi-device paths on meshes of the group's
+    ranks, each result saved to DIR for the parent to hold to its
+    one-process counterpart."""
+    import torch
+    import torch.distributed as dist
+
+    from visual_odom_tpu_torch.ba import problem
+    from visual_odom_tpu_torch.config import VOConfig
+    from visual_odom_tpu_torch.parallel import batch_eval, collectives
+    from visual_odom_tpu_torch.parallel.mesh import (Rank,
+                                                     initialize_distributed,
+                                                     make_mesh, mesh_axis)
+    from visual_odom_tpu_torch.parallel.ring_ba import ring_ba_solve
+    from visual_odom_tpu_torch.parallel.sharded_ba import sharded_ba_solve
+    from visual_odom_tpu_torch.runner import loopclosure
+
+    backend, world, rank, port, where = argv
+    world, rank = int(world), int(rank)
+    dev = torch.device("cuda", 0)
+    coordinator = f"127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    if backend == "nccl":
+        initialize_distributed(coordinator, world, rank, device=dev)
+    else:
+        # gloo on the card: the phase's explicit choice, two ranks on one
+        # card (NCCL refuses a card named twice)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
+                                world_size=world, rank=rank)
+    res = {"backend": dist.get_backend(), "world": world, "rank": rank,
+           "init_s": time.perf_counter() - t0}
+    positions = [Rank(r, dev) for r in range(world)]
+    arrays = {}
+    if backend == "gloo":
+        res["gloo_cuda_tensors"] = _probe_gloo_cuda(dev)
+    # ppermute around the ring of ranks (at world size 1 a rank sends to
+    # itself: NCCL's batch_isend_irecv on the card)
+    line = mesh_axis(make_mesh({"x": world}, positions), "x")
+    x = torch.arange(3, dtype=torch.float32, device=dev) + rank
+    got = collectives.ppermute([x], [(k, (k + 1) % world)
+                                     for k in range(world)], line)[0]
+    res["ppermute_ring_ok"] = bool(torch.equal(
+        got, torch.arange(3, dtype=torch.float32, device=dev)
+        + (rank - 1) % world))
+
+    t = time.perf_counter()
+    p = problem.synthetic_ba_problem(num_poses=SHARDED_BA_PROBLEMS[0][0],
+                                     num_landmarks=SHARDED_BA_PROBLEMS[0][1],
+                                     seed=7, device=dev)[0]
+    got = sharded_ba_solve(p, make_mesh({"data": 1, "model": world},
+                                        positions),
+                           iterations=SHARDED_BA_ITERS)
+    arrays["sharded_ba_poses"] = got.poses.cpu().numpy()
+    arrays["sharded_ba_landmarks"] = got.landmarks.cpu().numpy()
+    res["sharded_ba_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    got = ring_ba_solve(_ring_problem(dev), make_mesh({"seq": world},
+                                                      positions),
+                        halo=RING_HALO, rounds=RING_ROUNDS,
+                        cg_iters=RING_CG_ITERS)
+    arrays["ring_poses"] = got.poses.cpu().numpy()
+    res["ring_s"] = time.perf_counter() - t
+
+    H_, W_ = H, W
+    config = VOConfig.for_image(H_, W_)
+    xconfig = VOConfig.for_image(H_, W_, lk_backend="xla")
+    intr = kitti_intrinsics(H_, W_)
+    loop = np.load(os.path.join(where, "loop.npz"))
+    frames = {int(i): tuple(f) for i, f in zip(loop["index"],
+                                                loop["frames"])}
+    t = time.perf_counter()
+    reset_counts()
+    new_poses, info = loopclosure.close_loops(
+        loop["poses"], lambda i: frames[int(i)], config, intr,
+        gt_loop_pair=tuple(int(v) for v in loop["pair"]),
+        mesh=make_mesh({"model": world}, positions), device=dev)
+    res["loop_counts"] = read_counts()
+    res["loop_s"] = time.perf_counter() - t
+    res["loop_edges"] = info.edges
+    arrays["loop_poses"] = new_poses
+
+    seqs_arr = np.load(os.path.join(where, "batch.npy"))
+    seqs = [[(f[0], f[1]) for f in c] for c in seqs_arr]
+    real_scan = batch_eval.make_batched_scan_fn
+    strict = []
+
+    def strict_scan_fn(*args, **kwargs):
+        scan = real_scan(*args, **kwargs)
+
+        def scan_strict(state, lefts, rights):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return scan(state, lefts, rights)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                strict.append(lefts.shape[0])
+
+        return scan_strict
+
+    res["batch"] = {}
+    for shape in RANK_MESHES[world]:
+        for cfg in (config, xconfig):
+            route = cfg.resolved_lk_backend()
+            mesh = make_mesh({"data": shape[0], "model": shape[1]},
+                             positions)
+            strict.clear()
+            # NCCL's collectives run on the card's streams: the chunks
+            # must never wait for the card; gloo's wait on the host
+            if backend == "nccl":
+                batch_eval.make_batched_scan_fn = strict_scan_fn
+            reset_counts()
+            try:
+                poses, stats, wall = batch_eval.run_sequences_batched(
+                    seqs, cfg, intr, chunk=MESH_CHUNK, mesh=mesh)
+            finally:
+                batch_eval.make_batched_scan_fn = real_scan
+            key = f"{shape[0]}x{shape[1]}_{route}"
+            res["batch"][key] = dict(
+                counts=read_counts(), wall_s=wall,
+                ms_per_step=1e3 * wall / MESH_STEPS,
+                chunks_without_host_sync=len(strict),
+                accept=[s["accept_ratio"] for s in stats])
+            arrays[f"batch_{key}"] = np.stack(poses)
+    res["total_s"] = time.perf_counter() - t0
+    np.savez(os.path.join(where, f"rank-{backend}-{rank}.npz"), **arrays)
+    with open(os.path.join(where, f"rank-{backend}-{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _ring_problem(dev):
+    """Phase 12's ring problem, as ``ring_phase`` builds it."""
+    from visual_odom_tpu_torch.ba import problem
+
+    return problem.synthetic_ba_problem(
+        num_poses=RING_POSES, num_landmarks=RING_LANDMARKS, pixel_noise=0.2,
+        pose_perturb=0.015, landmark_perturb=0.08, seed=3,
+        obs_window=RING_OBS_WINDOW, device=dev)[0]
+
+
+def _spawn_ranks(mode, world, root):
+    """Start ``world`` ranks on a free port, each this script in ``mode``
+    ("gloo" or "nccl": ``rank_main``; "send-probe": ``send_probe_main``);
+    their output goes to ``root``."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        argv = (["--gloo-send-probe", str(port), str(r)]
+                if mode == "send-probe" else
+                ["--rank", mode, str(world), str(r), str(port), root])
+        log = open(os.path.join(root, f"rank-{mode}-{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *argv],
+            stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _wait_ranks(procs, deadline) -> list:
+    """Wait for every rank until ``deadline`` (time.monotonic()); kill
+    every one still running then. Returns the failed or timed-out ranks'
+    arguments, exit codes and logs."""
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return [(p.args[3:6], p.returncode, open(log.name).read()[-3000:])
+            for p, log in procs if p.returncode]
+
+
+def ranks_phase(lposes, lframes, loop_read, loop_launches, courses,
+                mesh_refs, config, intr, dev, root):
+    """Phase 13: the multi-device paths across processes, one rank per
+    mesh position, on this card. GLOO_RANKS ranks over gloo and one rank
+    over NCCL (world size 1) run at once, each with RANK_TIMEOUT s; the
+    phase kills them all and fails on any failure. Each rank runs
+    ``sharded_ba_solve`` (SHARDED_BA_PROBLEMS[0]), ``ring_ba_solve``
+    (phase 12's problem), ``close_loops(mesh=)`` on phase 7's chain and
+    the loop frames phase 12 read, and phase 4's batched courses for
+    MESH_STEPS steps on RANK_MESHES on both LK routes. Every result is
+    held bit for bit to its one-process counterpart on the same mesh
+    shape: phase 12's batched runs, and the solves and the loop closure
+    on this card named once per rank, computed here while the ranks run;
+    each rank's launches per path (a loop closure makes phase 12's quad
+    launches; a batched step its route's launches, each of its slice),
+    and on NCCL every chunk under sync debug mode "error". Returns the
+    ranks' launches by path, summed over ranks."""
+    from visual_odom_tpu_torch.ba import problem
+    from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
+    from visual_odom_tpu_torch.parallel.mesh import make_mesh
+    from visual_odom_tpu_torch.parallel.ring_ba import ring_ba_solve
+    from visual_odom_tpu_torch.parallel.sharded_ba import sharded_ba_solve
+    from visual_odom_tpu_torch.runner import loopclosure
+
+    lgt_pair = (0, SyntheticStereoSequence._loop_schedule(len(lframes))[2])
+    _rank_inputs(root, lposes, lgt_pair, lframes, loop_read, courses)
+    t0 = time.monotonic()
+    sets = {"gloo": _spawn_ranks("gloo", GLOO_RANKS, root),
+            "nccl": _spawn_ranks("nccl", 1, root)}
+    probe = _spawn_ranks("send-probe", 2, root)
+    deadline = t0 + RANK_TIMEOUT
+    try:
+        refs = {}
+        for world in (GLOO_RANKS, 1):
+            devs = [dev] * world
+            p = problem.synthetic_ba_problem(
+                num_poses=SHARDED_BA_PROBLEMS[0][0],
+                num_landmarks=SHARDED_BA_PROBLEMS[0][1], seed=7,
+                device=dev)[0]
+            got = sharded_ba_solve(p, make_mesh({"data": 1, "model": world},
+                                                devs),
+                                   iterations=SHARDED_BA_ITERS)
+            ring = ring_ba_solve(_ring_problem(dev), make_mesh(
+                {"seq": world}, devs), halo=RING_HALO, rounds=RING_ROUNDS,
+                cg_iters=RING_CG_ITERS)
+            loop_poses, _ = loopclosure.close_loops(
+                lposes, lambda i: lframes[i], config, intr,
+                gt_loop_pair=lgt_pair, mesh=make_mesh({"model": world},
+                                                      devs), device=dev)
+            refs[world] = {"sharded_ba_poses": got.poses.cpu().numpy(),
+                           "sharded_ba_landmarks":
+                               got.landmarks.cpu().numpy(),
+                           "ring_poses": ring.poses.cpu().numpy(),
+                           "loop_poses": loop_poses}
+    finally:
+        bad = [b for procs in sets.values()
+               for b in _wait_ranks(procs, deadline)]
+        # the send probe may end its processes: recorded, not a failure
+        probed = _wait_ranks(probe, t0 + SEND_PROBE_TIMEOUT)
+        if bad:
+            raise AssertionError(f"phase 13 ranks failed or timed out: "
+                                 f"{bad}")
+    wall = time.monotonic() - t0
+    logs = [open(log.name).read() for _, log in probe]
+    send = ("takes CUDA tensors" if not probed
+            and all("sent" in t for t in logs) else
+            "refused CUDA tensors: " + "; ".join(
+                f"exit {p.returncode}: "
+                f"{(t.strip().splitlines() or [''])[-1][:160]}"
+                for (p, _), t in zip(probe, logs)))
+    print("ranks", json.dumps({"part": "gloo_cuda_send_recv",
+                               "batch_isend_irecv": send}))
+    launches = {"rank_loop_edges": 0, "rank_batch_mesh_quad": 0,
+                "rank_batch_mesh_level": 0}
+    failed = []
+    for backend, world in (("gloo", GLOO_RANKS), ("nccl", 1)):
+        for r in range(world):
+            with open(os.path.join(root, f"rank-{backend}-{r}.json")) as f:
+                res = json.load(f)
+            arr = np.load(os.path.join(root, f"rank-{backend}-{r}.npz"))
+            eq = {k: bool(np.array_equal(arr[k], refs[world][k]))
+                  for k in refs[world]}
+            launches["rank_loop_edges"] += res["loop_counts"]["quad"]
+            for key, run in res["batch"].items():
+                rows, cols = (int(v) for v in key.split("_")[0].split("x"))
+                route = key.split("_", 1)[1]
+                want = mesh_refs[route][rows]
+                eq[f"batch_{key}"] = bool(all(np.array_equal(a, b) for a, b in
+                                              zip(arr[f"batch_{key}"], want)))
+                counts = run["counts"]
+                launches["rank_batch_mesh_quad"] += counts["quad_batched"]
+                launches["rank_batch_mesh_level"] += counts["level_batched"]
+                per = (LAUNCHES_PER_FRAME if route == "pallas"
+                       else LEVEL_LAUNCHES_PER_FRAME) * MESH_STEPS
+                kernel = ("quad_batched" if route == "pallas"
+                          else "level_batched")
+                eq[f"launches_{key}"] = counts == dict(
+                    dict.fromkeys(counts, 0), **{kernel: per})
+                if backend == "nccl":
+                    eq[f"no_host_sync_{key}"] = (
+                        run["chunks_without_host_sync"]
+                        == MESH_STEPS // MESH_CHUNK)
+            eq["loop_launches"] = res["loop_counts"] == dict(
+                dict.fromkeys(res["loop_counts"], 0), quad=loop_launches)
+            eq["ppermute_ring"] = res["ppermute_ring_ok"]
+            line = dict(backend=res["backend"], world=world, rank=r,
+                        device=str(dev), bit_for_bit=eq,
+                        **{k: v for k, v in res.items()
+                           if k not in ("backend", "world", "rank")})
+            print("ranks", json.dumps(line))
+            if not all(eq.values()):
+                failed.append((backend, r, eq))
+    print("ranks", json.dumps({"part": "phase", "wall_s": wall,
+                               "launches_summed_over_ranks": launches}))
+    if failed:
+        raise AssertionError(f"phase 13: results differ from one process: "
+                             f"{failed}")
+    return launches
 
 
 def main() -> int:
@@ -2945,14 +3377,22 @@ def main() -> int:
         t = time.perf_counter()
         sharded_ba_phase(dev)
         ring_phase(straight_tracks, refs[0][0], intr, dev)
-        mesh_loop_launches = posegraph_sharded_phase(
+        mesh_loop_launches, loop_read = posegraph_sharded_phase(
             lframes, lposes, lgt, loop_poses, config, intr, dev)
-        mesh_launches, row_poses = batch_mesh_phase(courses, bposes, xbposes,
+        mesh_launches, mesh_refs = batch_mesh_phase(courses, bposes, xbposes,
                                                     config, xconfig, intr,
                                                     dev)
-        cli_mesh_launches = cli_mesh_phase(dirs, root, bposes, row_poses,
-                                           config, dev)
+        cli_mesh_launches = cli_mesh_phase(dirs, root, bposes,
+                                           mesh_refs["pallas"][2], config,
+                                           dev)
         print(f"phase 12: {time.perf_counter() - t:.1f} s")
+
+        # ---- phase 13: the same paths across processes, on this card -----
+        t = time.perf_counter()
+        rank_launches = ranks_phase(lposes, lframes, loop_read,
+                                    mesh_loop_launches, courses, mesh_refs,
+                                    config, intr, dev, root)
+        print(f"phase 13: {time.perf_counter() - t:.1f} s")
 
     default = lk_cuda.variant()
 
@@ -3014,14 +3454,17 @@ def main() -> int:
              "cli": cli_launches["quad"],
              "pipe": pipe_launches["quad"],
              "mesh_loop_edges": mesh_loop_launches,
-             "cli_ba_ring": cli_mesh_launches["quad"]},
+             "cli_ba_ring": cli_mesh_launches["quad"],
+             "rank_loop_edges": rank_launches["rank_loop_edges"]},
             quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
             {"batched_path": batched_run["kernel_launches"],
              "kitti_batched": kitti_launches["quad_batched"],
              "cli_batch": cli_launches["quad_batched"],
              "batch_mesh": mesh_launches["quad_batched"],
-             "cli_batch_mesh": cli_mesh_launches["quad_batched"]}, bquads,
+             "cli_batch_mesh": cli_mesh_launches["quad_batched"],
+             "rank_batch_mesh": rank_launches["rank_batch_mesh_quad"]},
+            bquads,
             bquads[0], False, wquad),
         row("lk_level_kernel", REPLACES_LEVEL,
             {"main_path": sum(r["kernel_launches"] for r in xruns),
@@ -3033,7 +3476,9 @@ def main() -> int:
             levels, finest(levels), True),
         row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
             {"batched_path": xbatched_run["kernel_launches"],
-             "batch_mesh": mesh_launches["level_batched"]}, blevels,
+             "batch_mesh": mesh_launches["level_batched"],
+             "rank_batch_mesh": rank_launches["rank_batch_mesh_level"]},
+            blevels,
             finest(blevels), True, finest(wlevels))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3043,4 +3488,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--gloo-send-probe"]:
+        sys.exit(send_probe_main(sys.argv[2:]))
     sys.exit(main())

@@ -14,7 +14,10 @@ whose card snapshot a CPU run refuses; and a KITTI directory of PNGs
 streamed through the native prefetcher and two upload threads, bit for bit
 the in-memory scan. The pipelined runner on two streams of one card, bit
 for bit the scan and never waiting for the card in its loop, and the
-command line's chunked run on the card.
+command line's chunked run on the card. The multi-device paths on meshes
+of this card and, with several cards, across them: from one process, and
+with one rank per card over NCCL (tests/torch_dist_worker.py spawns the
+ranks), each rank's result bit for bit the one-process run's.
 
 Every test here needs an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip where there is no card. This file imports neither JAX nor the
@@ -1096,3 +1099,94 @@ def test_sharded_posegraph_across_two_cards(cuda_device):
         graph, make_mesh({"model": 2}, devices=cards), iterations=8).nodes
     assert got.device == cards[0]
     assert float((got - ref).abs().max()) < NODE_TOL
+
+
+# ---- the same paths across processes: one rank per card over NCCL ------------
+
+
+def _worker():
+    """tests/torch_dist_worker.py, which runs each rank and spawns them."""
+    import torch_dist_worker
+
+    return torch_dist_worker
+
+
+def _cpu(x):
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_cpu(v) for v in x]
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_solvers_across_cards_over_nccl_ranks(cuda_device, tmp_path, n):
+    """One rank per card over NCCL: the LK quad and leg with their slots
+    split over the ranks, ``sharded_ba_solve`` (on a (1, n) and a (2, n/2)
+    mesh), ``ring_ba_solve`` (halo 2; auto halo, Huber) and
+    ``sharded_posegraph_solve``: every rank's result equals the one-process
+    run over the same cards bit for bit (the split LK launches also the
+    unsplit call's)."""
+    wk = _worker()
+    cards = _cards(n)
+
+    def one_process():
+        return _cpu({"lk": wk.run_lk(cards, device=cards[0]),
+                     "lk_unsplit": wk.run_lk(None, device=cards[0]),
+                     **wk.run_solvers(cards, n)})
+
+    ranks, ref = wk.run_ranks("card_core", n, str(tmp_path),
+                              during=one_process)
+    assert _same(ref["lk"], ref["lk_unsplit"])
+    for res in ranks:
+        assert res.keys() == ref.keys() - {"lk_unsplit"}
+        for key in res:
+            assert _same(_cpu(res[key]), ref[key]), key
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_batch_mesh_across_cards_over_nccl_ranks(cuda_device, tmp_path, n):
+    """``run_sequences_batched`` with one rank per card over NCCL, on
+    (2, 1) and (1, 2) meshes of 2 ranks or a (2, 2) mesh of 4, both LK
+    routes: every rank's poses equal the one-process mesh run over the
+    same cards bit for bit."""
+    from visual_odom_tpu_torch.parallel.batch_eval import (
+        run_sequences_batched)
+    from visual_odom_tpu_torch.parallel.mesh import make_mesh
+
+    wk = _worker()
+    cards = _cards(n)
+    seqs = wk.batch_sequences()
+
+    def one_process():
+        out = {}
+        for shape in wk.CARD_MESHES[n]:
+            for route in wk.ROUTES:
+                poses, _, _ = run_sequences_batched(
+                    seqs, wk.batch_config(route),
+                    CameraIntrinsics(**wk.INTR), seed=1,
+                    chunk=wk.BATCH_CHUNK, mesh=make_mesh(
+                        {"data": shape[0], "model": shape[1]},
+                        devices=cards))
+                out[f"{shape[0]}x{shape[1]}_{route}"] = poses
+        return out
+
+    ranks, ref = wk.run_ranks("card_batch", n, str(tmp_path),
+                              during=one_process)
+    for res in ranks:
+        assert res["runs"].keys() == ref.keys()
+        for key, want in ref.items():
+            got = [p.numpy() for p in res["runs"][key]["poses"]]
+            assert _same(got, want), key

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``visual_odom_tpu_torch``, not
-``chip_smoke.py`` and not the port's chip scripts import JAX or the JAX
-package, and ``chip_smoke.py`` refuses to run without a card or without the
-port beside it."""
+``chip_smoke.py``, not the port's chip scripts and not the ranks that
+tests/test_torch_distributed.py spawns (tests/torch_dist_worker.py) import
+JAX or the JAX package, and ``chip_smoke.py`` refuses to run without a card
+or without the port beside it."""
 
 import ast
 import os
@@ -19,7 +20,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "backend_courses.py",
                                         ROOT / "scripts" / "door_turns.py",
                                         ROOT / "scripts" / "kitti_turns.py",
-                                        ROOT / "scripts" / "pipe_turns.py"]
+                                        ROOT / "scripts" / "pipe_turns.py",
+                                        ROOT / "scripts" / "rank_times.py",
+                                        ROOT / "tests" / "torch_dist_worker.py"]
 #: modules the back end, the checkpoints, mono rotation, the front doors'
 #: host I/O, the KITTI input, evaluation, utilities, the command line and
 #: the multi-device paths added; the import check must reach them

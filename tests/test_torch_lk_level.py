@@ -11,6 +11,11 @@ rule is bit for bit: both routes run the same ``_template`` / ``_solve``
 per level, and the glue between levels scales by powers of two. The level
 kernel itself is held against its plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
+
+The per-leg route split over a mesh row's "model" devices (ROADMAP item
+18d; ``slot_devices=["cpu"] * 2`` and ``* 3``, an uneven split): each leg,
+and the circular match on the "xla" route, equals the unsplit leg and the
+quad route bit for bit.
 """
 
 import numpy as np
@@ -207,6 +212,61 @@ def test_chained_plain_legs_equal_plain_quad(leg_inputs, start_level):
         start_level)
     assert torch.equal(torch.stack(outs), quad)
     assert torch.equal(status, quad_status) and int(status.sum()) > 40
+
+
+@pytest.mark.parametrize("model", [2, 3])
+@pytest.mark.parametrize("start_level", [1, 2])
+def test_split_leg_equals_unsplit_leg(leg_inputs, start_level, model):
+    """The slots cut into ``model`` contiguous slices (64 slots: 32 + 32,
+    or 22 + 21 + 21), each tracked through every level, gathered back:
+    the unsplit leg bit for bit, single and batched."""
+    _, (li, lj), pts, valid, flow, _ = leg_inputs
+    ti, tj = to_port_image(li), to_port_image(lj)
+    p, v, f = (torch.from_numpy(x) for x in (pts, valid, flow))
+    before = lk_track_pyramid.launches
+    for I, J, x, ok, init in ((ti, tj, p, v, p + f),
+                              (*(im._replace(pyramid=tuple(
+                                  torch.stack([q, q]) for q in im.pyramid))
+                                 for im in (ti, tj)),
+                               torch.stack([p, p + 0.25]),
+                               torch.stack([v, v.flip(0)]),
+                               torch.stack([p + f, p - f]))):
+        ref = lk_track_pyramid(I, J, x, ok, LKParams(), init_pts=init,
+                               start_level=start_level)
+        got = lk_track_pyramid(I, J, x, ok, LKParams(), init_pts=init,
+                               start_level=start_level,
+                               slot_devices=[torch.device("cpu")] * model)
+        assert int(ref[1].sum()) > 40
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    # CPU tensors take the plain version: nothing counts as a launch
+    assert lk_track_pyramid.launches == before
+
+
+@pytest.mark.parametrize("model", [2, 3])
+@pytest.mark.parametrize("start_level", [1, 2])
+def test_split_xla_match_equals_quad_route(leg_inputs, start_level, model):
+    """``circular_match`` on the "xla" route with its legs split over
+    ``model`` devices equals the unsplit "xla" match and the "pallas"
+    match (quad split the same way, and unsplit) bit for bit."""
+    _, (li, lj), pts, valid, flow, disp = leg_inputs
+    ti, tj = to_port_image(li), to_port_image(lj)
+    feats = _feature_state(pts, valid, flow, disp, FeatureState,
+                           torch.tensor)
+    devs = [torch.device("cpu")] * model
+
+    def match(backend, slot_devices):
+        return circular_match(ti, tj, tj, ti, feats, LKParams(), 0.0,
+                              backend, seeding=True,
+                              seed_start_level=start_level,
+                              slot_devices=slot_devices)
+
+    ref = match("xla", None)
+    assert int(ref.valid.sum()) > 30
+    for got in (match("xla", devs), match("pallas", None),
+                match("pallas", devs)):
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
 
 
 H, W = 120, 160

@@ -1,0 +1,405 @@
+"""One rank of the port's multi-device paths over a gloo process group on
+the CPU, for ``tests/test_torch_distributed.py``.
+
+    python tests/torch_dist_worker.py <scenario> <host:port> <world> <rank> <dir>
+
+forms the group through ``initialize_distributed`` (gloo on the CPU; for
+a ``card_`` scenario NCCL, rank r on ``cuda:r``), runs ``scenario`` on
+meshes of the group's ranks and saves what it computed to
+``<dir>/<scenario>-rank<rank>.pt``. The inputs are built here, from seeds,
+by the same functions the tests call for their one-process runs; the
+batched scenario also reads the JAX package's state and RANSAC draws from
+``<dir>/jax_batch.npz``. This file imports the port alone.
+
+- ``core``: the collectives over a line of ranks, the LK quad and one leg
+  with their slots split over the ranks, ``sharded_ba_solve``,
+  ``ring_ba_solve`` and ``sharded_posegraph_solve``.
+- ``batch``: ``run_sequences_batched`` on (2, 1) and (1, 2) meshes of
+  ranks on both LK routes, and the (2, 1) and (1, 2) mesh steps from JAX's
+  state fed JAX's draws.
+- ``card_core``, ``card_batch``: the split LK launches and the solvers,
+  and ``run_sequences_batched`` on both routes on CARD_MESHES, one rank per
+  card (tests/test_torch_cuda.py).
+"""
+
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+from visual_odom_tpu_torch.ba import posegraph, problem  # noqa: E402
+from visual_odom_tpu_torch.config import (CameraIntrinsics,  # noqa: E402
+                                          VOConfig)
+from visual_odom_tpu_torch.interop import state_from_numpy  # noqa: E402
+from visual_odom_tpu_torch.io.synthetic import (  # noqa: E402
+    SyntheticStereoSequence)
+from visual_odom_tpu_torch.ops import lk_cuda  # noqa: E402
+from visual_odom_tpu_torch.ops.lk import (LKParams,  # noqa: E402
+                                          lk_track_pyramid, prepare_lk_image)
+from visual_odom_tpu_torch.parallel import batch, collectives  # noqa: E402
+from visual_odom_tpu_torch.parallel.batch_eval import (  # noqa: E402
+    run_sequences_batched)
+from visual_odom_tpu_torch.parallel.mesh import (  # noqa: E402
+    initialize_distributed, make_mesh, mesh_axis, visible_devices)
+from visual_odom_tpu_torch.parallel.ring_ba import ring_ba_solve  # noqa: E402
+from visual_odom_tpu_torch.parallel.sharded_ba import (  # noqa: E402
+    sharded_ba_solve)
+
+H, W = 120, 160
+INTR = dict(fx=120.0, fy=120.0, cx=W / 2, cy=H / 2, bf=-120.0 * 0.54,
+            width=W, height=H)
+#: sharded BA: 61 landmarks, split unevenly over 2 and 4 shards
+BA = dict(num_poses=6, num_landmarks=61, seed=3, obs_window=2)
+BA_ITERS = 4
+#: the ring: tests/test_ring_ba.py's 16-pose problem (tracks of 2 poses)
+RING = dict(num_poses=16, num_landmarks=128, pixel_noise=0.2,
+            pose_perturb=0.015, landmark_perturb=0.08, seed=3, obs_window=1)
+#: the pose graph: a drifted circle of 39 nodes and 39 edges (38 in
+#: sequence, one loop), padded with a zero-weight edge to 40
+GRAPH_NODES = 39
+#: the batched runs: B sequences, steps, chunk and the draws' steps
+BATCH_B = 3
+BATCH_STEPS = 12
+BATCH_CHUNK = 6
+BATCH_CFG = dict(ransac_iterations=100, lk_max_iters=10)
+JAX_STEPS = (4, 5, 6)
+MESHES = ((2, 1), (1, 2))
+ROUTES = ("pallas", "xla")
+#: the meshes of one rank per card, by world size
+CARD_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+
+
+def collective_inputs(D: int) -> dict:
+    """Per-shard operands: values whose float sum depends on the order, a
+    vector per shard and shards of unequal lengths."""
+    rng = np.random.default_rng(D)
+    order = [1e8, 1.0, -1e8, 1.0]
+    return {
+        "order": [torch.tensor([order[k % 4]], dtype=torch.float32)
+                  for k in range(D)],
+        "vec": [torch.from_numpy(rng.normal(size=5).astype(np.float32))
+                for _ in range(D)],
+        "ragged": [torch.from_numpy(rng.normal(size=(3 - k % 2, 2))
+                                    .astype(np.float32)) for k in range(D)]}
+
+
+def line_perm(D: int) -> list:
+    """k -> k + 1: shard 0 receives nothing."""
+    return [(k, k + 1) for k in range(D - 1)]
+
+
+def ring_perm(D: int) -> list:
+    return [(k, (k + 1) % D) for k in range(D)]
+
+
+def run_collectives(inputs: dict, D: int, axis) -> dict:
+    """Every collective on this process's shards of ``inputs``; the results
+    of the shards it holds, by shard index."""
+    mine = collectives.shards(axis)
+
+    def local(name):
+        return [inputs[name][k] for k, _ in mine]
+
+    psum_order = collectives.psum(local("order"), axis)
+    bcast = collectives.broadcast(inputs["vec"][0] if mine[0][0] == 0
+                                  else torch.zeros(5), axis)
+    out = {"psum_order": psum_order,
+           "psum_vec": collectives.psum(local("vec"), axis),
+           "broadcast": bcast,
+           "ppermute_line": collectives.ppermute(local("vec"), line_perm(D),
+                                                 axis),
+           "ppermute_ring": collectives.ppermute(local("vec"), ring_perm(D),
+                                                 axis),
+           "replicated": collectives.replicated(
+               axis, lambda a, b: a * 3.0 + b, psum_order, bcast),
+           "gather": [torch.cat(collectives.gather(
+               local("ragged"), axis,
+               sizes=[x.shape[0] for x in inputs["ragged"]]))] * len(mine)}
+    return {name: {k: v for (k, _), v in zip(mine, vals)}
+            for name, vals in out.items()}
+
+
+def quad_inputs(device="cpu"):
+    """A batched quad of two sequences' frames 0 and 1 at 120x160, 48
+    slots (some invalid), seeds within +-1.5 px, on ``device``."""
+    intr = CameraIntrinsics(**INTR)
+    frames = [list(SyntheticStereoSequence(intr, num_frames=2, seed=s,
+                                           speed=0.5)) for s in range(2)]
+    params = LKParams(max_iters=10)
+    imgs = [prepare_lk_image(torch.from_numpy(np.stack(
+        [f[t][s] for f in frames]).astype(np.float32)).to(device), params)
+        for t, s in ((0, 0), (0, 1), (1, 1), (1, 0))]
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(np.stack([rng.uniform(15, W - 15, (2, 48)),
+                                     rng.uniform(15, H - 15, (2, 48))],
+                                    axis=-1).astype(np.float32))
+    valid = torch.from_numpy(rng.random((2, 48)) < 0.85)
+    flow = torch.from_numpy(rng.uniform(-1.5, 1.5, (2, 48, 2))
+                            .astype(np.float32))
+    return imgs, pts.to(device), valid.to(device), flow.to(device), params
+
+
+def run_lk(slot_devices, start_level: int = 2, device="cpu") -> dict:
+    """The quad and one leg L0 -> R0 on ``quad_inputs`` on ``device``,
+    slots split over ``slot_devices`` (None: unsplit)."""
+    imgs, pts, valid, flow, params = quad_inputs(device)
+    quad = lk_cuda.lk_circular_quad(*imgs, pts, valid, params, flow=flow,
+                                    disp=-flow, start_level=start_level,
+                                    slot_devices=slot_devices)
+    leg = lk_track_pyramid(imgs[0], imgs[1], pts, valid, params,
+                           init_pts=pts - flow, start_level=start_level,
+                           slot_devices=slot_devices)
+    return {"quad": list(quad), "leg": list(leg)}
+
+
+def ba_problem():
+    return problem.synthetic_ba_problem(device="cpu", **BA)[0]
+
+
+def ring_problems() -> dict:
+    """The ring's problem, and the same with one gross outlier (Huber)."""
+    p = problem.synthetic_ba_problem(device="cpu", **RING)[0]
+    obs = p.observations.clone()
+    w, lm = np.argwhere(p.mask.numpy())[0]
+    obs[w, lm, :2] += 25.0
+    return {"halo2": p, "huber": p._replace(observations=obs)}
+
+
+#: the ring's two solves: ring_ba_solve keywords
+RING_RUNS = {"halo2": dict(halo=2, rounds=10),
+             "huber": dict(halo=None, rounds=8, huber_delta=1.5)}
+
+
+def circle_graph():
+    """A drifted circle of GRAPH_NODES keyframes closed by one loop edge."""
+    n = GRAPH_NODES
+    th = 2 * np.pi * np.arange(n) / n
+    truth = np.tile(np.eye(4), (n, 1, 1))
+    truth[:, 0, 0] = truth[:, 2, 2] = np.cos(th)
+    truth[:, 0, 2], truth[:, 2, 0] = np.sin(th), -np.sin(th)
+    truth[:, 0, 3], truth[:, 2, 3] = 10 * np.sin(th), 10 * (1 - np.cos(th))
+    rng = np.random.default_rng(3)
+    est = truth.copy()
+    est[:, :3, 3] += np.cumsum(rng.normal(0, 0.02, (n, 3)), axis=0)
+    return posegraph.build_keyframe_graph(
+        est, np.arange(n), [(0, n - 1, np.linalg.inv(truth[0]) @ truth[-1],
+                             10.0)], device="cpu")
+
+
+def run_solvers(devices, D: int) -> dict:
+    """The three solvers on meshes of ``devices``: landmark shards on a
+    (1, D) mesh and on the model axis of a (2, D / 2) mesh (each data row
+    solves alike), the ring on a "seq" axis of D, the graph's edges over a
+    "model" axis of D."""
+    out = {}
+    p = ba_problem()
+    meshes = {"1xD": {"data": 1, "model": D},
+              "rows": {"data": 2, "model": D // 2}}
+    for name, axes in meshes.items():
+        got = sharded_ba_solve(p, make_mesh(axes, devices),
+                               iterations=BA_ITERS)
+        out[f"sharded_ba_{name}"] = [got.poses, got.landmarks]
+    seq = make_mesh({"seq": D}, devices)
+    for name, prob in ring_problems().items():
+        got = ring_ba_solve(prob, seq, **RING_RUNS[name])
+        out[f"ring_{name}"] = [got.poses, got.landmarks]
+    got = posegraph.sharded_posegraph_solve(
+        circle_graph(), make_mesh({"model": D}, devices), iterations=8)
+    out["posegraph"] = [got.nodes]
+    return out
+
+
+def batch_sequences() -> list:
+    """BATCH_B sequences of BATCH_STEPS + 1 frames at 120x160."""
+    intr = CameraIntrinsics(**INTR)
+    return [list(SyntheticStereoSequence(intr, num_frames=BATCH_STEPS + 1,
+                                         seed=s, speed=0.5))
+            for s in range(BATCH_B)]
+
+
+def batch_config(route: str) -> VOConfig:
+    return VOConfig.for_image(H, W, lk_backend=route, **BATCH_CFG)
+
+
+def run_batch(devices, sequences, meshes=MESHES) -> dict:
+    """``run_sequences_batched`` on each of ``meshes`` and ROUTES: the
+    poses and the stats."""
+    intr = CameraIntrinsics(**INTR)
+    out = {}
+    for shape in meshes:
+        for route in ROUTES:
+            mesh = make_mesh({"data": shape[0], "model": shape[1]}, devices)
+            poses, stats, _ = run_sequences_batched(
+                sequences, batch_config(route), intr, seed=1,
+                chunk=BATCH_CHUNK, mesh=mesh)
+            out[f"{shape[0]}x{shape[1]}_{route}"] = {
+                "poses": [torch.from_numpy(p) for p in poses],
+                "accept": torch.tensor([s["accept_ratio"] for s in stats],
+                                       dtype=torch.float64),
+                "inliers": torch.tensor([s["mean_inliers"] for s in stats],
+                                        dtype=torch.float64)}
+    return out
+
+
+def jax_fed_steps(devices, path: str, wait_s: float = 90.0) -> dict:
+    """The mesh step of each of MESHES from the JAX package's batched state
+    after frame 3, fed JAX's draws for JAX_STEPS (``path``: the test's
+    npz, waited for up to ``wait_s`` seconds: the test computes it while
+    the ranks run): the outputs of each step."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > wait_s:
+            raise TimeoutError(f"{path} did not appear in {wait_s} s")
+        time.sleep(0.2)
+    d = np.load(path)
+    intr = CameraIntrinsics(**INTR)
+    cfg = VOConfig.for_image(H, W, ransac_iterations=BATCH_CFG[
+        "ransac_iterations"])
+    out = {}
+    for shape in MESHES:
+        mesh = make_mesh({"data": shape[0], "model": shape[1]}, devices)
+        me = batch._rank_row(mesh)
+        a, b = me.ranges(d["lefts0"].shape[0])[me.row]
+        state = batch.MeshState((state_from_numpy(jax_rows(d, a, b), seed=a,
+                                                  device=me.device),))
+        step = batch.make_batched_step_fn(cfg, intr, mesh=mesh)
+        outs = []
+        for s in JAX_STEPS:
+            state, o = step(state, torch.from_numpy(d[f"lefts{s}"]),
+                            torch.from_numpy(d[f"rights{s}"]),
+                            uniforms=torch.from_numpy(d[f"uniforms{s}"]))
+            outs.append({k: getattr(o, k) for k in o._fields})
+        out[f"{shape[0]}x{shape[1]}"] = outs
+    return out
+
+
+def jax_rows(d, a: int, b: int) -> dict:
+    """Sequences a..b of the JAX state saved as ``state_*`` arrays, in the
+    form ``interop.state_from_numpy`` takes."""
+    def image(prefix):
+        n = int(d[f"{prefix}_levels"])
+        return {"pyramid": [d[f"{prefix}_pyramid{i}"][a:b] for i in range(n)],
+                "shapes": [tuple(s) for s in d[f"{prefix}_shapes"]],
+                "pad": int(d[f"{prefix}_pad"])}
+
+    feats = ("points", "ages", "valid", "ids", "next_id", "flow", "disp")
+    return {"features": {k: d[f"state_features_{k}"][a:b] for k in feats},
+            "lk_l0": image("state_lk_l0"), "lk_r0": image("state_lk_r0"),
+            "tvec": d["state_tvec"][a:b]}
+
+
+# ---- the launcher: spawns a set of ranks and waits for them ------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: seconds a set of ranks may take, each rank
+TIMEOUT = 120
+
+
+def start_ranks(scenario, world, where):
+    """Spawn the ranks of one set on a free port; each writes its log to
+    ``where``. CPU scenarios hide the cards."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    if not scenario.startswith("card_"):
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(where, f"{scenario}-rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), scenario,
+             coordinator, str(world), str(r), str(where)], env=env,
+            stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def finish_ranks(procs, scenario, where, timeout=TIMEOUT):
+    """Wait for every rank (``timeout`` seconds from now), killing them all
+    on a failure or a timeout. Returns (all exited 0, the ranks' logs)."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    logs = [open(os.path.join(where, f"{scenario}-rank{r}.log")).read()
+            for r in range(len(procs))]
+    return all(p.returncode == 0 for p, _ in procs), logs
+
+
+def run_ranks(scenario, world, where, during=None):
+    """One set of ranks to its end (``during()`` runs in the caller
+    meanwhile); returns (each rank's saved results, on the CPU,
+    ``during()``'s result). Retries once on a port taken between choosing
+    and binding it; raises with the ranks' logs on any other failure."""
+    for attempt in (0, 1):
+        procs = start_ranks(scenario, world, where)
+        extra = None
+        try:
+            extra = during() if during is not None else None
+        finally:
+            ok, logs = finish_ranks(procs, scenario, where)
+        if ok:
+            return [torch.load(os.path.join(where, f"{scenario}-rank{r}.pt"),
+                               map_location="cpu", weights_only=False)
+                    for r in range(world)], extra
+        if attempt == 0 and any("ddress already in use" in t for t in logs):
+            continue
+        raise AssertionError(f"{scenario} over {world} ranks failed:\n"
+                             + "\n".join(t[-3000:] for t in logs))
+
+
+def main() -> int:
+    scenario, coordinator, world, rank, where = sys.argv[1:6]
+    world, rank = int(world), int(rank)
+    card = scenario.startswith("card_")
+    initialize_distributed(coordinator=coordinator, num_processes=world,
+                           process_id=rank,
+                           device=torch.device("cuda", rank) if card
+                           else "cpu")
+    devices = visible_devices()
+    assert [p.rank for p in devices] == list(range(world))
+    if card:
+        assert [p.device for p in devices] == [
+            torch.device("cuda", r) for r in range(world)]
+    if scenario == "card_core":
+        axis = mesh_axis(make_mesh({"x": world}, devices), "x")
+        res = {"lk": run_lk(axis, device=devices[rank].device),
+               **run_solvers(devices, world)}
+    elif scenario == "card_batch":
+        res = {"runs": run_batch(devices, batch_sequences(),
+                                 CARD_MESHES[world])}
+    elif scenario == "core":
+        axis = mesh_axis(make_mesh({"x": world}, devices), "x")
+        res = {"collectives": run_collectives(collective_inputs(world), world,
+                                              axis),
+               "lk": run_lk(axis), **run_solvers(devices, world)}
+    elif scenario == "batch":
+        res = {"runs": run_batch(devices, batch_sequences()),
+               "jax_fed": jax_fed_steps(devices, os.path.join(
+                   where, "jax_batch.npz"))}
+    else:
+        raise ValueError(f"unknown scenario {scenario!r}")
+    torch.save(res, os.path.join(where, f"{scenario}-rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    print(f"rank {rank} OK", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

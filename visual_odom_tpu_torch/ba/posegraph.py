@@ -174,7 +174,7 @@ def sharded_posegraph_solve(graph: PoseGraph, mesh, iterations: int = 10,
                             damping: float = 1e-4,
                             axis: str = "model") -> PoseGraph:
     """``posegraph_solve`` with the EDGE axis split over ``mesh``'s
-    ``axis`` devices (``parallel.mesh.axis_devices``); nodes replicated.
+    ``axis`` (``parallel.mesh.mesh_axis``); nodes replicated.
 
     The edges are padded to a multiple of the axis size with zero-weight
     self-edges on node 0 (exact: weight 0 contributes nothing) and split
@@ -182,12 +182,15 @@ def sharded_posegraph_solve(graph: PoseGraph, mesh, iterations: int = 10,
     (``_edge_terms``); one ``psum`` meets them, and the gauge and the
     damping go on once, after it. The solve and the retraction run on each
     shard's device. Returns the graph, on its own device, with the solved
-    nodes."""
-    from visual_odom_tpu_torch.parallel.collectives import psum, replicated
-    from visual_odom_tpu_torch.parallel.mesh import axis_devices
+    nodes; on a mesh of ranks every rank passes the same graph and gets
+    the same solved nodes."""
+    from visual_odom_tpu_torch.parallel.collectives import (axis_size, psum,
+                                                            replicated,
+                                                            shards)
+    from visual_odom_tpu_torch.parallel.mesh import mesh_axis
 
-    devs = axis_devices(mesh, axis)
-    D = len(devs)
+    ax = mesh_axis(mesh, axis)
+    D = axis_size(ax)
     E = graph.edges.shape[0]
     pad = (-E) % D
     dev = graph.nodes.device
@@ -199,16 +202,16 @@ def sharded_posegraph_solve(graph: PoseGraph, mesh, iterations: int = 10,
                                                   device=dev)])
     rel_inv = _se3_inv(rel)
     per = (E + pad) // D
-    shards = [(edges[k * per:(k + 1) * per].to(d),
-               rel_inv[k * per:(k + 1) * per].to(d),
-               weight[k * per:(k + 1) * per].to(d))
-              for k, d in enumerate(devs)]
-    nodes = [graph.nodes.to(d) for d in devs]
+    mine = shards(ax)
+    local = [(edges[k * per:(k + 1) * per].to(d),
+              rel_inv[k * per:(k + 1) * per].to(d),
+              weight[k * per:(k + 1) * per].to(d)) for k, d in mine]
+    nodes = [graph.nodes.to(d) for _, d in mine]
     for _ in range(iterations):
-        H, b, _ = zip(*(_edge_terms(n, *s) for n, s in zip(nodes, shards)))
+        H, b, _ = zip(*(_edge_terms(n, *s) for n, s in zip(nodes, local)))
         nodes = replicated(
-            devs, lambda n, H, b: _gn_update(n, *_pin_and_damp(H, b, damping)),
-            nodes, psum(H), psum(b))
+            ax, lambda n, H, b: _gn_update(n, *_pin_and_damp(H, b, damping)),
+            nodes, psum(H, ax), psum(b, ax))
     return graph._replace(nodes=nodes[0].to(dev))
 
 

@@ -54,9 +54,9 @@ def circular_match(img_l0: LKImage, img_r0: LKImage, img_l1: LKImage,
     ``seeding`` starts each leg from the feature's previous flow/disparity
     (clamped to +-(cols/4, rows/4), so a corrupt carry degrades to a bad
     seed); coarse-level skipping (``seed_start_level``) applies only then.
-    ``slot_devices`` splits the quad route's launch over a mesh row's
-    "model" devices (``lk_circular_quad``); the per-leg route runs on the
-    operands' device.
+    ``slot_devices`` splits each route's launches over a mesh row's
+    "model" positions: the quad's slots (``lk_circular_quad``), or each
+    leg's (``lk_track_pyramid``).
     """
     if backend not in LK_BACKENDS:
         raise ValueError(f"backend must be one of {LK_BACKENDS}, got "
@@ -86,7 +86,8 @@ def circular_match(img_l0: LKImage, img_r0: LKImage, img_l1: LKImage,
     else:
         def track(img_i, img_j, pts, init):
             return lk_track_pyramid(img_i, img_j, pts, valid_in, params,
-                                    init_pts=init, start_level=sl)
+                                    init_pts=init, start_level=sl,
+                                    slot_devices=slot_devices)
 
         pts_r0, s0 = track(img_l0, img_r0, pts_l0, pts_l0 + disp)
         pts_r1, s1 = track(img_r0, img_r1, pts_r0, pts_r0 + flow)
@@ -140,8 +141,9 @@ def skip_mode_match(img_l0, img_r0, img_l1, img_r1, bucketed: FeatureState,
     level launches (fast quad 4 legs x 2 levels, probe and safe quad 4 x 3
     each, at the default levels). In a batched state ``aliased`` is (B,):
     each sequence picks its own result, as the JAX package's vmapped
-    ``lax.cond`` (a select) does. ``slot_devices`` splits every quad
-    launch over a mesh row's "model" devices (``circular_match``).
+    ``lax.cond`` (a select) does. ``slot_devices`` splits every LK
+    launch over a mesh row's "model" positions
+    (``circular_match``).
 
     Returns (CircularMatchResult, fallback () bool, or (B,) batched).
     """

@@ -77,7 +77,8 @@ def prepare_lk_image(img: torch.Tensor,
 
 def lk_track_pyramid(image_I: LKImage, image_J: LKImage, pts: torch.Tensor,
                      valid: torch.Tensor, params: LKParams = LKParams(),
-                     init_pts: torch.Tensor = None, start_level: int = None):
+                     init_pts: torch.Tensor = None, start_level: int = None,
+                     slot_devices=None):
     """Track features from image I to image J, one level launch per level.
 
     pts: (n, 2) float32 source positions (x, y) at full resolution; valid:
@@ -88,8 +89,20 @@ def lk_track_pyramid(image_I: LKImage, image_J: LKImage, pts: torch.Tensor,
     With a leading batch dim on the images' planes and on every feature
     tensor it is ``vmap(lk_track_pyramid)``, one launch per level for all
     B sequences. Returns (pts1 (n, 2) float32, status (n,) bool).
+    ``slot_devices`` (a mesh row's "model" positions, as
+    ``ops.lk_cuda.lk_circular_quad`` takes them) splits the slots over
+    them, each slice tracked through every level on its position: bit
+    for bit the unsplit leg (``ops.lk_cuda.split_slots``).
     """
     from visual_odom_tpu_torch.ops import lk_cuda
+
+    if lk_cuda.wants_split(slot_devices):
+        if init_pts is None:
+            init_pts = pts
+        return lk_cuda.split_slots(
+            lambda ims, p, v, i: lk_track_pyramid(
+                *ims, p, v, params, init_pts=i, start_level=start_level),
+            (image_I, image_J), (pts, valid, init_pts), 1, slot_devices)
 
     if pts.device.type == "cuda":
         track = lk_cuda.lk_level_cuda

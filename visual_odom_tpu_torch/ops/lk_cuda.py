@@ -56,6 +56,13 @@ note says what bounds them on the H100 and what the design does about it.
 Each kernel's launches are counted on the public function that makes them:
 ``lk_circular_quad.launches`` and ``ops.lk.lk_track_pyramid.launches``
 count unbatched launches, their ``batched_launches`` batched ones.
+
+Slots over a mesh row's "model" axis (``split_slots``): both public
+functions take ``slot_devices``, and LK is per feature, so each position
+tracks a contiguous slice of the slots and the slices are put back in
+order: bit for bit the unsplit call. One process launches every slice,
+each on its device; a rank of a mesh of ranks launches its own slice and
+all-gathers the rest over the row's group.
 """
 
 from __future__ import annotations
@@ -546,15 +553,20 @@ def lk_circular_quad(img_l0: LKImage, img_r0: LKImage, img_r1: LKImage,
     ``flow`` / ``disp`` it is ``vmap(lk_circular_quad_pallas)``: B
     sequences in one launch.
 
-    ``slot_devices`` (a mesh row's "model" devices, the first where the
-    operands lie) splits the slots into contiguous slices, one per device:
-    the images are copied to each, each slice is one launch there, and the
-    results are gathered back in slot order. LK is per feature, so this is
-    the unsplit quad bit for bit.
+    ``slot_devices`` (a mesh row's "model" positions: devices, the first
+    where the operands lie, or a ``parallel.collectives.RankAxis``) splits
+    the slots over them (``split_slots``): bit for bit the unsplit quad.
     """
-    if slot_devices is not None and len(slot_devices) > 1:
-        return _split_slots((img_l0, img_r0, img_r1, img_l1), pts, valid,
-                            params, flow, disp, start_level, slot_devices)
+    if wants_split(slot_devices):
+        if flow is None:
+            flow = torch.zeros_like(pts)
+        if disp is None:
+            disp = torch.zeros_like(pts)
+        return split_slots(
+            lambda ims, p, v, f, d: lk_circular_quad(
+                *ims, p, v, params, flow=f, disp=d, start_level=start_level),
+            (img_l0, img_r0, img_r1, img_l1), (pts, valid, flow, disp), 4,
+            slot_devices)
     shapes = img_l0.shapes
     for im in (img_r0, img_r1, img_l1):
         if im.shapes != shapes or im.pad != img_l0.pad:
@@ -577,33 +589,66 @@ def lk_circular_quad(img_l0: LKImage, img_r0: LKImage, img_r1: LKImage,
     return out[0], out[1], out[2], out[3], status
 
 
-def _split_slots(images, pts, valid, params, flow, disp, start_level,
-                 devices):
-    """``lk_circular_quad`` with its slots split contiguously over
-    ``devices`` (an empty slice launches nothing); results on ``pts``'s
-    device. Copies between devices are ordered by their streams."""
-    home = pts.device
-    if flow is None:
-        flow = torch.zeros_like(pts)
-    if disp is None:
-        disp = torch.zeros_like(pts)
-    parts = []
-    for dev, idx in zip(devices, np.array_split(np.arange(pts.shape[-2]),
-                                                len(devices))):
-        if not len(idx):
-            continue
-        a, b = int(idx[0]), int(idx[-1]) + 1
+def wants_split(slot_devices) -> bool:
+    """Whether ``slot_devices`` asks for a split: a ``RankAxis`` (even of
+    one rank: its collectives still run), or more than one device."""
+    from visual_odom_tpu_torch.parallel.collectives import RankAxis
 
-        def on(x):
-            return x[..., a:b, :].contiguous().to(dev)
+    return (isinstance(slot_devices, RankAxis)
+            or (slot_devices is not None and len(slot_devices) > 1))
 
-        ims = [im._replace(pyramid=tuple(p.to(dev) for p in im.pyramid))
-               for im in images]
-        parts.append(lk_circular_quad(
-            *ims, on(pts), valid[..., a:b].contiguous().to(dev), params,
-            flow=on(flow), disp=on(disp), start_level=start_level))
-    return tuple(torch.cat([p[i].to(home) for p in parts],
-                           dim=-2 if i < 4 else -1) for i in range(5))
+
+def split_slots(track, images, per_slot, n_points, slot_devices):
+    """``track(images, *per_slot)`` with the slots split contiguously over
+    ``slot_devices`` (``parallel.mesh.split_ranges``). ``per_slot`` holds
+    the first operand, points (..., n, 2), and others shaped like it or
+    like its mask (..., n); ``track`` returns ``n_points`` point arrays
+    and then a status (..., n). An empty slice launches nothing.
+
+    - Devices (one process): each slice is tracked on its device, the
+      images copied there, and the results come back to the first
+      operand's device in slot order. Copies are ordered by the devices'
+      streams.
+    - A ``RankAxis``: this rank tracks its slice on its own operands, and
+      one all-gather per output over the axis' group puts the slices back
+      in order on every rank."""
+    from visual_odom_tpu_torch.parallel.collectives import (RankAxis,
+                                                            axis_size, gather)
+    from visual_odom_tpu_torch.parallel.mesh import split_ranges
+
+    pts = per_slot[0]
+    ranges = split_ranges(pts.shape[-2], axis_size(slot_devices))
+
+    def cut(x, a, b):
+        dim = -2 if x.dim() == pts.dim() else -1
+        return x.narrow(dim, a, b - a).contiguous()
+
+    if not isinstance(slot_devices, RankAxis):
+        home, parts = pts.device, []
+        for dev, (a, b) in zip(slot_devices, ranges):
+            if b > a:
+                ims = [im._replace(pyramid=tuple(p.to(dev)
+                                                 for p in im.pyramid))
+                       for im in images]
+                parts.append(track(ims, *(cut(x, a, b).to(dev)
+                                          for x in per_slot)))
+        return tuple(torch.cat([p[i].to(home) for p in parts],
+                               dim=-2 if i < n_points else -1)
+                     for i in range(n_points + 1))
+    a, b = ranges[slot_devices.index]
+    if b > a:
+        out = track(images, *(cut(x, a, b) for x in per_slot))
+    else:
+        lead = pts.shape[:-2]
+        out = tuple(pts.new_zeros(lead + (0, 2)) for _ in range(n_points)) + (
+            torch.zeros(lead + (0,), dtype=torch.bool, device=pts.device),)
+    sizes = [b - a for a, b in ranges]
+    res = []
+    for i, x in enumerate(out):
+        d = -2 if i < n_points else -1
+        got = gather([x.movedim(d, 0)], slot_devices, sizes=sizes)
+        res.append(torch.cat(got).movedim(0, d))
+    return tuple(res)
 
 
 lk_circular_quad.launches = 0

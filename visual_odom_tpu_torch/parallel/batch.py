@@ -19,13 +19,27 @@ constrains the state to ``P("data", "model")``:
   (contiguously; an uneven split is allowed, every row needs one). Row r's
   state, frames and generators live on its first device
   (``MeshState``), and it makes its own batched launches.
-- "model": the feature axis's kernel work, the LK quad, is split over the
-  row's devices: each quad launch's slots are cut into contiguous slices,
-  one launch per device, gathered back in order (bit for bit the unsplit
-  quad; ``ops.lk_cuda.lk_circular_quad``). The rest of the step runs on the
-  row's first device; the per-leg route is not split.
+- "model": the feature axis's kernel work, the LK launches of either
+  route, is split over the row's devices: each launch's slots are cut into
+  contiguous slices, one launch per device, gathered back in order (bit
+  for bit the unsplit launch; ``ops.lk_cuda.split_slots``). The rest of
+  the step runs on the row's first device.
 - The outputs are gathered on the mesh's first device, in sequence order.
 - A (1, 1) mesh is the one-device step: the same calls, the same bits.
+
+On a mesh of ranks (``parallel.mesh.Rank``, one process per position)
+every rank passes the same frames and steps its own data row, the rows
+split as above:
+
+- each rank of a row holds the row's whole batched state, replicated over
+  "model" as JAX's ``P("data", "model")`` replicates everything but the
+  feature axis, with the row's generators seeded ``seed + b``; the
+  ``MeshState`` of a rank holds its row alone;
+- only the LK launches' slots are split over the row's "model" ranks:
+  each rank launches its slice and an all-gather over the row's group puts
+  the slots back in order;
+- the outputs of every sequence come back on every rank, all-gathered over
+  its "data" group (once per step, or once per chunk of the scan).
 """
 
 from __future__ import annotations
@@ -38,7 +52,9 @@ import torch
 from visual_odom_tpu_torch import resolve_device
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.frontend.featureset import empty_feature_state
-from visual_odom_tpu_torch.parallel.mesh import Mesh, split_ranges
+from visual_odom_tpu_torch.parallel.collectives import gather
+from visual_odom_tpu_torch.parallel.mesh import (Mesh, mesh_axis, position,
+                                                 split_ranges)
 from visual_odom_tpu_torch.runner.pipeline import (StepOutput, VOState,
                                                    make_scan_step_fn,
                                                    make_step_fn, prep_image,
@@ -50,15 +66,55 @@ from visual_odom_tpu_torch.utils.checkpoint import STATE_KEYS
 
 class MeshState(NamedTuple):
     """A batched state over a mesh's data rows: ``rows[r]`` is row r's
-    sequences' batched ``VOState``, on the row's first device."""
+    sequences' batched ``VOState``, on the row's first device. On a mesh of
+    ranks it holds the rank's own row alone."""
 
     rows: tuple
+
+
+class _RankRow(NamedTuple):
+    """This rank's place on a (data, model) mesh of ranks."""
+
+    row: int           # its data row
+    rows: int          # the number of data rows
+    device: torch.device
+    model: object      # RankAxis of its row's model ranks
+    data: object       # RankAxis of its column's data ranks
+
+    def ranges(self, batch: int) -> list:
+        """Every data row's range of the B sequences."""
+        return _row_ranges(batch, range(self.rows))
+
+
+def _rank_row(mesh: Mesh) -> _RankRow:
+    """This rank's row, device and groups; the groups are made once per
+    mesh, by every rank together (``mesh_axis``)."""
+    if mesh.axis_names != ("data", "model"):
+        raise ValueError(f"the batched step takes a (data, model) mesh, got "
+                         f"axes {mesh.axis_names}")
+    r, c = position(mesh)
+    return _RankRow(r, mesh.devices.shape[0], mesh.devices[r, c].device,
+                    mesh_axis(mesh, "model"), mesh_axis(mesh, "data"))
+
+
+def _gather_rows(out, ranges, me: _RankRow, dim: int = 0):
+    """Every sequence's outputs from this rank's row's: each field
+    all-gathered over the data group along its batch ``dim``."""
+    sizes = [b - a for a, b in ranges]
+    return type(out)(*(torch.cat(
+        gather([x.movedim(dim, 0)], me.data, sizes=sizes)).movedim(0, dim)
+        for x in out))
+
+
+def _ranked(mesh) -> bool:
+    """Whether ``mesh`` is a mesh of ranks."""
+    return mesh is not None and mesh.ranks is not None
 
 
 def _placement(device, mesh: Mesh):
     """(device, None) where the work runs on one device (no mesh, or a
     one-device mesh: the one-device step, the same calls); (None, the
-    (data, model) device grid) on a mesh of several."""
+    (data, model) device grid) on a mesh of several devices."""
     if mesh is None:
         return device, None
     if mesh.size == 1:
@@ -87,7 +143,23 @@ def make_batched_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     (state, StepOutput with a leading B on every field)``; ``uniforms``
     (B, iterations, padded_features) replaces the RANSAC draws. On a
     ``mesh`` of more than one device the state is a ``MeshState`` and the
-    outputs come back on the mesh's first device."""
+    outputs come back on the mesh's first device; on a mesh of ranks, on
+    every rank's own device."""
+    if _ranked(mesh):
+        me = _rank_row(mesh)
+        fn = make_step_fn(config, intrinsics, device=me.device,
+                          slot_devices=me.model)
+
+        def rank_step(state: MeshState, lefts, rights, uniforms=None):
+            ranges = me.ranges(lefts.shape[0])
+            a, b = ranges[me.row]
+            st, out = fn(state.rows[0], lefts[a:b].to(me.device),
+                         rights[a:b].to(me.device),
+                         None if uniforms is None
+                         else uniforms[a:b].to(me.device))
+            return MeshState((st,)), _gather_rows(out, ranges, me)
+
+        return rank_step
     device, grid = _placement(device, mesh)
     if grid is None:
         return make_step_fn(config, intrinsics, device=device)
@@ -118,9 +190,29 @@ def make_batched_scan_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     """``scan(state, lefts (chunk, B, H, W), rights (chunk, B, H, W)) ->
     (state, StepOutput stacked (chunk, B, ...))``: the chunk is uploaded
     in one copy (to the mesh's first device; each row's frames go on from
-    there) and stepped frame by frame; the outputs stay on the device."""
-    device, grid = _placement(device, mesh)
-    if grid is None:
+    there) and stepped frame by frame; the outputs stay on the device. On a
+    mesh of ranks each rank uploads its row's frames to its device and
+    gathers the chunk's outputs over its data group once."""
+    device, grid = (None, None) if _ranked(mesh) else _placement(device,
+                                                                  mesh)
+    if _ranked(mesh):
+        me = _rank_row(mesh)
+        fn = make_step_fn(config, intrinsics, device=me.device,
+                          slot_devices=me.model)
+
+        def scan_chunk(state, lefts, rights):
+            ranges = me.ranges(lefts.shape[1])
+            a, b = ranges[me.row]
+            dl = torch.as_tensor(lefts[:, a:b]).to(me.device)
+            dr = torch.as_tensor(rights[:, a:b]).to(me.device)
+            (st,), outs = state.rows, []
+            for i in range(dl.shape[0]):
+                st, out = fn(st, dl[i], dr[i])
+                outs.append(out)
+            return MeshState((st,)), _gather_rows(
+                StepOutput(*(torch.stack(x) for x in zip(*outs))), ranges,
+                me, dim=1)
+    elif grid is None:
         scan_chunk = make_scan_step_fn(config, intrinsics, device=device)
     else:
         step = make_batched_step_fn(config, intrinsics, mesh=mesh)
@@ -147,7 +239,14 @@ def batched_init_state(config: VOConfig, lefts, rights, seed: int = 0,
                        device=None, mesh: Mesh = None):
     """Batched state from (B, H, W) first frames: no features, their
     pyramids, zero warm starts and sequence b's generator seeded
-    ``seed + b`` (on its row's device, on a mesh)."""
+    ``seed + b`` (on its row's device, on a mesh; a rank of a mesh of ranks
+    builds its own row's)."""
+    if _ranked(mesh):
+        me = _rank_row(mesh)
+        a, b = me.ranges(lefts.shape[0])[me.row]
+        return MeshState((batched_init_state(config, lefts[a:b], rights[a:b],
+                                             seed=seed + a,
+                                             device=me.device),))
     device, grid = _placement(device, mesh)
     if grid is not None:
         ranges = _row_ranges(lefts.shape[0], grid)
@@ -168,7 +267,8 @@ def batched_init_state(config: VOConfig, lefts, rights, seed: int = 0,
 
 def batched_state_arrays(state) -> dict:
     """``runner.pipeline.state_arrays`` of a batched state or a
-    ``MeshState`` (its rows' arrays concatenated in sequence order)."""
+    ``MeshState`` (its rows' arrays concatenated in sequence order: on a
+    mesh of ranks, the rank's own row's)."""
     if not isinstance(state, MeshState):
         return state_arrays(state)
     rows = [state_arrays(s) for s in state.rows]
@@ -180,7 +280,14 @@ def restore_batched_state(config: VOConfig, ckpt: dict, lefts, rights,
     """Batched state from a snapshot's stacked arrays and the checkpointed
     frame's (B, H, W) images: the pyramids are rebuilt from them and
     sequence b's generator takes row b of ``gen_state`` on ``device``; on
-    a mesh, each data row takes its sequences' rows on its first device."""
+    a mesh, each data row takes its sequences' rows on its first device (a
+    rank of a mesh of ranks, its own row's)."""
+    if _ranked(mesh):
+        me = _rank_row(mesh)
+        a, b = me.ranges(lefts.shape[0])[me.row]
+        return MeshState((restore_scan_state(
+            config, None, {k: np.asarray(ckpt[k])[a:b] for k in STATE_KEYS},
+            lefts[a:b], rights[a:b], device=me.device),))
     device, grid = _placement(device, mesh)
     if grid is None:
         return restore_scan_state(config, None, ckpt, lefts, rights,

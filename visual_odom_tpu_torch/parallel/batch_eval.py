@@ -40,7 +40,7 @@ from visual_odom_tpu_torch.parallel.batch import (batched_init_state,
                                                   make_batched_scan_fn,
                                                   make_batched_step_fn,
                                                   restore_batched_state)
-from visual_odom_tpu_torch.parallel.mesh import Mesh
+from visual_odom_tpu_torch.parallel.mesh import Mesh, position
 from visual_odom_tpu_torch.runner.pipeline import (_ChunkUploader, _concat,
                                                    _fetch, _fetch_chunks,
                                                    _on_current_stream, _sync,
@@ -65,8 +65,10 @@ def _frame_at(seq, i: int):
 
 
 def _sync_all(dev, mesh) -> None:
-    """Wait for ``dev``, or for every device of ``mesh``."""
-    for d in dict.fromkeys(mesh.devices.flat if mesh is not None else [dev]):
+    """Wait for ``dev``, or for every device of a one-process ``mesh`` (a
+    rank waits for its own device)."""
+    one_process = mesh is not None and mesh.ranks is None
+    for d in dict.fromkeys(mesh.devices.flat if one_process else [dev]):
         _sync(d)
 
 
@@ -108,11 +110,24 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
     over its data rows, each quad launch over a row's model devices; frames
     are uploaded to and outputs fetched from its first device. A run
     resumed on the same mesh equals the uninterrupted one bit for bit.
+
+    On a mesh of ranks (``parallel.mesh.Rank``) every rank calls this with
+    the same sequences: it steps its data row on its own device and returns
+    every sequence's poses and stats, the same on every rank (the outputs
+    all-gathered over its data group). Such a run takes no
+    ``checkpoint_path``: a snapshot would have to gather every row's state
+    to one writer and resume on every rank, which it does not do.
     """
     if mesh is not None and device is not None:
         raise ValueError("run_sequences_batched takes a device or a mesh, "
                          "not both")
-    dev = resolve_device(mesh.devices.flat[0] if mesh is not None
+    ranked = mesh is not None and mesh.ranks is not None
+    if ranked and checkpoint_path:
+        raise ValueError("batched checkpoints are not written on a mesh of "
+                         "ranks: run the restartable batched runner on one "
+                         "device or on a one-process mesh")
+    dev = resolve_device(mesh.devices[position(mesh)].device if ranked
+                         else mesh.devices.flat[0] if mesh is not None
                          else device)
     lengths = [len(s) for s in sequences]
     if not lengths or min(lengths) == 0:

@@ -1,74 +1,179 @@
-"""Collectives over one mesh axis, issued from one process.
+"""Collectives over one mesh axis, in two forms.
 
 The JAX package runs its multi-device paths from one controller over a
-``Mesh``, and XLA writes their collectives (``psum``, ``ppermute``) from
-sharding constraints or ``shard_map``. Here the solvers name them: a
-distributed value along a mesh axis of D devices is a list of D tensors,
-shard k's on the axis' k-th device (``parallel.mesh.axis_devices``), and
-each function below maps such a list to another.
+``Mesh`` (after ``jax.distributed.initialize`` one that spans processes),
+and XLA writes their collectives (``psum``, ``ppermute``) from sharding
+constraints or ``shard_map``. Here the solvers name them. A distributed
+value along a mesh axis of D shards is a list of the shards this process
+issues, and each function below maps such a list to another. The axis
+(``parallel.mesh.mesh_axis``) takes one of two forms:
 
-- Between cards a shard moves by a device-to-device copy, which PyTorch
-  orders on both cards' current streams: no collective waits on the host
-  or copies through it.
-- One card named several times (``[cuda:0] * 4``, how ``chip_smoke.py``
-  drives a mesh on one card) and CPU devices (the tests) take the same
-  code; a copy to the device a tensor is already on is no copy.
-- Scalars stay tensors on their devices; a solver's guards are
-  ``torch.where``s on them.
+- **One process** (a list of D devices): the list holds every shard,
+  shard k's on the k-th device. Between cards a shard moves by a
+  device-to-device copy, which PyTorch orders on both cards' current
+  streams. One card named several times (``[cuda:0] * 4``) and CPU devices
+  take the same code; a copy to the device a tensor is already on is no
+  copy.
+- **One rank per shard** (a ``RankAxis``): the list holds this rank's
+  shard alone, and the values move through ``torch.distributed`` over the
+  axis' process group. NCCL runs its collectives on the card's streams, so
+  none waits on the host. Gloo takes CUDA tensors in ``all_gather`` and
+  ``broadcast`` but not in ``send``/``recv`` (its TCP pairs write from the
+  host), so a gloo ``ppermute`` of CUDA tensors goes through the host.
 
-Every function takes the whole axis' list; a process-group form, one rank
-per card with one shard each, would keep these names and take the local
-shard and the group instead (``ROADMAP.md`` item 18c).
+Both forms give the same bits: ``psum`` gathers every shard and adds them
+in shard order, shard 0 + shard 1 + ... + shard D-1, where NCCL's
+``all_reduce`` would add them in its own ring or tree order. Scalars stay
+tensors on their devices; a solver's guards are ``torch.where``s on them.
+``shards(axis)`` lists the (index, device) pairs a process issues.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
 
-def psum(parts: Sequence[torch.Tensor]) -> list:
+class RankAxis(NamedTuple):
+    """A mesh axis whose shards are ranks: shard k is rank ``ranks[k]`` on
+    ``devices[k]``, this process is shard ``index``, and ``group`` is the
+    process group of ``ranks``."""
+
+    ranks: tuple
+    devices: tuple
+    index: int
+    group: object
+
+
+def shards(axis) -> list:
+    """The (shard index, device) pairs this process issues: all of them in
+    the one-process form, its own in the process form."""
+    if isinstance(axis, RankAxis):
+        return [(axis.index, axis.devices[axis.index])]
+    return list(enumerate(axis))
+
+
+def axis_size(axis) -> int:
+    """The number of shards D along ``axis``."""
+    return len(axis.ranks if isinstance(axis, RankAxis) else axis)
+
+
+def _dist():
+    return torch.distributed
+
+
+def gather(parts: Sequence[torch.Tensor], axis, sizes=None) -> list:
+    """Every shard's tensor, in shard order. One process: ``parts`` as
+    they are. Process form: the D shards on this rank's device, through
+    one ``all_gather``; ``sizes`` gives each shard's length along dim 0
+    where they differ (the shards are padded to the longest and cut)."""
+    if not isinstance(axis, RankAxis):
+        return list(parts)
+    (x,) = parts
+    n = x.shape[0] if x.dim() else 1
+    longest = max(sizes) if sizes is not None else n
+    if x.dim() and longest > n:
+        x = torch.cat([x, x.new_zeros((longest - n,) + x.shape[1:])])
+    send = x.contiguous()
+    if send.dtype == torch.bool:
+        send = send.to(torch.uint8)
+    out = [torch.empty_like(send) for _ in axis.ranks]
+    _dist().all_gather(out, send, group=axis.group)
+    group_rank = [_dist().get_group_rank(axis.group, r) for r in axis.ranks]
+    got = [out[g].to(x.dtype) for g in group_rank]
+    if sizes is not None:
+        got = [g[:s] for g, s in zip(got, sizes)]
+    return got
+
+
+def psum(parts: Sequence[torch.Tensor], axis=None) -> list:
     """The sum over the axis, added in the fixed order shard 0, 1, ...,
-    D - 1 on shard 0's device and handed to every shard's device, so every
-    shard holds the same bits. Shards on one device share one tensor; one
-    shard's sum is its own tensor."""
+    D - 1, so every shard holds the same bits. One process (``axis``
+    None or a device list): added on shard 0's device and handed to every
+    shard's device; shards on one device share one tensor, and one shard's
+    sum is its own tensor. Process form: the shards gathered and added on
+    each rank in the same order."""
+    if isinstance(axis, RankAxis):
+        got = gather(parts, axis)
+        total = got[0]
+        for p in got[1:]:
+            total = total + p
+        return [total]
     total = parts[0]
     for p in parts[1:]:
         total = total + p.to(total.device)
     return broadcast(total, [p.device for p in parts])
 
 
-def broadcast(x: torch.Tensor, devices: Sequence[torch.device]) -> list:
-    """``x`` on each of ``devices``: one copy per distinct device."""
+def broadcast(x: torch.Tensor, axis) -> list:
+    """``x`` on each shard. One process (``axis`` a device list): one copy
+    per distinct device. Process form: shard 0's ``x`` on this rank, sent
+    from shard 0's rank."""
+    if isinstance(axis, RankAxis):
+        y = x.contiguous().clone()
+        _dist().broadcast(y, src=axis.ranks[0], group=axis.group)
+        return [y]
     copies = {}
-    for d in devices:
+    for d in axis:
         if d not in copies:
             copies[d] = x.to(d)
-    return [copies[d] for d in devices]
+    return [copies[d] for d in axis]
 
 
-def ppermute(parts: Sequence[torch.Tensor], perm) -> list:
-    """Shard ``src``'s tensor moved to shard ``dst``'s device for every
-    ``(src, dst)`` in ``perm``; a shard that receives nothing gets zeros of
-    its own tensor's shape (``jax.lax.ppermute``'s rule)."""
-    out = [None] * len(parts)
+def ppermute(parts: Sequence[torch.Tensor], perm, axis=None) -> list:
+    """Shard ``src``'s tensor moved to shard ``dst`` for every ``(src,
+    dst)`` in ``perm``; a shard that receives nothing gets zeros of its own
+    tensor's shape (``jax.lax.ppermute``'s rule). Process form: one
+    ``batch_isend_irecv`` of this rank's sends and receives; a pair whose
+    source is its destination is a send to itself on NCCL and a copy on
+    gloo, whose pairs do not reach their own rank."""
+    dsts = [dst for _, dst in perm]
+    twice = sorted({d for d in dsts if dsts.count(d) > 1})
+    if twice:
+        raise ValueError(f"ppermute: shard {twice[0]} receives twice")
+    if not isinstance(axis, RankAxis):
+        out = [None] * len(parts)
+        for src, dst in perm:
+            out[dst] = parts[src].to(parts[dst].device)
+        return [torch.zeros_like(p) if o is None else o
+                for p, o in zip(parts, out)]
+    (x,) = parts
+    me = axis.index
+    gloo = _dist().get_backend(axis.group) == "gloo"
+    if gloo and (me, me) in perm:
+        return [x.clone()]        # gloo's pairs do not reach their own rank
+    host = gloo and x.device.type == "cuda"
+    send = (x.cpu() if host else x).contiguous()
+    recv = None
+    ops = []
     for src, dst in perm:
-        if out[dst] is not None:
-            raise ValueError(f"ppermute: shard {dst} receives twice")
-        out[dst] = parts[src].to(parts[dst].device)
-    return [torch.zeros_like(p) if o is None else o
-            for p, o in zip(parts, out)]
+        if src == me:
+            ops.append(_dist().P2POp(_dist().isend, send, axis.ranks[dst],
+                                     axis.group))
+        if dst == me:
+            recv = torch.empty_like(send)
+            ops.append(_dist().P2POp(_dist().irecv, recv, axis.ranks[src],
+                                     axis.group))
+    if ops:
+        for work in _dist().batch_isend_irecv(ops):
+            work.wait()
+    if recv is None:
+        return [torch.zeros_like(x)]
+    return [recv.to(x.device) if host else recv]
 
 
-def replicated(devices: Sequence[torch.device], fn: Callable,
-               *args: Sequence) -> list:
+def replicated(axis, fn: Callable, *args: Sequence) -> list:
     """``fn`` applied to replicated operands: ``args`` are per-shard lists
-    (shard k's on ``devices[k]``) whose shards hold the same values, such as
-    a ``psum``'s output. ``fn`` runs once per distinct device, on the first
-    shard there; the shards on that device share its result."""
+    whose shards hold the same values, such as a ``psum``'s output. One
+    process (``axis`` a device list, shard k's on ``axis[k]``): ``fn``
+    runs once per distinct device, on the first shard there, and the
+    shards on that device share its result. Process form: once, on this
+    rank's shard."""
+    if isinstance(axis, RankAxis):
+        return [fn(*(a[0] for a in args))]
     done = {}
-    for k, d in enumerate(devices):
+    for k, d in enumerate(axis):
         if d not in done:
             done[d] = fn(*(a[k] for a in args))
-    return [done[d] for d in devices]
+    return [done[d] for d in axis]

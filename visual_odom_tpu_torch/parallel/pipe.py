@@ -40,7 +40,7 @@ from visual_odom_tpu_torch import resolve_device
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.frontend.featureset import empty_feature_state
 from visual_odom_tpu_torch.frontend.matching import commit_tracked_state
-from visual_odom_tpu_torch.parallel.mesh import visible_devices
+from visual_odom_tpu_torch.parallel.mesh import local_devices
 from visual_odom_tpu_torch.runner.pipeline import (StepOutput, _fetch_many,
                                                    _sync, chain_poses_host,
                                                    make_backend_fn,
@@ -123,7 +123,7 @@ def run_sequence_pipelined(frames, config: VOConfig,
     (numpy), wall_s): the wall covers the loop and the wait for the
     device after it, the outputs are fetched after it in one copy.
     """
-    devs = (visible_devices() if devices is None
+    devs = (local_devices() if devices is None
             else [resolve_device(d) for d in devices])
     if len(devs) < 2:
         raise ValueError("pipeline parallelism needs two devices")

@@ -19,8 +19,9 @@ round every window:
    products are ``psum``s of scalars;
 4. back-substitutes the landmarks with one more ``psum``.
 
-The JAX package runs ``local_solve`` under ``shard_map``; here one process
-issues each window's work on its device and the collectives
+The JAX package runs ``local_solve`` under ``shard_map``; here either one
+process issues each window's work on its device, or each rank of a mesh of
+ranks issues its own window's, and the collectives
 (``parallel.collectives``) move the shards. Every guard is a
 ``torch.where`` on the device (the CG's ``pAp > 0`` and ``rz > 0``, the
 finite guard), so a solve never waits for the host. The gauge is a hard
@@ -42,9 +43,10 @@ import torch
 
 from visual_odom_tpu_torch.ba.problem import BAProblem
 from visual_odom_tpu_torch.ba.schur import _jacobian_blocks, ba_solve
-from visual_odom_tpu_torch.parallel.collectives import (ppermute, psum,
-                                                        replicated)
-from visual_odom_tpu_torch.parallel.mesh import Mesh, axis_devices
+from visual_odom_tpu_torch.parallel.collectives import (axis_size, gather,
+                                                        ppermute, psum,
+                                                        replicated, shards)
+from visual_odom_tpu_torch.parallel.mesh import Mesh, mesh_axis
 
 
 class RingWindows(NamedTuple):
@@ -163,8 +165,8 @@ def ring_ba_solve(
     damping: float = 1e-4,
     huber_delta: float = 0.0,
 ) -> BAProblem:
-    """Sequence-parallel BA over the mesh's ``axis`` devices, one window
-    each (``parallel.mesh.axis_devices``).
+    """Sequence-parallel BA over the mesh's ``axis``, one window per
+    position (``parallel.mesh.mesh_axis``).
 
     Each round is the exact global GN step of ``ba.schur.ba_solve``,
     computed with ring-only pose communication (see the module docstring).
@@ -172,10 +174,13 @@ def ring_ba_solve(
     spans. ``huber_delta`` > 0 applies ``ba_solve``'s Huber IRLS weighting
     (from replicated halo rows, so every window weighs a shared observation
     alike). Returns the problem, on its own device, with the solved poses
-    and landmarks.
+    and landmarks. On a mesh of ranks every rank passes the same problem,
+    solves its own window and returns the whole solved problem, the same
+    bits on each (the windows' poses all-gathered).
     """
-    devs = axis_devices(mesh, axis)
-    D = len(devs)
+    ax = mesh_axis(mesh, axis)
+    mine = shards(ax)
+    D = axis_size(ax)
     if halo is None:
         halo = max(1, required_ring_halo(problem))
     win = make_ring_windows(problem, D, halo=halo)
@@ -185,20 +190,20 @@ def ring_ba_solve(
                 bf=problem.bf)
     dtype = problem.poses.dtype
 
-    poses = [win.poses[k].to(d) for k, d in enumerate(devs)]
-    landmarks = [problem.landmarks.to(d) for d in devs]
-    obs = [win.observations[k].to(d) for k, d in enumerate(devs)]
-    mask = [win.mask[k].to(d) for k, d in enumerate(devs)]
-    pose_valid = [win.pose_valid[k].to(d) for k, d in enumerate(devs)]
+    poses = [win.poses[k].to(d) for k, d in mine]
+    landmarks = [problem.landmarks.to(d) for _, d in mine]
+    obs = [win.observations[k].to(d) for k, d in mine]
+    mask = [win.mask[k].to(d) for k, d in mine]
+    pose_valid = [win.pose_valid[k].to(d) for k, d in mine]
     pos = np.arange(Wl)
     is_core = (pos >= halo) & (pos < halo + core)
     core_w, free, eye3, eye6, eyeWl = [], [], [], [], []
-    for k, d in enumerate(devs):
+    for i, (k, d) in enumerate(mine):
         is_gauge = (k == 0) & (pos == halo)                     # global pose 0
         core_w.append(torch.as_tensor(is_core, dtype=dtype, device=d))
         # CG solves over the free core slots; gauge and invalid slots pinned.
         free.append(torch.as_tensor(is_core & ~is_gauge, device=d)
-                    & pose_valid[k])
+                    & pose_valid[i])
         eye3.append(torch.eye(3, dtype=dtype, device=d))
         eye6.append(torch.eye(6, dtype=dtype, device=d))
         eyeWl.append(torch.eye(Wl, dtype=dtype, device=d))
@@ -210,13 +215,13 @@ def ring_ba_solve(
         """Each window's halo slots of a distributed (Wl, ...) vector set to
         its neighbours' boundary core entries (zeros past the ring's
         ends)."""
-        from_left = ppermute([x[core:core + halo] for x in xs], fwd)
-        from_right = ppermute([x[halo:2 * halo] for x in xs], bwd)
+        from_left = ppermute([x[core:core + halo] for x in xs], fwd, ax)
+        from_right = ppermute([x[halo:2 * halo] for x in xs], bwd, ax)
         return [torch.cat([lf, x[halo:halo + core], rt])
                 for x, lf, rt in zip(xs, from_left, from_right)]
 
     def dot(a, b):
-        return psum([torch.sum(x * y) for x, y in zip(a, b)])
+        return psum([torch.sum(x * y) for x, y in zip(a, b)], ax)
 
     def ratio(num, den):
         """num / den where den > 0, else 0 (the CG's guards)."""
@@ -239,11 +244,11 @@ def ring_ba_solve(
         Bc = [B * w[:, None, None, None] for (_, B, _), w in zip(blocks,
                                                                    core_w)]
         Hll = psum([torch.einsum("wlri,wlrj->lij", bc, B)
-                    for bc, (_, B, _) in zip(Bc, blocks)])
+                    for bc, (_, B, _) in zip(Bc, blocks)], ax)
         bl = psum([torch.einsum("wlri,wlr->li", bc, r)
-                   for bc, (_, _, r) in zip(Bc, blocks)])
+                   for bc, (_, _, r) in zip(Bc, blocks)], ax)
         Hll_inv = replicated(
-            devs, lambda H, e: torch.linalg.inv_ex(H + damping * e)[0],
+            ax, lambda H, e: torch.linalg.inv_ex(H + damping * e)[0],
             Hll, eye3)                                          # (L, 3, 3)
 
         # --- local rows of the global reduced camera system ---------------
@@ -284,12 +289,12 @@ def ring_ba_solve(
             Ap = matvec(p)
             pAp = dot(p, Ap)
             # the scalars are psum outputs: once per device
-            alpha = replicated(devs, ratio, rz, pAp)
+            alpha = replicated(ax, ratio, rz, pAp)
             x = [xi + a * pi for xi, a, pi in zip(x, alpha, p)]
             res = [ri - a * api for ri, a, api in zip(res, alpha, Ap)]
             z = precond(res)
             rz_new = dot(res, z)
-            beta = replicated(devs, ratio, rz_new, rz)
+            beta = replicated(ax, ratio, rz_new, rz)
             p = [zi + bt * pi for zi, bt, pi in zip(z, beta, p)]
             rz = rz_new
         dp = x
@@ -298,21 +303,23 @@ def ring_ba_solve(
         # corr_l sums Hpl' dp over every global row: core rows per window,
         # then a psum; dx is the same on every device.
         corr = psum([torch.einsum("wlij,wi->lj", h * w[:, None, None, None],
-                                  d) for h, w, d in zip(Hpl, core_w, dp)])
-        dx = replicated(devs, lambda Hi, b_, c: torch.einsum(
+                                  d) for h, w, d in zip(Hpl, core_w, dp)],
+                    ax)
+        dx = replicated(ax, lambda Hi, b_, c: torch.einsum(
             "lij,lj->li", Hi, b_ - c), Hll_inv, bl, corr)
 
         # windows with a non-finite update, counted on every device
         bad = psum([(~(torch.isfinite(d).all() & torch.isfinite(x_).all()))
-                    .to(torch.int32) for d, x_ in zip(dp, dx)])
+                    .to(torch.int32) for d, x_ in zip(dp, dx)], ax)
         poses = [torch.where(n > 0, q, q - d)
                  for q, d, n in zip(poses, dp, bad)]
-        landmarks = replicated(devs, lambda lm, x_, n: torch.where(
+        landmarks = replicated(ax, lambda lm, x_, n: torch.where(
             n > 0, lm, lm - x_), landmarks, dx, bad)
 
     dev = problem.poses.device
     return merge_ring_windows(problem, win,
-                              torch.stack([q.to(dev) for q in poses]),
+                              torch.stack([q.to(dev)
+                                           for q in gather(poses, ax)]),
                               landmarks[0].to(dev)[None])
 
 
@@ -332,7 +339,7 @@ def make_ring_window_solver(mesh: Mesh, axis: str = "seq",
     ``solver.branches`` counts the problems each branch solved
     (``{"ring": n, "single": m}``), so a caller can tell which one ran.
     """
-    D = len(axis_devices(mesh, axis))
+    D = axis_size(mesh_axis(mesh, axis))
     branches = {"ring": 0, "single": 0}
 
     def solver(problem: BAProblem) -> BAProblem:

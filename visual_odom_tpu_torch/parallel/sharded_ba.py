@@ -25,45 +25,54 @@ import torch
 from visual_odom_tpu_torch.ba.problem import BAProblem
 from visual_odom_tpu_torch.ba.schur import (SchurParts, back_substitute,
                                             schur_parts, solve_reduced)
-from visual_odom_tpu_torch.parallel.collectives import psum, replicated
-from visual_odom_tpu_torch.parallel.mesh import (Mesh, axis_devices,
+from visual_odom_tpu_torch.parallel.collectives import (axis_size, gather,
+                                                        psum, replicated,
+                                                        shards)
+from visual_odom_tpu_torch.parallel.mesh import (Mesh, mesh_axis,
                                                  split_ranges)
 
 
 def sharded_ba_solve(problem: BAProblem, mesh: Mesh, iterations: int = 10,
                      damping: float = 1e-4) -> BAProblem:
     """GN bundle adjustment with the landmark axis sharded over the mesh's
-    "model" devices (an uneven split is allowed); poses replicated.
+    "model" axis (an uneven split is allowed); poses replicated.
 
     The same iteration as ``ba.schur.ba_solve``: with one shard it is
     ``ba_solve`` bit for bit, with more the landmark sums are added in
     another order. The non-finite guard is global: a non-finite update on
     any shard leaves every shard's poses and landmarks where they were.
     Returns the problem, on its own device, with the solved poses and
-    landmarks."""
-    devs = axis_devices(mesh, "model")
+    landmarks. On a mesh of ranks every rank passes the same problem,
+    solves its own landmarks and returns the whole solved problem, the
+    same bits on each (the landmarks all-gathered)."""
+    ax = mesh_axis(mesh, "model")
     home = problem.poses.device
-    ranges = split_ranges(problem.landmarks.shape[0], len(devs))
-    shards = [problem._replace(
-        poses=problem.poses.to(d), landmarks=problem.landmarks[a:b].to(d),
-        observations=problem.observations[:, a:b].to(d),
-        mask=problem.mask[:, a:b].to(d)) for d, (a, b) in zip(devs, ranges)]
+    ranges = split_ranges(problem.landmarks.shape[0], axis_size(ax))
+    local = []
+    for k, d in shards(ax):
+        a, b = ranges[k]
+        local.append(problem._replace(
+            poses=problem.poses.to(d), landmarks=problem.landmarks[a:b].to(d),
+            observations=problem.observations[:, a:b].to(d),
+            mask=problem.mask[:, a:b].to(d)))
     for _ in range(iterations):
-        parts, blocks = zip(*(schur_parts(s, damping) for s in shards))
+        parts, blocks = zip(*(schur_parts(s, damping) for s in local))
         summed = [SchurParts(*xs) for xs in zip(
-            *(psum([getattr(p, k) for p in parts])
+            *(psum([getattr(p, k) for p in parts], ax)
               for k in SchurParts._fields))]
-        dp = replicated(devs,
+        dp = replicated(ax,
                         lambda S, poses: solve_reduced(S, poses, damping),
-                        summed, [s.poses for s in shards])
+                        summed, [s.poses for s in local])
         dx = [back_substitute(b, d) for b, d in zip(blocks, dp)]
         # shards with a non-finite update, counted on every device
         bad = psum([(~(torch.isfinite(d).all() & torch.isfinite(x).all()))
-                    .to(torch.int32) for d, x in zip(dp, dx)])
-        shards = [s._replace(
+                    .to(torch.int32) for d, x in zip(dp, dx)], ax)
+        local = [s._replace(
             poses=torch.where(n > 0, s.poses, s.poses - d),
             landmarks=torch.where(n > 0, s.landmarks, s.landmarks - x))
-            for s, d, x, n in zip(shards, dp, dx, bad)]
+            for s, d, x, n in zip(local, dp, dx, bad)]
+    landmarks = gather([s.landmarks for s in local], ax,
+                       sizes=[b - a for a, b in ranges])
     return problem._replace(
-        poses=shards[0].poses.to(home),
-        landmarks=torch.cat([s.landmarks.to(home) for s in shards]))
+        poses=local[0].poses.to(home),
+        landmarks=torch.cat([x.to(home) for x in landmarks]))
