@@ -6,7 +6,9 @@
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Phases (each raises on failure; nothing is caught):
 
-1. Print the card's name and power limit (nvidia-smi).
+1. Print the card's name and power limit (nvidia-smi), and start rendering
+   the courses on every core but one (``CourseRender``; each course's
+   first frames first, for phase 3), which goes on through phases 2-3.
 2. Build the CUDA kernels (one source, one library) from
    ``visual_odom_tpu_torch/csrc`` with nvcc and print the build seconds,
    the ptxas report, each kernel instance's update loop as compiled
@@ -60,7 +62,8 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    steps the JAX package misses the ATE budget too (0.508 m of 0.256 m on
    the CPU: ``python tests/test_torch_pipeline.py lockstep 32``).
    Then the batched path, ``run_sequences_batched``: those two courses and
-   160 steps each of "turning" and "stress" in lockstep (B = 4, unequal
+   BENCH_STEPS steps each of "turning" and "stress" (the quick bench's
+   courses, phase 14) in lockstep (B = 4, unequal
    lengths), each held to the bench gates on its own steps, with
    LAUNCHES_PER_FRAME batched launches per batched step whatever B is.
    Then the same three runs on the per-leg route: the level kernel must
@@ -84,7 +87,7 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    "loop" course: (a) ``run_sequence_scan(collect_tracks=True)`` under the
    bench gates, one snapshot per step whose valid count is the step's
    ``num_matched``, and its first TRACKS_COST_STEPS steps timed without and
-   with collection in turns (the same chain bit for bit); (b) ``smooth_trajectory_ba`` with the CLI's defaults,
+   with collection (the same chain bit for bit); (b) ``smooth_trajectory_ba`` with the CLI's defaults,
    gated as the JAX package behaves on this course (within the bench's ATE
    budget: JAX itself does not bring it below the chain's here), and with
    the km-scale config (reported); (c) ``close_loops`` on the raw chain as
@@ -99,8 +102,9 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    ``resume``: ``run_sequence_scan_resumable`` with chunk RESUME_CHUNK and
    a snapshot every RESUME_EVERY steps, uninterrupted, failed by an
    injected exception at frame RESUME_CRASH_AT, and resumed from its last
-   snapshot; without and with track snapshots, the resumed run equals the
-   uninterrupted one and ``run_sequence_scan`` bit for bit; each snapshot's
+   snapshot, with track snapshots (phase 11's command line resumes the
+   scan without them); the resumed run equals the uninterrupted one and
+   ``run_sequence_scan`` bit for bit; each snapshot's
    write ms and bytes. (b) ``mono`` and ``shi_tomasi``: the main path with
    ``mono_rotation=True`` or ``detector="shi-tomasi"`` on both LK routes,
    under the bench gates (where the JAX package on the CPU misses the ATE
@@ -119,8 +123,10 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    ``run_sequence_resumable`` with a snapshot every DOOR_EVERY frames,
    uninterrupted, failed at frame DOOR_CRASH_AT and resumed (snapshot ms
    and bytes); (c) ``run_sequence_buffered(preupload=True)``; (d) the
-   bench's scan variants (bench.py:126-138) on the checker course, where
-   the adaptive fallback fires: ``preupload``, one upload thread and four,
+   bench's scan variants (bench.py:126-138) on the first
+   DOOR_CHECKER_STEPS steps of the checker course, where the adaptive
+   fallback fires (against the same steps of phase 4's scan):
+   ``preupload``, one upload thread and four,
    with their frames/s and uploader stats; (e) the per-leg route through
    four upload threads, equal to the quad route.
 10. KITTI input, on phase 4's frames (nothing more is rendered): the
@@ -134,9 +140,10 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    4 upload threads, in turns with the in-memory scan, each bit for bit
    phase 4's scan of "straight", with ms per frame and the uploader's
    ``busy_frac``; (c) ``batch``: ``run_sequences_batched`` over the four
-   ``KittiSequence``s, uninterrupted, failed at frame KITTI_CRASH_AT with a
-   snapshot every KITTI_EVERY steps, and resumed, each bit for bit phase
-   4's ``batch_path``, under the bench gates, with the snapshots' ms and
+   ``KittiSequence``s, failed at frame KITTI_CRASH_AT with a snapshot every
+   KITTI_EVERY steps, and resumed, bit for bit phase 4's ``batch_path``
+   (poses and statistics; phase 11's ``run-batch`` reads them
+   uninterrupted), under the bench gates, with the snapshots' ms and
    bytes; (d) ``eval``: ``eval_all`` over the pose files written, each
    sequence's ATE within EVAL_ATE_TOL of the in-memory poses' (the
    devkit's ATE is Horn-aligned, so it lies at or below phase 4's
@@ -214,6 +221,14 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    on this card named once per rank, computed meanwhile), with each
    rank's launches per path, and on NCCL every chunk under sync debug
    mode "error".
+14. The bench harness (``bench`` lines): the port's ``vo bench --quick``
+   (``visual_odom_tpu_torch.bench``: 65 frames of straight, turning and
+   stress, the one-leg parity check, ``bench_lk``) in a subprocess on this
+   card, over a course cache holding phase 4's straight, turning and
+   stress courses (BENCH_QUICK_FRAMES each); it must exit 0 with ``accuracy_ok``
+   true and frames/s above 0. Then the bench's ``main`` in this process on
+   straight alone, with the launch counts on: 3 quads per scanned frame,
+   ``bench_lk``'s quads and its parity leg's level launches, nothing else.
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -239,8 +254,9 @@ import numpy as np
 H, W = 376, 1241
 STRAIGHT_STEPS = 64
 CHECKER_STEPS = 160
-#: the bench's course length (bench.py), for "turning" and "stress"
-BENCH_STEPS = 160
+#: "turning" and "stress": the quick bench's length (``bench --quick``,
+#: 65 frames), so that phase 14 runs the bench on these very frames
+BENCH_STEPS = 64
 CHUNK = 32
 BATCH = 4
 #: B = 11: the KITTI odometry sequences with ground truth, 00-10
@@ -320,6 +336,8 @@ BA_KM = dict(window=16, iterations=8, max_landmarks=384, min_track_len=5,
 RESUME_CHUNK = 16
 RESUME_EVERY = 32
 RESUME_CRASH_AT = 40
+#: phase 9: steps of the checker course the bench's scan variants take
+DOOR_CHECKER_STEPS = 64
 #: phase 9: the resumable door's snapshot interval (frames) and failure
 DOOR_EVERY = 16
 DOOR_CRASH_AT = 40
@@ -397,6 +415,15 @@ RANK_TIMEOUT = 240
 SEND_PROBE_TIMEOUT = 60
 #: phase 13's meshes of ranks, by world size
 RANK_MESHES = {2: ((2, 1), (1, 2)), 1: ((1, 1),)}
+#: phase 14: the bench's quick gauntlet (``vo bench --quick``): frames per
+#: course (phase 4's straight, turning and stress courses have as many),
+#: its courses, its scan chunk, and the quads its ``bench_lk`` launches (one
+#: warm-up, 5 timed)
+BENCH_QUICK_FRAMES = 65
+BENCH_QUICK_COURSES = ("straight", "turning", "stress")
+BENCH_CHUNK = 32
+BENCH_LK_QUADS = 1 + 5
+BENCH_TIMEOUT = 600
 
 
 def kitti_intrinsics(height: int, width: int):
@@ -425,31 +452,68 @@ def _render_frames(args):
     return [_COURSES[key].frame(i) for i in range(lo, hi)]
 
 
+class CourseRender:
+    """Courses rendered on a pool of ``workers`` spawned processes while the
+    caller goes on (the renderer holds the GIL for much of a frame, so
+    threads reach ~2x on 8 cores); a frame depends only on the course and
+    its index. Each course's first ``first_frames`` frames are one job,
+    submitted before every other, so ``first`` returns soon; ``result``
+    waits for every frame. ``close`` (or leaving the ``with`` block) drops
+    what has not started and stops the workers."""
+
+    def __init__(self, specs, height, width, workers=None, first_frames=3):
+        import multiprocessing
+
+        workers = workers or os.cpu_count() or 1
+        self._specs = list(specs)
+        self._size = (height, width)
+        self._ex = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        self._jobs = {}
+        for name, family, n in self._specs:
+            self._jobs[(name, family)] = [self._submit(
+                name, family, n, 0, min(first_frames, n))]
+        for name, family, n in self._specs:
+            lo = min(first_frames, n)
+            cuts = np.linspace(lo, n, min(n - lo, 2 * workers) + 1).astype(int)
+            self._jobs[(name, family)] += [
+                self._submit(name, family, n, int(a), int(b))
+                for a, b in zip(cuts[:-1], cuts[1:]) if b > a]
+
+    def _submit(self, name, family, n, lo, hi):
+        return self._ex.submit(_render_frames,
+                               (name, family, n, *self._size, lo, hi))
+
+    def first(self, key):
+        """The first frames of course ``key`` (name, family)."""
+        return self._jobs[key][0].result()
+
+    def result(self):
+        """{(name, family): (frames, gt poses)} of every course."""
+        from visual_odom_tpu_torch.io.synthetic import make_course
+
+        intr = kitti_intrinsics(*self._size)
+        return {(name, family): (
+            [f for job in self._jobs[(name, family)] for f in job.result()],
+            make_course(name, intr, num_frames=n,
+                        texture_family=family).poses)
+            for name, family, n in self._specs}
+
+    def close(self):
+        self._ex.shutdown(cancel_futures=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def render_courses(specs, height, width):
-    """{(name, family): (frames, gt poses)}: each course's frames rendered
-    in chunks on a pool of spawned worker processes, one per core (the
-    renderer holds the GIL for much of a frame, so threads reach ~2x on 8
-    cores); a frame depends only on the course and its index."""
-    import multiprocessing
-
-    from visual_odom_tpu_torch.io.synthetic import make_course
-
-    intr = kitti_intrinsics(height, width)
-    workers = os.cpu_count() or 1
-    jobs, out = [], {}
-    with concurrent.futures.ProcessPoolExecutor(
-            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
-        for name, family, n in specs:
-            cuts = np.linspace(0, n, min(n, 2 * workers) + 1).astype(int)
-            jobs.append((name, family, n, [
-                ex.submit(_render_frames, (name, family, n, height, width,
-                                           int(lo), int(hi)))
-                for lo, hi in zip(cuts[:-1], cuts[1:]) if hi > lo]))
-        for name, family, n, futures in jobs:
-            seq = make_course(name, intr, num_frames=n, texture_family=family)
-            out[(name, family)] = ([f for fu in futures for f in fu.result()],
-                                   seq.poses)
-    return out
+    """{(name, family): (frames, gt poses)} of the (name, family, frames)
+    specs, rendered on a pool of one process per core."""
+    with CourseRender(specs, height, width) as render:
+        return render.result()
 
 
 def card_line() -> str:
@@ -863,7 +927,7 @@ def compare_kernel(check, label, time_plain=True):
     # The plain version syncs once per iteration of its masked loop, so
     # its time is host and device together, as the main path would see it.
     # The calls above warmed it up.
-    plain_ms = (time_ms(check.plain, reps=3 if batched else 5, warm=0)
+    plain_ms = (time_ms(check.plain, reps=2 if batched else 3, warm=0)
                 if time_plain else None)
     flops, nbytes = check.work(*outs[default], iters)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -1080,7 +1144,8 @@ def run_main_path(name, frames, gt, config, intr, dev, ref_poses=None,
 def run_batched_path(courses, config, intr, dev, ref_poses=None):
     """The batched path: BATCH_COURSES in lockstep through
     ``run_sequences_batched``, each sequence held to the bench gates on its
-    own steps. Returns (result dict, poses per sequence)."""
+    own steps. Returns (result dict, poses per sequence, the runner's
+    statistics per sequence)."""
     from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
 
     seqs = [courses[k][0] for k in BATCH_COURSES]
@@ -1117,7 +1182,7 @@ def run_batched_path(courses, config, intr, dev, ref_poses=None):
     for r in per_seq:
         if not (r["accept"] >= 0.9 and r["ate_m"] <= r["ate_budget_m"]):
             raise AssertionError(f"batch path: accuracy gates failed: {r}")
-    return res, poses
+    return res, poses, stats
 
 
 def _small_course():
@@ -1359,15 +1424,15 @@ def backend_scan(frames, gt, config, intr, dev):
 def tracks_cost(frames, config, intr, dev):
     """Phase 7 (a), the cost of collecting snapshots: the first
     TRACKS_COST_STEPS steps of the course through ``run_sequence_scan``
-    without and with ``collect_tracks``, in turns (without, with, with,
-    without; the host's speed drifts within a run). The chains must be
-    equal bit for bit: collecting changes no result."""
+    without and with ``collect_tracks`` (one run each: the host's speed
+    drifts within a run, so the ratio is rough). The chains must be equal
+    bit for bit: collecting changes no result."""
     from visual_odom_tpu_torch.runner import pipeline
 
     part = frames[:TRACKS_COST_STEPS + 1]
     walls = {False: [], True: []}
     poses = {}
-    for tracks in (False, True, True, False):
+    for tracks in (False, True):
         out = pipeline.run_sequence_scan(part, config, intr, chunk=CHUNK,
                                          warmup=False, collect_tracks=tracks,
                                          device=dev)
@@ -1557,66 +1622,62 @@ def resume_check(frames, config, intr, dev):
     """Phase 8 ``resume``: ``run_sequence_scan_resumable`` (chunk
     RESUME_CHUNK, a snapshot every RESUME_EVERY steps) uninterrupted,
     interrupted by a failure at frame RESUME_CRASH_AT, and resumed from its
-    last snapshot; without and with track snapshots. The resumed run equals
-    the uninterrupted one bit for bit, and both equal ``run_sequence_scan``
-    at the same chunk. Returns the resumed runs' launch counts and the
-    reference scan's track snapshots (phase 11's BA input)."""
+    last snapshot, with track snapshots (phase 11's command line resumes
+    the scan without them). The resumed run equals the uninterrupted one
+    bit for bit, and both equal ``run_sequence_scan`` at the same chunk.
+    Returns the resumed run's launch counts and the reference scan's track
+    snapshots (phase 11's BA input)."""
     from visual_odom_tpu_torch.runner import pipeline
     from visual_odom_tpu_torch.utils.checkpoint import load_scan_checkpoint
 
     ref = pipeline.run_sequence_scan(frames, config, intr, chunk=RESUME_CHUNK,
                                      warmup=False, collect_tracks=True,
                                      device=dev)
-    launches = 0
     with tempfile.TemporaryDirectory() as tmp:
-        for tracks in (False, True):
-            kw = dict(checkpoint_every=RESUME_EVERY, chunk=RESUME_CHUNK,
-                      warmup=False, collect_tracks=tracks, device=dev)
-            full_ck, crash_ck = (os.path.join(tmp, f"{k}_{tracks}.npz")
-                                 for k in ("full", "crash"))
-            stats = []
-            full = pipeline.run_sequence_scan_resumable(
-                RandomAccess(frames), config, intr, full_ck,
-                snapshot_stats=stats, **kw)
-            try:
-                pipeline.run_sequence_scan_resumable(
-                    RandomAccess(frames, RESUME_CRASH_AT), config, intr,
-                    crash_ck, **kw)
-                raise AssertionError("resume: the injected failure did not "
-                                     "surface")
-            except RuntimeError as e:
-                if "injected" not in str(e):
-                    raise
-            at = int(load_scan_checkpoint(crash_ck)["frames_done"])
-            reset_counts()
-            resumed = pipeline.run_sequence_scan_resumable(
-                RandomAccess(frames), config, intr, crash_ck, **kw)
-            counts = read_counts()
-            launches += check_counts("resume", config, counts, resumed[3],
-                                     False)
+        kw = dict(checkpoint_every=RESUME_EVERY, chunk=RESUME_CHUNK,
+                  warmup=False, collect_tracks=True, device=dev)
+        full_ck, crash_ck = (os.path.join(tmp, f"{k}.npz")
+                             for k in ("full", "crash"))
+        stats = []
+        full = pipeline.run_sequence_scan_resumable(
+            RandomAccess(frames), config, intr, full_ck,
+            snapshot_stats=stats, **kw)
+        try:
+            pipeline.run_sequence_scan_resumable(
+                RandomAccess(frames, RESUME_CRASH_AT), config, intr,
+                crash_ck, **kw)
+            raise AssertionError("resume: the injected failure did not "
+                                 "surface")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        at = int(load_scan_checkpoint(crash_ck)["frames_done"])
+        reset_counts()
+        resumed = pipeline.run_sequence_scan_resumable(
+            RandomAccess(frames), config, intr, crash_ck, **kw)
+        counts = read_counts()
+        launches = check_counts("resume", config, counts, resumed[3], False)
 
-            def same(a, b):
-                return all(np.array_equal(x, y) for x, y in zip(a, b))
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
 
-            eq = {"poses_resumed_vs_full": bool(np.array_equal(resumed[0],
-                                                               full[0])),
-                  "poses_full_vs_scan": bool(np.array_equal(full[0], ref[0])),
-                  "outputs_resumed_vs_full": same(resumed[1], full[1]),
-                  "outputs_full_vs_scan": same(full[1], ref[1])}
-            if tracks:
-                eq["tracks_resumed_vs_full"] = all(
-                    same(a, b) for a, b in zip(resumed[4], full[4]))
-                eq["tracks_full_vs_scan"] = all(
-                    same(a, b) for a, b in zip(full[4], ref[4]))
-            res = dict(tracks=tracks, steps=full[3], chunk=RESUME_CHUNK,
-                       checkpoint_every=RESUME_EVERY, crash_at=RESUME_CRASH_AT,
-                       snapshot_at=at, resumed_steps=resumed[3],
-                       snapshots=stats, wall_full_s=full[2],
-                       wall_resumed_s=resumed[2], launch_counts=counts, **eq)
-            print("resume", json.dumps(res))
-            if not (all(eq.values()) and at == RESUME_EVERY
-                    and resumed[3] == len(frames) - 1 - at):
-                raise AssertionError(f"resume: not bit for bit: {res}")
+    eq = {"poses_resumed_vs_full": bool(np.array_equal(resumed[0], full[0])),
+          "poses_full_vs_scan": bool(np.array_equal(full[0], ref[0])),
+          "outputs_resumed_vs_full": same(resumed[1], full[1]),
+          "outputs_full_vs_scan": same(full[1], ref[1]),
+          "tracks_resumed_vs_full": all(
+              same(a, b) for a, b in zip(resumed[4], full[4])),
+          "tracks_full_vs_scan": all(
+              same(a, b) for a, b in zip(full[4], ref[4]))}
+    res = dict(tracks=True, steps=full[3], chunk=RESUME_CHUNK,
+               checkpoint_every=RESUME_EVERY, crash_at=RESUME_CRASH_AT,
+               snapshot_at=at, resumed_steps=resumed[3], snapshots=stats,
+               wall_full_s=full[2], wall_resumed_s=resumed[2],
+               launch_counts=counts, **eq)
+    print("resume", json.dumps(res))
+    if not (all(eq.values()) and at == RESUME_EVERY
+            and resumed[3] == len(frames) - 1 - at):
+        raise AssertionError(f"resume: not bit for bit: {res}")
     return launches, ref[4]
 
 
@@ -1807,8 +1868,12 @@ def front_doors(frames, cframes, ref, cref, config, xconfig, intr, dev):
 
     # (d) the bench's scan variants (bench.py:126-138) on the checker
     # course, where the adaptive fallback fires (scripts/door_turns.py
-    # times the doors against each other in paired rounds)
-    cn = len(cframes) - 1
+    # times the doors against each other in paired rounds): its first
+    # DOOR_CHECKER_STEPS steps, against the same steps of phase 4's scan (a
+    # scan's steps do not depend on the ones after them)
+    cn = min(DOOR_CHECKER_STEPS, len(cframes) - 1)
+    cframes = cframes[:cn + 1]
+    cref = (cref[0][:cn + 1], type(cref[1])(*(x[:cn] for x in cref[1])))
     keep = ("chunks", "upload_bytes", "decode_s", "upload_s",
             "thread_wall_s", "busy_frac", "upload_mb_s")
     for variant, kw in (("preupload", dict(preupload=True)),
@@ -1924,11 +1989,12 @@ def image_packages_hidden():
                 sys.modules[m] = mod
 
 
-def kitti_phase(courses, ref, bposes, config, intr, dev, root):
+def kitti_phase(courses, ref, bposes, bstats, config, intr, dev, root):
     """Phase 10: phase 4's batched courses as KITTI PNG directories under
     ``root``, read back through the native decoder only (the caller hides
     the image packages), each run held bit for bit to phase 4's in-memory
-    run. One ``kitti`` line per part. Returns the launches per kernel
+    run (``bposes``, ``bstats``: the batched one's poses and statistics).
+    One ``kitti`` line per part. Returns the launches per kernel
     ({"quad", "quad_batched"}), the directories ({course key: path}) and
     ``eval_all``'s scores."""
     from visual_odom_tpu_torch.eval.devkit import eval_all
@@ -2011,8 +2077,9 @@ def kitti_phase(courses, ref, bposes, config, intr, dev, root):
         "every_run_bit_for_bit": all(
             r["poses_vs_scan"] and r["outputs_vs_scan"] for r in runs)})
 
-    # (c) the batched runner over the four directories: uninterrupted,
-    # failed after its first snapshot, resumed
+    # (c) the batched runner over the four directories, failed after its
+    # first snapshot and resumed (phase 11's run-batch reads them
+    # uninterrupted)
     seqs = [KittiSequence(dirs[k]) for k in BATCH_COURSES]
     n_steps = max(len(s) for s in seqs) - 1
     ck = os.path.join(root, "batch.npz")
@@ -2025,15 +2092,16 @@ def kitti_phase(courses, ref, bposes, config, intr, dev, root):
             label, config, read_counts(), steps, True)
         return out
 
-    full = batched("kitti batched", seqs, -(-n_steps // CHUNK) * CHUNK)
     crash_stats, resume_stats = [], []
     reset_counts()
+    # the failure is injected into a full-length course (frames past a
+    # short course's end are its last frame)
+    longest = max(range(len(seqs)), key=lambda i: len(seqs[i]))
     try:
-        # the last course is a full-length one (frames past a short
-        # course's end are its last frame)
-        run_sequences_batched(seqs[:-1]
-                              + [FailingSequence(seqs[-1],
-                                                 KITTI_CRASH_AT)],
+        run_sequences_batched(seqs[:longest]
+                              + [FailingSequence(seqs[longest],
+                                                 KITTI_CRASH_AT)]
+                              + seqs[longest + 1:],
                               config, intr,
                               checkpoint_path=ck,
                               checkpoint_every=KITTI_EVERY,
@@ -2051,7 +2119,7 @@ def kitti_phase(courses, ref, bposes, config, intr, dev, root):
                       checkpoint_path=ck, checkpoint_every=KITTI_EVERY,
                       snapshot_stats=resume_stats)
     per_seq = []
-    for key, p, st in zip(BATCH_COURSES, full[0], full[1]):
+    for key, p, st in zip(BATCH_COURSES, resumed[0], resumed[1]):
         ate, budget = ate_and_budget(p, courses[key][1])
         per_seq.append(dict(course="_".join(key), steps=st["frames"] - 1,
                             accept=st["accept_ratio"], ate_m=ate,
@@ -2060,18 +2128,15 @@ def kitti_phase(courses, ref, bposes, config, intr, dev, root):
     report("batch", dict(
         batch=len(seqs), steps=n_steps, chunk=CHUNK,
         checkpoint_every=KITTI_EVERY, crash_at=KITTI_CRASH_AT,
-        snapshot_at=at, wall_full_s=full[2],
-        ms_per_step=1e3 * full[2] / n_steps,
-        aggregate_fps=sum(len(s) - 1 for s in seqs) / full[2],
-        wall_resumed_s=resumed[2], crash_launches=crash_launches,
+        snapshot_at=at, wall_resumed_s=resumed[2],
+        ms_per_resumed_step=1e3 * resumed[2] / (n_steps - at),
+        crash_launches=crash_launches,
         snapshots=crash_stats + resume_stats, sequences=per_seq), {
         "snapshot_at_expected": at == KITTI_CRASH_AT // KITTI_EVERY
         * KITTI_EVERY,
-        "poses_vs_batch_path": all(np.array_equal(a, b)
-                                   for a, b in zip(full[0], bposes)),
         "poses_resumed_vs_batch_path": all(
             np.array_equal(a, b) for a, b in zip(resumed[0], bposes)),
-        "stats_resumed_vs_full": resumed[1] == full[1],
+        "stats_resumed_vs_batch_path": resumed[1] == bstats,
         "bench_gates": all(r["accept"] >= 0.9
                            and r["ate_m"] <= r["ate_budget_m"]
                            for r in per_seq)})
@@ -2079,14 +2144,14 @@ def kitti_phase(courses, ref, bposes, config, intr, dev, root):
     # (d) the devkit over the four results
     res_dir = os.path.join(root, "results")
     os.makedirs(res_dir)
-    for key, p in zip(BATCH_COURSES, full[0]):
+    for key, p in zip(BATCH_COURSES, bposes):
         save_poses_kitti(os.path.join(res_dir, "_".join(key) + ".txt"), p)
     t = time.perf_counter()
     scores = eval_all(os.path.join(root, "gt"), res_dir,
                       os.path.join(root, "devkit"), plots=False)
     eval_s = time.perf_counter() - t
     rows, eq = [], {}
-    for key, p in zip(BATCH_COURSES, full[0]):
+    for key, p in zip(BATCH_COURSES, bposes):
         name, gt = "_".join(key), courses[key][1]
         length = float(np.sum(np.linalg.norm(
             np.diff(gt[:, :3, 3], axis=0), axis=1)))
@@ -3160,7 +3225,98 @@ def ranks_phase(lposes, lframes, loop_read, loop_launches, courses,
     return launches
 
 
+@contextlib.contextmanager
+def environment(**values):
+    """``os.environ`` with ``values`` set inside the block (and so in the
+    processes started there), restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bench_phase(courses, root):
+    """Phase 14: the port's ``vo bench --quick`` in a subprocess on this
+    card, over a course cache in ``root`` that holds phase 4's straight,
+    turning and stress courses (the quick gauntlet's 65 frames) under the
+    bench's keys; then the bench's ``main`` once more in this
+    process on ``straight`` alone with the launch counts on: 3 quads per
+    scanned frame (the warm-up chunk and the timed run), ``bench_lk``'s
+    quads, and its one-leg parity check's level launches. Returns the
+    launches of the in-process run."""
+    from visual_odom_tpu_torch import bench
+    from visual_odom_tpu_torch.ops.lk import LKParams
+
+    cache = os.path.join(root, "course_cache")
+    with environment(VO_COURSE_CACHE=cache):
+        for name in BENCH_QUICK_COURSES:
+            frames, gt = courses[(name, "value")]
+            if len(frames) != BENCH_QUICK_FRAMES:
+                raise AssertionError(f"phase 14: {name} has {len(frames)} "
+                                     f"frames, the quick bench {BENCH_QUICK_FRAMES}")
+            path = bench.course_cache_path(name, BENCH_QUICK_FRAMES, H, W)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            np.savez(path, lefts=np.stack([f[0] for f in frames]),
+                     rights=np.stack([f[1] for f in frames]), poses=gt)
+
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "visual_odom_tpu_torch.runner.cli",
+             "bench", "--quick"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        sub_wall = time.perf_counter() - t
+        for ln in r.stderr.splitlines():
+            if ln.startswith("[bench]"):
+                print(ln)
+        if r.returncode != 0:
+            raise AssertionError(f"phase 14: vo bench --quick exited "
+                                 f"{r.returncode}:\n{r.stderr[-4000:]}")
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        print("bench", json.dumps(line))
+        if not (line["accuracy_ok"] is True and line["value"] > 0
+                and tuple(line["courses"]) == BENCH_QUICK_COURSES):
+            raise AssertionError(f"phase 14: vo bench --quick: {line}")
+
+        t = time.perf_counter()
+        reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(["--quick", "--courses", "straight"])
+        counts = read_counts()
+        in_wall = time.perf_counter() - t
+    own = json.loads(out.getvalue().strip().splitlines()[-1])
+    steps = BENCH_QUICK_FRAMES - 1
+    scanned = steps + min(BENCH_CHUNK, steps)
+    expected = dict(dict.fromkeys(counts, 0),
+                    quad=LAUNCHES_PER_FRAME * scanned + BENCH_LK_QUADS,
+                    level=LKParams().levels + 1)
+    print("bench_in_process", json.dumps(dict(
+        rc=rc, value=own["value"], accuracy_ok=own["accuracy_ok"],
+        lk_survivors=own["lk_survivors"],
+        lk_circular_matches_per_s=own["lk_circular_matches_per_s"],
+        scanned_frames=scanned, launch_counts=counts,
+        expected_launch_counts=expected, subprocess_wall_s=sub_wall,
+        in_process_wall_s=in_wall)))
+    if not (rc == 0 and own["accuracy_ok"] is True and counts == expected):
+        raise AssertionError(f"phase 14: the bench in process: rc {rc}, "
+                             f"{own}, launches {counts} != {expected}")
+    return counts
+
+
 def main() -> int:
+    """Every phase; the render pool stops whatever happens."""
+    with contextlib.ExitStack() as stack:
+        return run_phases(stack)
+
+
+def run_phases(stack) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3183,6 +3339,17 @@ def main() -> int:
     print("card:", card)
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "python", sys.version.split()[0])
+
+    # The courses render on every core but one while the kernels build and
+    # phase 3 checks them on the first frames, which render first.
+    t_render = time.perf_counter()
+    render = stack.enter_context(CourseRender(
+        [("straight", "value", STRAIGHT_STEPS + 1),
+         ("straight", "checker", CHECKER_STEPS + 1),
+         ("turning", "value", BENCH_STEPS + 1),
+         ("stress", "value", BENCH_STEPS + 1),
+         ("loop", "value", LOOP_STEPS + 1)], H, W,
+        workers=max(1, (os.cpu_count() or 1) - 1)))
 
     t = time.perf_counter()
     path = _nvcc.build("lk_legs")
@@ -3207,20 +3374,14 @@ def main() -> int:
                 kernel="lk_level_kernel" if level else "lk_quad_kernel",
                 instance=instance_name(inst), sms=n_sm, **info)))
 
-    t = time.perf_counter()
-    courses = render_courses([("straight", "value", STRAIGHT_STEPS + 1),
-                              ("straight", "checker", CHECKER_STEPS + 1),
-                              ("turning", "value", BENCH_STEPS + 1),
-                              ("stress", "value", BENCH_STEPS + 1),
-                              ("loop", "value", LOOP_STEPS + 1)], H, W)
-    print(f"render: {time.perf_counter() - t:.2f} s")
-
     config = VOConfig.for_image(H, W)
     intr = kitti_intrinsics(H, W)
     params = LKParams(window=config.lk_window, levels=config.lk_levels,
                       max_iters=config.lk_max_iters, eps=config.lk_eps,
                       min_eig_threshold=config.lk_min_eig_threshold)
-    frames, gt = courses[("straight", "value")]
+    first = {k: render.first(k) for k in BATCH_COURSES}
+    frames = first[("straight", "value")]
+    print(f"render, first frames: {time.perf_counter() - t_render:.2f} s")
 
     # ---- phase 3: kernels vs plain at KITTI shapes -----------------------
     t = time.perf_counter()
@@ -3266,7 +3427,7 @@ def main() -> int:
         with instance_defaults(inst):
             route_vs_quad(*full, params, sl_top, f"full_sl{sl_top}_n384")
     del full
-    bframes = stacked_frames([courses[k][0] for k in BATCH_COURSES], 3)
+    bframes = stacked_frames([first[k] for k in BATCH_COURSES], 3)
     images, pts, valid, flow, disp = quad_inputs(bframes, config, intr, dev)
     some = valid & (torch.arange(BATCH, device=dev) % 2 == 0)[:, None]
     bquads = [
@@ -3288,7 +3449,7 @@ def main() -> int:
                               f"sl{sl}_b{BATCH}_n384")
     # The instances again at WIDE_B sequences, where the card fills (the
     # plain version is not timed here).
-    wframes = stacked_frames([courses[BATCH_COURSES[b % BATCH]][0]
+    wframes = stacked_frames([first[BATCH_COURSES[b % BATCH]]
                               for b in range(WIDE_B)], 3)
     images, pts, valid, flow, disp = quad_inputs(wframes, config, intr, dev)
     wquad = compare_kernel(quad_check(images, pts, valid, flow, disp, params,
@@ -3298,6 +3459,13 @@ def main() -> int:
                           f"fast_leg_sl1_b{WIDE_B}_n384", time_plain=False)
     del images, pts, valid, flow, disp
     print(f"phase 3: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    courses = render.result()
+    render.close()
+    frames, gt = courses[("straight", "value")]
+    print(f"render: {time.perf_counter() - t_render:.2f} s from the start, "
+          f"{time.perf_counter() - t:.2f} s waited after phase 3")
 
     # ---- phase 4: the main path, on both routes --------------------------
     t = time.perf_counter()
@@ -3313,9 +3481,9 @@ def main() -> int:
                                                dev, ref_poses=poses)
         xruns.append(xres)
         xrefs.append((xposes, xfetched))
-    batched_run, bposes = run_batched_path(courses, config, intr, dev)
-    xbatched_run, xbposes = run_batched_path(courses, xconfig, intr, dev,
-                                             ref_poses=bposes)
+    batched_run, bposes, bstats = run_batched_path(courses, config, intr, dev)
+    xbatched_run, xbposes, _ = run_batched_path(courses, xconfig, intr, dev,
+                                                ref_poses=bposes)
 
     print(f"phase 4: {time.perf_counter() - t:.1f} s")
 
@@ -3362,8 +3530,8 @@ def main() -> int:
     # ---- phases 10-11: KITTI PNG input, the command line, the pipe --------
     with tempfile.TemporaryDirectory() as root, image_packages_hidden():
         t = time.perf_counter()
-        kitti_launches, dirs, scores = kitti_phase(courses, refs[0], bposes,
-                                                   config, intr, dev, root)
+        kitti_launches, dirs, scores = kitti_phase(
+            courses, refs[0], bposes, bstats, config, intr, dev, root)
         print(f"phase 10: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         cli_launches = cli_phase(courses, dirs, scores, refs[0],
@@ -3393,6 +3561,11 @@ def main() -> int:
                                     mesh_loop_launches, courses, mesh_refs,
                                     config, intr, dev, root)
         print(f"phase 13: {time.perf_counter() - t:.1f} s")
+
+        # ---- phase 14: the bench harness, vo bench --quick ---------------
+        t = time.perf_counter()
+        bench_launches = bench_phase(courses, root)
+        print(f"phase 14: {time.perf_counter() - t:.1f} s")
 
     default = lk_cuda.variant()
 
@@ -3455,7 +3628,8 @@ def main() -> int:
              "pipe": pipe_launches["quad"],
              "mesh_loop_edges": mesh_loop_launches,
              "cli_ba_ring": cli_mesh_launches["quad"],
-             "rank_loop_edges": rank_launches["rank_loop_edges"]},
+             "rank_loop_edges": rank_launches["rank_loop_edges"],
+             "bench": bench_launches["quad"]},
             quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
             {"batched_path": batched_run["kernel_launches"],
@@ -3472,7 +3646,8 @@ def main() -> int:
              "mono": variants["mono"][1],
              "shi_tomasi": variants["shi_tomasi"][1],
              "front_doors": door_launches["level"],
-             "pipe": pipe_launches["level"]},
+             "pipe": pipe_launches["level"],
+             "bench": bench_launches["level"]},
             levels, finest(levels), True),
         row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
             {"batched_path": xbatched_run["kernel_launches"],

@@ -24,11 +24,14 @@ the JAX package's and against the port's entry points called directly.
   ``--ba-window`` alone.
 - The kill-and-resume subprocess test of
   tests/test_fault_injection.py:59-106, with ``--device cpu``.
-- Refusals (exit 2): a ``run-batch`` mesh of more data rows than devices,
-  ``bench``. Without a card and
-  without ``--device cpu`` the stepping subcommands exit 1 with
-  ``resolve_device``'s message; ``--live`` without a display exits 1;
-  ``rgbd`` without a camera raises.
+- ``bench``: the command it hands to ``subprocess.call`` is JAX's with
+  ``python -m visual_odom_tpu_torch.bench`` in place of ``bench.py``, plus
+  ``--device``; a real ``bench --quick --device cpu`` at 120x160 prints a
+  last line that parses, with three courses.
+- Refusals: a ``run-batch`` mesh of more data rows than devices exits 2.
+  Without a card and without ``--device cpu`` the stepping subcommands and
+  ``bench`` exit 1 with ``resolve_device``'s message; ``--live`` without a
+  display exits 1; ``rgbd`` without a camera raises.
 """
 
 import argparse
@@ -111,7 +114,7 @@ def test_parser_equals_jax(monkeypatch):
     got = _describe(_parser_of(cli.main, monkeypatch))
     assert got.keys() == ref.keys() == {"run", "run-batch", "eval",
                                         "eval-all", "bench"}
-    for name in ("run", "run-batch"):
+    for name in ("run", "run-batch", "bench"):
         device = got[name].pop("device")
         assert device[0] == ("--device",) and device[2] == "cuda"
     assert got == ref
@@ -448,11 +451,6 @@ def test_kill_and_resume_matches_uninterrupted(calib, tmp_path):
 # --- refusals -----------------------------------------------------------------
 
 
-def test_bench_refused(capsys):
-    assert cli.main(["bench", "--quick"]) == 2
-    assert "ROADMAP item 10" in capsys.readouterr().err
-
-
 def test_run_batch_mesh_of_more_data_rows_than_devices(kitti_dirs, calib,
                                                        tmp_path, capsys):
     _, dirs = kitti_dirs
@@ -461,6 +459,60 @@ def test_run_batch_mesh_of_more_data_rows_than_devices(kitti_dirs, calib,
     assert rc == 2
     err = capsys.readouterr().err
     assert "mesh wants 2 devices, only 1 available" in err
+
+
+# --- bench ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+@pytest.mark.parametrize("flags", [
+    [], ["--quick"], ["--quick", "--frames", "5"],
+    ["--frames", "33", "--height", "120", "--width", "160"]],
+    ids=["defaults", "quick", "quick_frames", "frames_size"])
+def test_bench_argv_equals_jax(flags, device, monkeypatch):
+    """The port's ``bench`` hands ``subprocess.call`` JAX's command with
+    the port's harness in place of ``bench.py``, plus ``--device``, and
+    returns its exit code."""
+    calls = []
+    monkeypatch.setattr(subprocess, "call",
+                        lambda cmd: calls.append(cmd) or 7)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert jcli.main(["bench", *flags]) == 7
+    dev = [] if device is None else ["--device", device]
+    assert cli.main(["bench", *flags, *dev]) == 7
+    jax_cmd, port_cmd = calls
+    assert jax_cmd[:2] == [sys.executable, "bench.py"]
+    assert port_cmd == ([sys.executable, "-m", "visual_odom_tpu_torch.bench"]
+                        + jax_cmd[2:] + ["--device", device or "cuda"])
+
+
+def test_bench_needs_a_card_or_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    monkeypatch.setattr(subprocess, "call",
+                        lambda cmd: calls.append(cmd) or 0)
+    assert cli.main(["bench", "--quick"]) == 1
+    err = capsys.readouterr().err
+    assert "no CUDA device is available" in err and "--device cpu" in err
+    assert not calls
+
+
+def test_bench_subprocess_on_cpu(tmp_path):
+    """``vo bench`` for real, from outside the repository: the harness's
+    last line parses, with JAX's quick gauntlet."""
+    r = subprocess.run(
+        [sys.executable, "-m", "visual_odom_tpu_torch.runner.cli", "bench",
+         "--quick", "--frames", "5", "--height", str(H), "--width", str(W),
+         "--device", "cpu"],
+        env=dict(_env(), VO_COURSE_CACHE=str(tmp_path / "cache"),
+                 OMP_NUM_THREADS="1"),
+        cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    assert line["metric"] == "vo_fps_per_chip" and line["value"] > 0
+    assert list(line["courses"]) == ["straight", "turning", "stress"]
+    assert line["image"] == f"{W}x{H}" and line["frames"] == 5
+    assert "[bench] straight: " in r.stderr
 
 
 # --- the multi-device paths on patched CPU device lists ------------------------

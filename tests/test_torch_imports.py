@@ -24,8 +24,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "rank_times.py",
                                         ROOT / "tests" / "torch_dist_worker.py"]
 #: modules the back end, the checkpoints, mono rotation, the front doors'
-#: host I/O, the KITTI input, evaluation, utilities, the command line and
-#: the multi-device paths added; the import check must reach them
+#: host I/O, the KITTI input, evaluation, utilities, the command line, the
+#: multi-device paths and the bench harness added; the import check must
+#: reach them
 BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
            "runner.loopclosure", "utils.checkpoint", "backend.essential",
            "backend.five_point", "utils.metrics", "io.kitti", "eval.plot",
@@ -33,7 +34,8 @@ BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
            "eval.kitti_eval", "eval.devkit", "utils.notify",
            "utils.profiling", "parallel.batch_eval", "runner.cli",
            "parallel.mesh", "parallel.pipe", "parallel.collectives",
-           "parallel.sharded_ba", "parallel.ring_ba", "parallel.batch")
+           "parallel.sharded_ba", "parallel.ring_ba", "parallel.batch",
+           "bench")
 
 
 def _imported_modules(path: pathlib.Path):

@@ -10,13 +10,15 @@ reference invocation.
     python -m visual_odom_tpu_torch.runner.cli run-batch <seq_dir>... --calibration c.yaml --out-dir out/
     python -m visual_odom_tpu_torch.runner.cli eval --gt gt.txt --result poses.txt
     python -m visual_odom_tpu_torch.runner.cli eval-all --gt-dir gt/ --result-dir res/ --out-dir out/
+    python -m visual_odom_tpu_torch.runner.cli bench [--quick] [--frames N] [--height H] [--width W]
 
 `run` and `run-batch` step VO on `--device` (default `cuda`; `cpu` runs
 the plain PyTorch path and must be asked for): without a card and without
 `--device cpu` they exit non-zero. A mesh (`run --ba-ring`'s "seq" ring,
 `run-batch`'s (data, model) mesh) spans every visible card for `cuda` and
-the one named device for `cuda:N` or `cpu`. `bench` waits for the port's
-benchmark and exits 2 with a message.
+the one named device for `cuda:N` or `cpu`. `bench` runs the port's
+benchmark harness (``python -m visual_odom_tpu_torch.bench``) on `--device`
+in a subprocess and returns its exit code.
 
 The devkit scorer the reference ships but never wires up
 (src/evaluate/evaluate_odometry.cpp:471-497 — main commented out) is a
@@ -63,11 +65,6 @@ _CONFIG_FLAGS = [
     ("min-accept-inliers", "min_accept_inliers", int),
     ("lk-backend", "lk_backend", str),
 ]
-
-#: what the refused subcommand waits for (ROADMAP.md)
-_WAITS_FOR_BENCH = ("bench waits for the port's benchmark (ROADMAP item 10); "
-                    "bench.py belongs to the JAX package")
-
 
 def add_config_flags(parser) -> None:
     """Expose every reference algorithm constant as a CLI override."""
@@ -448,8 +445,19 @@ def _cmd_run_batch(args) -> int:
 
 
 def _cmd_bench(args) -> int:
-    print(_WAITS_FOR_BENCH, file=sys.stderr)
-    return 2
+    import subprocess
+
+    cmd = [sys.executable, "-m", "visual_odom_tpu_torch.bench"]
+    if args.quick:
+        cmd.append("--quick")
+    if args.frames:
+        cmd += ["--frames", str(args.frames)]
+    if args.height:
+        cmd += ["--height", str(args.height)]
+    if args.width:
+        cmd += ["--width", str(args.width)]
+    cmd += ["--device", args.device]
+    return subprocess.call(cmd)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -557,12 +565,12 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--no-plots", action="store_true")
     pa.set_defaults(fn=_cmd_eval_all)
 
-    pb = sub.add_parser("bench", help="the benchmark harness (refused until "
-                                      "the port's benchmark lands)")
+    pb = sub.add_parser("bench", help="run the benchmark harness")
     pb.add_argument("--quick", action="store_true")
     pb.add_argument("--frames", type=int, default=0)
     pb.add_argument("--height", type=int, default=0)
     pb.add_argument("--width", type=int, default=0)
+    add_device_flag(pb)
     pb.set_defaults(fn=_cmd_bench)
     return p
 
