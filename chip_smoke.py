@@ -52,7 +52,8 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    disparity. Last, the fast quad and the fast leg at B = WIDE_B, where the
    card fills, to time the instances there.
 4. Run the main path (the default instance), ``run_sequence_scan``, at
-   1241x376: 64 steps of the
+   1241x376, each frame a replay of the step's CUDA graph (captured, with
+   its launches uncounted, before the timed run): 64 steps of the
    "straight" course and 160 steps of "straight" with the periodic "checker"
    texture (which exercises the adaptive fallback). Assert the bench gates
    (accept >= 0.9, ATE <= 1% of course length) and that the kernel ran
@@ -75,14 +76,17 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    the same RANSAC draws; and a batched step of two sequences against two
    single-sequence steps on the card, fed the same draws.
 6. Check that a main-path step never synchronises with the host (CUDA sync
-   debug mode "error"), then profile a few frames: device time by kernel,
-   device ops per frame and the device's busy share; the same for the
-   per-leg route's step. The same for the
-   batched step at each B of SWEEP_B (the four courses' first
+   debug mode "error"), then profile a few frames replayed from the
+   step's CUDA graph: device time by kernel, device ops per frame, the
+   route's LK kernels by name inside the replays (3 quads or 32 level
+   launches a frame), the host's CUDA runtime calls per frame, and the
+   device's busy share; the same for the per-leg route's step. The same
+   for the batched step at each B of SWEEP_B (the four courses' first
    SWEEP_STEPS steps, tiled to B sequences), after timing those steps
-   with ``run_sequences_batched``: aggregate frames/s and ms per step. The
-   sync check also runs one step made ``with_tracks`` and, for one
-   sequence, one buffered step (``make_buffered_step_fn``).
+   with ``run_sequences_batched``, graphed and eager (``scans(False)``) in
+   turns: aggregate frames/s and ms per step. The sync check also runs
+   one step made ``with_tracks`` and, for one sequence, one buffered step
+   (``make_buffered_step_fn``).
 7. The back end (one ``backend`` line per part), on LOOP_STEPS steps of the
    "loop" course: (a) ``run_sequence_scan(collect_tracks=True)`` under the
    bench gates, one snapshot per step whose valid count is the step's
@@ -229,6 +233,23 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    true and frames/s above 0. Then the bench's ``main`` in this process on
    straight alone, with the launch counts on: 3 quads per scanned frame,
    ``bench_lk``'s quads and its parity leg's level launches, nothing else.
+15. The step as one CUDA graph (``graph`` lines; ``runner.graph``). The
+   scan family's step (``make_scan_step_fn``) replayed from its graph
+   against the eager step (``_graph=False``) on GRAPH_STEPS steps of
+   "straight" on both LK routes, the four batched courses in lockstep
+   (B = BATCH), "straight" with track snapshots, and GRAPH_MONO_STEPS
+   steps of mono rotation: every output field, the poses, the final
+   state's arrays and its generators' state bit for bit, each run with
+   the route's launches per step (a replay adds the launches its graph
+   holds to the wrappers' counts); the eager run is also held to phase
+   4's ``run_sequence_scan`` of the course, graphed by default. Then the
+   resumable scan replayed from the graph, failed and resumed, against
+   the eager uninterrupted run (poses, outputs, track snapshots, the last
+   snapshots' arrays); one replay under sync debug mode "error"; ms a
+   frame of ``run_sequence_scan`` graphed and eager in GRAPH_ROUNDS paired
+   rounds on both routes and mono, with phase 6's device ms and busy
+   share; the sweep's graphed and eager aggregate frames/s; and the
+   captures made (seconds each, launches per replay, replays).
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -239,6 +260,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import io
 import json
 import os
@@ -424,6 +446,13 @@ BENCH_QUICK_COURSES = ("straight", "turning", "stress")
 BENCH_CHUNK = 32
 BENCH_LK_QUADS = 1 + 5
 BENCH_TIMEOUT = 600
+#: phase 15: steps of the graphed-vs-eager runs (phase 4's straight course
+#: and batched courses; mono rotation, whose eager step is ~3x the
+#: default's, on fewer), and the paired rounds of ms a frame, each round
+#: one graphed and one eager run
+GRAPH_STEPS = 64
+GRAPH_MONO_STEPS = 32
+GRAPH_ROUNDS = 3
 
 
 def kitti_intrinsics(height: int, width: int):
@@ -1084,6 +1113,7 @@ def read_counts() -> dict:
             "level_batched": lk_track_pyramid.batched_launches}
 
 
+
 def check_counts(label, config, counts, steps, batched):
     """The route's kernel ran its launches per step, and no other kernel
     launch was made. Returns the route's count."""
@@ -1100,6 +1130,45 @@ def check_counts(label, config, counts, steps, batched):
     return counts[kernel]
 
 
+@contextlib.contextmanager
+def scans(graphed: bool):
+    """The scan family's doors inside the block step as ``graphed`` says:
+    replayed from the step's CUDA graph (the default on a card) or eagerly
+    (``make_scan_step_fn(_graph=False)``, the reference the graph is held
+    to). The doors look ``make_scan_step_fn`` up when they are called, in
+    ``runner.pipeline`` and in ``parallel.batch``."""
+    from visual_odom_tpu_torch.parallel import batch
+    from visual_odom_tpu_torch.runner import pipeline
+
+    real = pipeline.make_scan_step_fn
+    pipeline.make_scan_step_fn = batch.make_scan_step_fn = functools.partial(
+        real, _graph=graphed)
+    try:
+        yield
+    finally:
+        pipeline.make_scan_step_fn = batch.make_scan_step_fn = real
+
+
+def warm_graph(frames, config, intr, dev):
+    """Capture the scan's graph for ``frames``' shape (one sequence, or
+    (B, H, W) stacks) with one chunk of one frame on a throwaway state, so
+    that a timed run after it replays from its first frame (where it is
+    captured already, this is one replay). The caller resets the counts
+    after it."""
+    import torch
+
+    from visual_odom_tpu_torch.parallel import batch
+    from visual_odom_tpu_torch.runner import pipeline
+
+    if frames[0][0].ndim == 3:
+        state = batch.batched_init_state(config, *frames[0], device=dev)
+    else:
+        state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
+    scan = pipeline.make_scan_step_fn(config, intr, device=dev)
+    scan(state, *(torch.from_numpy(x[None]).to(dev) for x in frames[1]))
+    torch.cuda.synchronize()
+
+
 def run_main_path(name, frames, gt, config, intr, dev, ref_poses=None,
                   label="main_path", ate_limit=None):
     """``run_sequence_scan`` on one course, held to the bench gates (or, with
@@ -1109,6 +1178,7 @@ def run_main_path(name, frames, gt, config, intr, dev, ref_poses=None,
     outputs)."""
     from visual_odom_tpu_torch.runner import pipeline
 
+    warm_graph(frames, config, intr, dev)
     reset_counts()
     poses, fetched, wall, n = pipeline.run_sequence_scan(
         frames, config, intr, chunk=CHUNK, warmup=False, device=dev)
@@ -1152,6 +1222,7 @@ def run_batched_path(courses, config, intr, dev, ref_poses=None):
     n_steps = max(len(s) for s in seqs) - 1
     # the last chunk is padded with the final frame
     steps_run = -(-n_steps // CHUNK) * CHUNK
+    warm_graph(stacked_frames(seqs, 2), config, intr, dev)
     reset_counts()
     poses, stats, wall = run_sequences_batched(seqs, config, intr,
                                                chunk=CHUNK, device=dev)
@@ -1282,11 +1353,17 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
                    label="profile"):
     """Device time by kernel over a few main-path frames (4: the profiler's
     bookkeeping makes each profiled frame cost the script seconds), under
-    torch.profiler, after two steps (for one sequence, three: the third a
-    buffered step) that must not synchronise with the host. The busy share
-    divides it by ``steady_ms``, the main path's
-    ms/frame without the profiler (which slows the host). Frames of
-    (B, H, W) pairs profile the batched step (per step, not per frame)."""
+    torch.profiler: replays of the scan's CUDA graph (one chunk of
+    ``n_frames``, after a first chunk outside the profile that captures it
+    where it is not captured yet), after two eager steps (for one sequence,
+    three: the third a buffered step) that must not synchronise with the
+    host. The route's LK kernels must appear by name inside the replays,
+    LAUNCHES_PER_FRAME (or LEVEL_LAUNCHES_PER_FRAME) a frame; the runtime
+    calls the host made (kernel launches, copies, graph launches) are
+    counted per frame. The busy share divides the device time by
+    ``steady_ms``, the main path's ms/frame without the profiler (which
+    slows the host). Frames of (B, H, W) pairs profile the batched step
+    (per step, not per frame)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1301,10 +1378,10 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
         state = batch.batched_init_state(config, *frames[0], device=dev)
     n_sync = 3 if single else 2           # steps under the sync check
     up = [(torch.from_numpy(l).to(dev), torch.from_numpy(r).to(dev))
-          for l, r in frames[1:n_sync + n_frames + 1]]
-    if len(up) != n_sync + n_frames:
+          for l, r in frames[1:n_sync + n_frames + 2]]
+    if len(up) != n_sync + n_frames + 1:
         raise ValueError(f"{label}: {len(frames)} frames, the sync check "
-                         f"and the profile need {n_sync + n_frames + 1}")
+                         f"and the profile need {n_sync + n_frames + 2}")
     tracks_step = pipeline.make_step_fn(config, intr, with_tracks=True,
                                         device=dev)
     if single:
@@ -1325,66 +1402,100 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
     if single and bufs.idx.tolist() != [1]:
         raise AssertionError(f"{label}: the buffered step's cursor is "
                              f"{bufs.idx.tolist()}, expected [1]")
+    scan = pipeline.make_scan_step_fn(config, intr, device=dev)
+    lefts, rights = (torch.stack([f[k] for f in up[n_sync:]]) for k in (0, 1))
+    state, _ = scan(state, lefts[:1], rights[:1])
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for l, r in up[n_sync:]:
-            state, out = step(state, l, r)
+        state, out = scan(state, lefts[1:], rights[1:])
         torch.cuda.synchronize()
     rows = device_rows(prof)
     if not rows:
         raise AssertionError("profile: the profiler saw no device time")
     device_ms = sum(r[0] for r in rows) / 1e3 / n_frames
+    kernel, per_frame = (("lk_quad_kernel", LAUNCHES_PER_FRAME)
+                         if config.resolved_lk_backend() == "pallas"
+                         else ("lk_level_kernel", LEVEL_LAUNCHES_PER_FRAME))
+    lk = sum(c for _, k, c in rows if kernel in k) / n_frames
     res = {"frames": n_frames, "device_ms_per_frame": device_ms,
            "device_ops_per_frame": sum(r[2] for r in rows) / n_frames,
+           "lk_kernel": kernel, "lk_kernels_per_frame": lk,
+           "host_runtime_calls_per_frame": host_calls(prof, n_frames),
            "steady_ms_per_frame": steady_ms,
            "device_busy_share": device_ms / steady_ms,
            "top_device_ops": [{"name": k[:90], "ms_per_frame": us / 1e3 / n_frames,
                                "calls_per_frame": c / n_frames}
                               for us, k, c in rows[:10]]}
     print(label, json.dumps(res))
+    if lk != per_frame:
+        raise AssertionError(f"{label}: {lk} {kernel} a frame inside the "
+                             f"replays, expected {per_frame}")
     return res
+
+
+def host_calls(prof, n_frames) -> dict:
+    """The CUDA runtime and driver calls the host made under ``prof``
+    (kernel launches, copies, graph launches, ...), by name, per frame."""
+    from torch.autograd import DeviceType
+
+    return {e.key: e.count / n_frames for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key.startswith("cu")
+            and any(k in e.key for k in ("Launch", "Memcpy", "Memset"))}
 
 
 def batch_sweep(courses, config, intr, dev, n_prof=4):
     """``run_sequences_batched`` over the first SWEEP_STEPS steps of the
     batched path's courses, tiled to B sequences, for each B of SWEEP_B:
     aggregate frames/s and ms per batched step (one chunk, its upload
-    outside the timed wall), then the batched step's sync check and
-    profile. Each B is warmed up on 4 steps first, and timed twice in
-    turns (B ascending, then descending): the host-bound times drift
-    within a run."""
+    outside the timed wall), replayed from the batched step's CUDA graph
+    and stepped eagerly (``scans(False)``), then the batched step's sync
+    check and profile. Each B is warmed up on 4 steps both ways first, and
+    timed twice in turns (B ascending with the graph first, then all of it
+    in reverse): the host-bound times drift within a run."""
     from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
 
     full = [courses[k][0] for k in BATCH_COURSES]
     tiled = {B: [full[b % len(full)] for b in range(B)] for B in SWEEP_B}
-    for B in SWEEP_B:
-        run_sequences_batched([f[:5] for f in tiled[B]], config, intr,
-                              chunk=4, device=dev)
-    walls = {B: [] for B in SWEEP_B}
+    order = [(B, g) for B in SWEEP_B for g in (True, False)]
+    for B, g in order:
+        with scans(g):
+            run_sequences_batched([f[:5] for f in tiled[B]], config, intr,
+                                  chunk=4, device=dev)
+    walls = {k: [] for k in order}
     accept = {}
-    for B in SWEEP_B + SWEEP_B[::-1]:
+    for B, g in order + order[::-1]:
         reset_counts()
-        _, stats, wall = run_sequences_batched(
-            [f[:SWEEP_STEPS + 1] for f in tiled[B]], config, intr,
-            chunk=SWEEP_STEPS, device=dev)
+        with scans(g):
+            _, stats, wall = run_sequences_batched(
+                [f[:SWEEP_STEPS + 1] for f in tiled[B]], config, intr,
+                chunk=SWEEP_STEPS, device=dev)
         launches = check_counts(f"sweep B={B}", config, read_counts(),
                                 SWEEP_STEPS, True)
-        walls[B].append(wall)
-        accept[B] = float(np.mean([s["accept_ratio"] for s in stats]))
+        walls[B, g].append(wall)
+        accept[B, g] = float(np.mean([s["accept_ratio"] for s in stats]))
     rows = []
     for B in SWEEP_B:
-        wall = float(np.mean(walls[B]))
+        wall = float(np.mean(walls[B, True]))
+        eager = float(np.mean(walls[B, False]))
         step_ms = 1e3 * wall / SWEEP_STEPS
-        prof = profile_frames(stacked_frames(tiled[B], n_prof + 3), config,
+        prof = profile_frames(stacked_frames(tiled[B], n_prof + 4), config,
                               intr, dev, step_ms, n_frames=n_prof,
                               label=f"profile_b{B}")
-        row = dict(batch=B, steps=SWEEP_STEPS, walls_s=walls[B],
+        row = dict(batch=B, steps=SWEEP_STEPS, walls_s=walls[B, True],
                    ms_per_step=step_ms, aggregate_fps=B * SWEEP_STEPS / wall,
+                   eager_walls_s=walls[B, False],
+                   eager_ms_per_step=1e3 * eager / SWEEP_STEPS,
+                   eager_aggregate_fps=B * SWEEP_STEPS / eager,
                    device_ms_per_step=prof["device_ms_per_frame"],
                    device_ops_per_step=prof["device_ops_per_frame"],
                    device_busy_share=prof["device_busy_share"],
                    kernel_launches=launches,
-                   mean_accept=accept[B])
+                   mean_accept=accept[B, True],
+                   accept_equal_eager=accept[B, True] == accept[B, False])
         print("sweep", json.dumps(row))
+        if not row["accept_equal_eager"]:
+            raise AssertionError(f"sweep B={B}: the graphed run's accept "
+                                 f"ratio differs from the eager run's")
         rows.append(row)
     return rows
 
@@ -1688,7 +1799,8 @@ def variant_check(name, opts, frames, gt, intr, dev, default_profile,
     itself misses the ATE budget on this course, to VARIANT_ATE_FACTOR x
     its ATE), the routes equal bit for bit, the LK launches per frame of
     the default step; then the step's sync check and profile beside the
-    default step's. Returns the launch counts per route."""
+    default step's. Returns the launch counts per route and the
+    profile."""
     import torch
 
     from visual_odom_tpu_torch.config import VOConfig
@@ -1736,7 +1848,7 @@ def variant_check(name, opts, frames, gt, intr, dev, default_profile,
     print(name, json.dumps(res))
     if res["max_abs_dpose_routes"] != 0.0:
         raise AssertionError(f"{name}: the routes differ: {res}")
-    return q["kernel_launches"], x["kernel_launches"]
+    return q["kernel_launches"], x["kernel_launches"], prof
 
 
 def _same(a, b) -> bool:
@@ -3310,6 +3422,263 @@ def bench_phase(courses, root):
     return counts
 
 
+def _bits(a, b) -> bool:
+    """Two arrays equal bit for bit: dtype, shape and bytes."""
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def scan_course(frames, config, intr, dev, graph, with_tracks=False):
+    """The scan family's chunk step, ``make_scan_step_fn(_graph=graph)``,
+    over ``frames``: (H, W) pairs, or (B, H, W) stacks for B sequences
+    (generators seeded 0..B-1), CHUNK frames a call from chunks uploaded
+    before the loop. Returns (the outputs fetched and concatenated, the
+    final state's arrays with its generators' state, the launch counts,
+    the wall)."""
+    import torch
+
+    from visual_odom_tpu_torch.parallel import batch
+    from visual_odom_tpu_torch.runner import pipeline
+
+    if frames[0][0].ndim == 3:
+        state = batch.batched_init_state(config, *frames[0], device=dev)
+    else:
+        state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
+    scan = pipeline.make_scan_step_fn(config, intr, with_tracks=with_tracks,
+                                      device=dev, _graph=graph)
+    chunks = [tuple(torch.from_numpy(np.stack([f[k] for f in
+                                               frames[i:i + CHUNK]])).to(dev)
+                    for k in (0, 1))
+              for i in range(1, len(frames), CHUNK)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = []
+    for lefts, rights in chunks:
+        state, *out = scan(state, lefts, rights)
+        outs.append(out)
+    fetched = pipeline._concat(pipeline._fetch_chunks(outs))
+    wall = time.perf_counter() - t0
+    return fetched, pipeline.state_arrays(state), read_counts(), wall
+
+
+def _chains(out):
+    """Each sequence's float64 pose chain of a fetched StepOutput stack."""
+    from visual_odom_tpu_torch.runner.pipeline import chain_poses_host
+
+    if out.T_inv.ndim == 3:
+        return [chain_poses_host(out.T_inv, out.accept)]
+    return [chain_poses_host(out.T_inv[:, b], out.accept[:, b])
+            for b in range(out.T_inv.shape[1])]
+
+
+def graph_vs_eager(case, frames, config, intr, dev, with_tracks=False,
+                   scan_ref=None):
+    """Phase 15 ``graph``: the scan family's step replayed from its CUDA
+    graph against the eager step (``_graph=False``) on ``frames``, bit for
+    bit: every output field (and track snapshot field), each sequence's
+    poses, the final state's arrays and its generators' state; each run
+    with the route's launches per step. ``scan_ref`` (poses, fetched
+    outputs of phase 4's ``run_sequence_scan`` of the course, graphed by
+    default) is held to the eager run too. Returns the line."""
+    batched = frames[0][0].ndim == 3
+    steps = len(frames) - 1
+    (ef, es, ec, ew), (gf, gs, gc, gw) = (
+        scan_course(frames, config, intr, dev, g, with_tracks)
+        for g in (False, True))
+    eq = {"outputs": all(_bits(x, y) for a, b in zip(ef, gf)
+                         for x, y in zip(a, b)),
+          "poses": all(_bits(a, b) for a, b in zip(_chains(ef[0]),
+                                                   _chains(gf[0]))),
+          "state": all(_bits(es[k], gs[k]) for k in es if k != "gen_state"),
+          "generator_state": _bits(es["gen_state"], gs["gen_state"])}
+    if scan_ref is not None:
+        eq["run_sequence_scan"] = (_bits(scan_ref[0], _chains(ef[0])[0])
+                                   and all(_bits(x, y) for x, y in
+                                           zip(scan_ref[1], ef[0])))
+    res = dict(case=case, route=config.resolved_lk_backend(),
+               batch=frames[0][0].shape[0] if batched else 1, steps=steps,
+               chunk=CHUNK, tracks=with_tracks, bit_exact=eq,
+               wall_eager_s=ew, wall_graph_s=gw, launch_counts_eager=ec,
+               launch_counts_graph=gc)
+    print("graph", json.dumps(res))
+    for label, counts in (("eager", ec), ("graph", gc)):
+        check_counts(f"graph {case} ({label})", config, counts, steps,
+                     batched)
+    if not all(eq.values()):
+        raise AssertionError(f"graph {case}: graphed and eager differ: {eq}")
+    return res
+
+
+def graph_resume(frames, config, intr, dev):
+    """Phase 15 ``graph_resume``: ``run_sequence_scan_resumable`` replayed
+    from the graph, failed at frame RESUME_CRASH_AT and resumed from its
+    last snapshot, against the eager uninterrupted run (``scans(False)``),
+    with track snapshots: poses, outputs, track snapshots and the two runs'
+    last snapshots (the generators' state among their arrays) bit for
+    bit."""
+    from visual_odom_tpu_torch.runner import pipeline
+    from visual_odom_tpu_torch.utils.checkpoint import load_scan_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(checkpoint_every=RESUME_EVERY, chunk=RESUME_CHUNK,
+                  warmup=False, collect_tracks=True, device=dev)
+        eager_ck, crash_ck = (os.path.join(tmp, f"{k}.npz")
+                              for k in ("eager", "crash"))
+        with scans(False):
+            eager = pipeline.run_sequence_scan_resumable(
+                RandomAccess(frames), config, intr, eager_ck, **kw)
+        try:
+            pipeline.run_sequence_scan_resumable(
+                RandomAccess(frames, RESUME_CRASH_AT), config, intr,
+                crash_ck, **kw)
+            raise AssertionError("graph_resume: the injected failure did "
+                                 "not surface")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        at = int(load_scan_checkpoint(crash_ck)["frames_done"])
+        resumed = pipeline.run_sequence_scan_resumable(
+            RandomAccess(frames), config, intr, crash_ck, **kw)
+        snaps = [load_scan_checkpoint(p) for p in (eager_ck, crash_ck)]
+    eq = {"poses": _bits(resumed[0], eager[0]),
+          "outputs": all(_bits(x, y) for x, y in zip(resumed[1], eager[1])),
+          "tracks": len(resumed[4]) == len(eager[4]) and all(
+              _bits(x, y) for a, b in zip(resumed[4], eager[4])
+              for x, y in zip(a, b)),
+          "last_snapshot": (sorted(snaps[0]) == sorted(snaps[1])
+                            and all(_bits(snaps[0][k], snaps[1][k])
+                                    for k in snaps[0]))}
+    res = dict(steps=eager[3], chunk=RESUME_CHUNK,
+               checkpoint_every=RESUME_EVERY, crash_at=RESUME_CRASH_AT,
+               snapshot_at=at, resumed_steps=resumed[3],
+               last_snapshot_step=int(snaps[1]["frames_done"]), bit_exact=eq)
+    print("graph_resume", json.dumps(res))
+    if not (all(eq.values()) and at == RESUME_EVERY):
+        raise AssertionError(f"graph_resume: not bit for bit: {res}")
+    return res
+
+
+def graph_sync(frames, config, intr, dev):
+    """Phase 15: one replay of the graphed step (``GraphedStep.__call__``,
+    the eager step's contract) under CUDA sync debug mode "error"; its
+    graph is captured first, outside it."""
+    import torch
+
+    from visual_odom_tpu_torch.runner import pipeline
+
+    graphed = pipeline._graphed_step(config, intr, False, dev)
+    state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
+    up = [tuple(torch.from_numpy(x).to(dev) for x in f) for f in frames[1:3]]
+    state, _ = graphed(state, *up[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, out = graphed(state, *up[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out.T_inv).all()):
+        raise AssertionError("graph_sync: the replayed step's T_inv is not "
+                             "finite")
+
+
+def graph_turns(frames, config, intr, dev, rounds):
+    """Phase 15: ms a frame of ``run_sequence_scan`` (chunk CHUNK, one
+    upload thread, no warm-up) replayed from the graph and stepped eagerly,
+    in turns (graph, eager, eager, graph, ...), every run's poses bit for
+    bit the first's. Returns ({"graph": [ms...], "eager": [ms...]}, poses
+    of the first run)."""
+    from visual_odom_tpu_torch.runner import pipeline
+
+    ms = {"graph": [], "eager": []}
+    ref = None
+    for k in range(rounds):
+        for v in (("graph", "eager") if k % 2 == 0 else ("eager", "graph")):
+            with scans(v == "graph"):
+                poses, _, wall, n = pipeline.run_sequence_scan(
+                    frames, config, intr, chunk=CHUNK, warmup=False,
+                    device=dev)
+            ms[v].append(1e3 * wall / n)
+            if ref is None:
+                ref = poses
+            elif not _bits(poses, ref):
+                raise AssertionError(f"graph_turns: a {v} run's poses "
+                                     f"differ from the first run's")
+    return ms, ref
+
+
+def graph_phase(frames, courses, ref, xref, config, xconfig, intr, dev,
+                profiles, sweep):
+    """Phase 15: the scan family's step as one CUDA graph (``graph``
+    lines). Graphed against eager bit for bit on GRAPH_STEPS steps of
+    "straight" on both LK routes, the batched courses (B = BATCH), the
+    straight course with track snapshots, mono rotation on GRAPH_MONO_STEPS
+    steps; the resumable scan crashed and resumed against the eager
+    uninterrupted run; one replay under sync debug "error"; ms a frame in
+    GRAPH_ROUNDS paired rounds on both routes and mono; the captures made
+    (seconds each, launches per replay, replays); the device ms and busy
+    share (phase 6's profiles of replays over the paired rounds' graphed
+    ms) and the sweep's graphed and eager aggregate frames/s. Returns the
+    graphed runs' launch counts, summed."""
+    from visual_odom_tpu_torch.config import VOConfig
+    from visual_odom_tpu_torch.runner import pipeline
+
+    mconfig = VOConfig.for_image(H, W, mono_rotation=True)
+    bframes = stacked_frames([courses[k][0] for k in BATCH_COURSES],
+                             GRAPH_STEPS + 1)
+    cases = [("straight", frames[:GRAPH_STEPS + 1], config, False, ref),
+             ("straight_xla", frames[:GRAPH_STEPS + 1], xconfig, False,
+              xref),
+             (f"batched_b{BATCH}", bframes, config, False, None),
+             ("straight_tracks", frames[:GRAPH_STEPS + 1], config, True,
+              None),
+             ("straight_mono", frames[:GRAPH_MONO_STEPS + 1], mconfig, False,
+              None)]
+    launches = dict.fromkeys(read_counts(), 0)
+    for case, fr, cfg, tracks, scan_ref in cases:
+        res = graph_vs_eager(case, fr, cfg, intr, dev, tracks, scan_ref)
+        for k, n in res["launch_counts_graph"].items():
+            launches[k] += n
+    graph_resume(frames, config, intr, dev)
+    graph_sync(frames, config, intr, dev)
+    for name, cfg, n in (("quad", config, GRAPH_STEPS),
+                         ("xla", xconfig, GRAPH_STEPS),
+                         ("mono", mconfig, GRAPH_MONO_STEPS)):
+        ms, _ = graph_turns(frames[:n + 1], cfg, intr, dev, GRAPH_ROUNDS)
+        prof = profiles.get(name)
+        graph_ms = float(np.median(ms["graph"]))
+        print("graph_turns", json.dumps(dict(
+            route=name, steps=n, rounds=GRAPH_ROUNDS, ms_graph=ms["graph"],
+            ms_eager=ms["eager"], median_ms_graph=graph_ms,
+            median_ms_eager=float(np.median(ms["eager"])),
+            rounds_graph_faster=sum(g < e for g, e in zip(ms["graph"],
+                                                          ms["eager"])),
+            **({"device_ms_per_frame": prof["device_ms_per_frame"],
+                "device_busy_share": prof["device_ms_per_frame"] / graph_ms,
+                "host_runtime_calls_per_frame":
+                    prof["host_runtime_calls_per_frame"]}
+               if prof else {}))))
+    print("graph_sweep", json.dumps([{k: r[k] for k in (
+        "batch", "aggregate_fps", "eager_aggregate_fps", "ms_per_step",
+        "eager_ms_per_step", "device_ms_per_step", "device_busy_share")}
+        for r in sweep]))
+    captures = []
+    for name, cfg, tracks in (("default", config, False),
+                              ("default_tracks", config, True),
+                              ("xla", xconfig, False),
+                              ("mono", mconfig, False)):
+        for key, cap in pipeline._graphed_step(cfg, intr, tracks,
+                                               dev).captures.items():
+            captures.append(dict(config=name, frames=list(key[2]),
+                                 seconds=cap.seconds,
+                                 per_replay=cap.per_replay,
+                                 replays=cap.replays))
+    print("graph_captures", json.dumps(captures))
+    return launches
+
+
 def main() -> int:
     """Every phase; the render pool stops whatever happens."""
     with contextlib.ExitStack() as stack:
@@ -3495,9 +3864,9 @@ def run_phases(stack) -> int:
     # ---- phase 6: where the time goes -----------------------------------
     default_prof = profile_frames(frames, config, intr, dev,
                                   runs[0]["ms_per_frame"])
-    profile_frames(frames, xconfig, intr, dev, xruns[0]["ms_per_frame"],
-                   label="profile_xla")
-    batch_sweep(courses, config, intr, dev)
+    xla_prof = profile_frames(frames, xconfig, intr, dev,
+                              xruns[0]["ms_per_frame"], label="profile_xla")
+    sweep = batch_sweep(courses, config, intr, dev)
     print(f"phases 5-6: {time.perf_counter() - t:.1f} s")
 
     # ---- phase 7: the back end on the loop course -------------------------
@@ -3519,6 +3888,8 @@ def run_phases(stack) -> int:
                                     default_prof, JAX_VARIANTS[name])
                 for name, opts in (("mono", dict(mono_rotation=True)),
                                    ("shi_tomasi", dict(detector="shi-tomasi")))}
+    profiles = {"quad": default_prof, "xla": xla_prof,
+                "mono": variants["mono"][2]}
     print(f"phase 8: {time.perf_counter() - t:.1f} s")
 
     # ---- phase 9: the front doors, on phase 4's frames -------------------
@@ -3566,6 +3937,12 @@ def run_phases(stack) -> int:
         t = time.perf_counter()
         bench_launches = bench_phase(courses, root)
         print(f"phase 14: {time.perf_counter() - t:.1f} s")
+
+    # ---- phase 15: the step as one CUDA graph, against eager -------------
+    t = time.perf_counter()
+    graph_launches = graph_phase(frames, courses, refs[0], xrefs[0], config,
+                                 xconfig, intr, dev, profiles, sweep)
+    print(f"phase 15: {time.perf_counter() - t:.1f} s")
 
     default = lk_cuda.variant()
 
@@ -3629,7 +4006,8 @@ def run_phases(stack) -> int:
              "mesh_loop_edges": mesh_loop_launches,
              "cli_ba_ring": cli_mesh_launches["quad"],
              "rank_loop_edges": rank_launches["rank_loop_edges"],
-             "bench": bench_launches["quad"]},
+             "bench": bench_launches["quad"],
+             "graph": graph_launches["quad"]},
             quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
             {"batched_path": batched_run["kernel_launches"],
@@ -3637,7 +4015,8 @@ def run_phases(stack) -> int:
              "cli_batch": cli_launches["quad_batched"],
              "batch_mesh": mesh_launches["quad_batched"],
              "cli_batch_mesh": cli_mesh_launches["quad_batched"],
-             "rank_batch_mesh": rank_launches["rank_batch_mesh_quad"]},
+             "rank_batch_mesh": rank_launches["rank_batch_mesh_quad"],
+             "graph": graph_launches["quad_batched"]},
             bquads,
             bquads[0], False, wquad),
         row("lk_level_kernel", REPLACES_LEVEL,
@@ -3647,7 +4026,8 @@ def run_phases(stack) -> int:
              "shi_tomasi": variants["shi_tomasi"][1],
              "front_doors": door_launches["level"],
              "pipe": pipe_launches["level"],
-             "bench": bench_launches["level"]},
+             "bench": bench_launches["level"],
+             "graph": graph_launches["level"]},
             levels, finest(levels), True),
         row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
             {"batched_path": xbatched_run["kernel_launches"],

@@ -1,0 +1,197 @@
+#!/usr/bin/env python3
+"""The scan family's step replayed from its CUDA graph against the eager
+step, in turns, on one GPU.
+
+    python3 scripts/graph_turns.py [--steps 64] [--mono-steps 32]
+                                   [--batch-steps 16] [--rounds 10]
+                                   [--out DIR]
+
+Renders the "straight" course at 1241x376 (the bench's camera) and the
+batched path's other courses (checker texture, "turning", "stress"), and
+runs each case ``--rounds`` times graphed and eager, reversing the order
+every round (graph eager, eager graph, ...), so that the host's drift
+within a call falls on both alike:
+
+- ``quad``: ``run_sequence_scan`` (chunk 32, one upload thread, no
+  warm-up) over ``--steps`` steps of "straight", the default step;
+- ``mono``: the same with ``mono_rotation=True`` over ``--mono-steps``;
+- ``b1``, ``b4``, ``b11``: ``run_sequences_batched`` (one chunk of
+  ``--batch-steps``, its upload outside the wall) over the four courses
+  tiled to B sequences.
+
+Graphed runs replay the step's graph (the default on a card); eager
+ones run inside ``chip_smoke.scans(False)``
+(``make_scan_step_fn(_graph=False)``). Every run must give its case's
+first run's poses bit for bit. Each case's graph is captured before the
+rounds. Then each case's step is profiled
+(torch.profiler, 4 frames of one chunk, graphed and eager): device ms a
+frame (or a batched step), device ops, the LK kernels seen inside the
+replays, and the host's CUDA runtime calls per frame. Prints one JSON line
+per case (ms per frame of each run and their median, the host CPU ms per
+frame, frames/s (aggregate for B sequences), each round's graph-minus-eager
+difference and the rounds the graph won, device ms and busy share: device
+ms over the median wall) and the card's name and power limit; with
+``--out DIR`` the lines also go to ``DIR/graph_turns.json``. Exits non-zero
+without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+PROFILE_FRAMES = 4
+
+
+def profile_scan(frames, config, intr, dev, graphed):
+    """Device ms, device ops and LK kernels per frame (per batched step for
+    (B, H, W) frames) over PROFILE_FRAMES frames of one scan chunk, and
+    the host's CUDA runtime calls per frame; the chunk before it, outside
+    the profile, captures the graph where it is not yet captured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from visual_odom_tpu_torch.parallel import batch
+    from visual_odom_tpu_torch.runner import pipeline
+
+    if frames[0][0].ndim == 3:
+        state = batch.batched_init_state(config, *frames[0], device=dev)
+    else:
+        state = pipeline.init_vo_state(config, intr, *frames[0], device=dev)
+    scan = pipeline.make_scan_step_fn(config, intr, device=dev,
+                                      _graph=graphed)
+    lefts, rights = (torch.from_numpy(np.stack(
+        [f[k] for f in frames[1:PROFILE_FRAMES + 2]])).to(dev)
+        for k in (0, 1))
+    state, _ = scan(state, lefts[:1], rights[:1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scan(state, lefts[1:], rights[1:])
+        torch.cuda.synchronize()
+    rows = cs.device_rows(prof)
+    n = PROFILE_FRAMES
+    return {"device_ms": sum(r[0] for r in rows) / 1e3 / n,
+            "device_ops": sum(r[2] for r in rows) / n,
+            "lk_kernels": sum(c for _, k, c in rows
+                              if "lk_quad_kernel" in k
+                              or "lk_level_kernel" in k) / n,
+            "host_runtime_calls": cs.host_calls(prof, n)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--mono-steps", type=int, default=32)
+    ap.add_argument("--batch-steps", type=int, default=16)
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("graph_turns: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from visual_odom_tpu_torch.config import VOConfig
+    from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
+    from visual_odom_tpu_torch.runner import pipeline
+
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    n_straight = max(args.steps, args.mono_steps, args.batch_steps) + 1
+    courses = cs.render_courses(
+        [k + ((n_straight if k == ("straight", "value")
+               else args.batch_steps + 1),) for k in cs.BATCH_COURSES],
+        cs.H, cs.W)
+    full = [courses[k][0] for k in cs.BATCH_COURSES]
+    config = VOConfig.for_image(cs.H, cs.W)
+    mconfig = VOConfig.for_image(cs.H, cs.W, mono_rotation=True)
+    intr = cs.kitti_intrinsics(cs.H, cs.W)
+
+    def single(cfg, steps):
+        frames = full[0][:steps + 1]
+
+        def run(graphed):
+            with cs.scans(graphed):
+                poses, _, wall, n = pipeline.run_sequence_scan(
+                    frames, cfg, intr, chunk=32, warmup=False, device=dev)
+            return wall, n, poses
+
+        return run, frames, cfg, 1
+
+    def batched(B):
+        seqs = [full[b % len(full)][:args.batch_steps + 1] for b in range(B)]
+
+        def run(graphed):
+            with cs.scans(graphed):
+                poses, _, wall = run_sequences_batched(
+                    seqs, config, intr, chunk=args.batch_steps, device=dev)
+            return wall, args.batch_steps, np.stack(poses)
+
+        return run, cs.stacked_frames(seqs, PROFILE_FRAMES + 2), config, B
+
+    cases = {"quad": single(config, args.steps),
+             "mono": single(mconfig, args.mono_steps),
+             **{f"b{B}": batched(B) for B in (1, 4, 11)}}
+    lines = []
+    for name, (run, frames, cfg, B) in cases.items():
+        refs = [run(g)[2] for g in (True, False)]   # capture, first use
+        if not np.array_equal(refs[0], refs[1]):
+            raise AssertionError(f"{name}: graphed and eager poses differ")
+        runs = {True: [], False: []}
+        for k in range(args.rounds):
+            for g in ((True, False) if k % 2 == 0 else (False, True)):
+                cpu = time.process_time()
+                wall, n, poses = run(g)
+                runs[g].append((1e3 * wall / n,
+                                1e3 * (time.process_time() - cpu) / n))
+                if not np.array_equal(poses, refs[0]):
+                    raise AssertionError(f"{name}: a graphed={g} run's "
+                                         f"poses differ")
+        prof = {g: profile_scan(frames, cfg, intr, dev, g)
+                for g in (True, False)}
+        line = {"case": name, "batch": B, "steps": n, "rounds": args.rounds,
+                "card": card}
+        for g, tag in ((True, "graph"), (False, "eager")):
+            ms = [m for m, _ in runs[g]]
+            med = float(np.median(ms))
+            line[tag] = {
+                "ms_per_frame": ms, "median_ms_per_frame": med,
+                "frames_per_s": 1e3 * B / med,
+                "median_host_cpu_ms_per_frame": float(np.median(
+                    [c for _, c in runs[g]])),
+                "device_ms_per_frame": prof[g]["device_ms"],
+                "device_ops_per_frame": prof[g]["device_ops"],
+                "device_busy_share": prof[g]["device_ms"] / med,
+                "lk_kernels_per_frame": prof[g]["lk_kernels"],
+                "host_runtime_calls_per_frame":
+                    prof[g]["host_runtime_calls"]}
+        diff = [g - e for (g, _), (e, _) in zip(runs[True], runs[False])]
+        line.update(graph_minus_eager_ms=diff,
+                    median_graph_minus_eager_ms=float(np.median(diff)),
+                    rounds_graph_faster=sum(d < 0 for d in diff),
+                    poses_graph_vs_eager=True)
+        print("graph_turns", json.dumps(line), flush=True)
+        lines.append(line)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "graph_turns.json"), "w") as f:
+            json.dump({"cases": lines, "cpus": os.cpu_count(),
+                       "card": card}, f, indent=1)
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,14 +19,15 @@ FORBIDDEN = ("jax", "jaxlib", "visual_odom_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "backend_courses.py",
                                         ROOT / "scripts" / "door_turns.py",
+                                        ROOT / "scripts" / "graph_turns.py",
                                         ROOT / "scripts" / "kitti_turns.py",
                                         ROOT / "scripts" / "pipe_turns.py",
                                         ROOT / "scripts" / "rank_times.py",
                                         ROOT / "tests" / "torch_dist_worker.py"]
 #: modules the back end, the checkpoints, mono rotation, the front doors'
 #: host I/O, the KITTI input, evaluation, utilities, the command line, the
-#: multi-device paths and the bench harness added; the import check must
-#: reach them
+#: multi-device paths, the bench harness and the graphed step added; the
+#: import check must reach them
 BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
            "runner.loopclosure", "utils.checkpoint", "backend.essential",
            "backend.five_point", "utils.metrics", "io.kitti", "eval.plot",
@@ -35,7 +36,7 @@ BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
            "utils.profiling", "parallel.batch_eval", "runner.cli",
            "parallel.mesh", "parallel.pipe", "parallel.collectives",
            "parallel.sharded_ba", "parallel.ring_ba", "parallel.batch",
-           "bench")
+           "bench", "runner.graph")
 
 
 def _imported_modules(path: pathlib.Path):

@@ -190,9 +190,11 @@ def make_batched_scan_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     """``scan(state, lefts (chunk, B, H, W), rights (chunk, B, H, W)) ->
     (state, StepOutput stacked (chunk, B, ...))``: the chunk is uploaded
     in one copy (to the mesh's first device; each row's frames go on from
-    there) and stepped frame by frame; the outputs stay on the device. On a
-    mesh of ranks each rank uploads its row's frames to its device and
-    gathers the chunk's outputs over its data group once."""
+    there) and stepped frame by frame; the outputs stay on the device. On
+    one card each step is a replay of the batched step's CUDA graph
+    (``runner.pipeline.make_scan_step_fn``); on a mesh the steps are
+    eager. On a mesh of ranks each rank uploads its row's frames to its
+    device and gathers the chunk's outputs over its data group once."""
     device, grid = (None, None) if _ranked(mesh) else _placement(device,
                                                                   mesh)
     if _ranked(mesh):

@@ -117,6 +117,10 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
     all-gathered over its data group). Such a run takes no
     ``checkpoint_path``: a snapshot would have to gather every row's state
     to one writer and resume on every rank, which it does not do.
+
+    On one card a chunked run replays the batched step's CUDA graph
+    (``parallel.batch.make_batched_scan_fn``); ``chunk == 0`` and the
+    meshes step eagerly.
     """
     if mesh is not None and device is not None:
         raise ValueError("run_sequences_batched takes a device or a mesh, "

@@ -1,5 +1,6 @@
-"""The per-frame step and the front doors that drive it."""
+"""The per-frame step, its CUDA graph and the front doors that drive it."""
 
+from visual_odom_tpu_torch.runner.graph import GraphedStep
 from visual_odom_tpu_torch.runner.pipeline import (
     OutputBuffers,
     StepOutput,
@@ -13,6 +14,7 @@ from visual_odom_tpu_torch.runner.pipeline import (
 )
 
 __all__ = [
+    "GraphedStep",
     "VisualOdometry",
     "VOState",
     "StepOutput",

@@ -37,6 +37,7 @@ when CUDA is asked for and absent.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import queue
@@ -63,6 +64,7 @@ from visual_odom_tpu_torch.frontend.matching import (commit_tracked_state,
                                                      skip_mode_match)
 from visual_odom_tpu_torch.io.kitti import PoseWriter, save_poses_kitti
 from visual_odom_tpu_torch.ops.lk import LKImage, LKParams, prepare_lk_image
+from visual_odom_tpu_torch.runner.graph import GraphedStep
 from visual_odom_tpu_torch.utils.checkpoint import (CorruptCheckpoint,
                                                     load_checkpoint,
                                                     load_scan_checkpoint,
@@ -350,17 +352,39 @@ def _concat(chunks) -> tuple:
                  for xs in zip(*chunks))
 
 
+@functools.lru_cache(maxsize=8)
+def _graphed_step(config: VOConfig, intrinsics: CameraIntrinsics,
+                  with_tracks: bool, device: torch.device) -> GraphedStep:
+    """The graphed step, one per (config, intrinsics, with_tracks, device)
+    in a process: each captures its graphs once (``GraphedStep``)."""
+    return GraphedStep(make_step_fn(config, intrinsics,
+                                    with_tracks=with_tracks, device=device),
+                       device)
+
+
 def make_scan_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
-                      with_tracks: bool = False, device=None):
+                      with_tracks: bool = False, device=None, _graph=None):
     """Build ``scan_chunk(state, lefts, rights) -> (state, StepOutput
     stacked (k, ...))``, or ``(state, StepOutput, TrackSnapshot)`` stacked
     ``with_tracks``: the step over a chunk of k frames (numpy or tensors,
     each stack uploaded in one copy unless already on the device), with
     the outputs left on the device. The counterpart of the JAX package's
-    ``lax.scan`` over a chunk; the steps are eager launches here, so k may
-    be any length and no tail is padded. Frames (k, B, H, W) with a batched
-    state step B sequences."""
+    jitted ``lax.scan`` over a chunk: k may be any length and no tail is
+    padded. Frames (k, B, H, W) with a batched state step B sequences.
+
+    On a card each frame is one replay of the step's CUDA graph
+    (``runner.graph.GraphedStep``, captured at the first chunk of each
+    state and frame shape, once per (config, intrinsics, with_tracks,
+    device) in a process); it gives the eager step's results bit for bit.
+    The CPU has no graphs, so there the steps are eager launches.
+    ``_graph``, the counterpart of the JAX step's private ``_jit``: None
+    picks by device, False steps eagerly on a card too (the reference the
+    graph is held to), True on the CPU raises. The doors that step
+    through this function look it up when they are called."""
     dev = resolve_device(device)
+    graphed = dev.type == "cuda" if _graph is None else _graph
+    if graphed:
+        return _graphed_step(config, intrinsics, with_tracks, dev).scan
     step = make_step_fn(config, intrinsics, with_tracks=with_tracks,
                         device=dev)
 
@@ -678,7 +702,8 @@ def run_sequence_scan(frames, config: VOConfig, intrinsics: CameraIntrinsics,
     one-time costs (kernel build and load, CUDA library initialisation)
     stay out of it. With ``collect_tracks``, a fifth element: the per-frame
     TrackSnapshot list (numpy, frame i+1's snapshot at index i, the
-    ``ba.window.smooth_trajectory_ba`` input).
+    ``ba.window.smooth_trajectory_ba`` input). On a card each frame is a
+    replay of the step's CUDA graph (``make_scan_step_fn``).
     """
     dev = resolve_device(device)
     it = iter(frames)
@@ -813,6 +838,8 @@ def run_sequence_scan_resumable(seq, config: VOConfig,
     the per-frame TrackSnapshot list. The wall covers this call's loop,
     snapshots included. ``snapshot_stats``, a list, gets one
     ``{"step", "ms", "bytes"}`` per snapshot written (copies and write).
+    On a card the chunks replay the step's CUDA graph
+    (``make_scan_step_fn``).
     """
     dev = resolve_device(device)
     n_total = len(seq) if not max_frames else min(len(seq), max_frames)
