@@ -117,6 +117,8 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    device ms and ops per step beside the default step's; for Shi-Tomasi
    also the corners per frame before bucketing.
 9. The front doors, on phase 4's frames (nothing more is rendered), each
+   replaying the step's CUDA graph (one replay a frame for
+   ``VisualOdometry`` and the buffered step) and each
    held bit for bit to phase 4's ``run_sequence_scan`` of the course on the
    quad route (poses and every output field) and to its kernel launches
    per frame; one ``front_doors`` line per part: (a) ``run_sequence`` on
@@ -177,7 +179,8 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    pipe reports it), the route's launches per frame, its loop under CUDA
    sync debug mode "error"; ms per frame in two turns with the in-memory
    scan, and device ms per frame and busy share over PIPE_PROFILE_STEPS
-   frames under torch.profiler.
+   frames under torch.profiler. The command line's unchunked ``run`` and
+   the pipe's two stages replay CUDA graphs.
 
 12. The multi-device paths, on meshes built from this card named once per
    position (nothing more is rendered). ``sharded_ba``:
@@ -233,7 +236,7 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    true and frames/s above 0. Then the bench's ``main`` in this process on
    straight alone, with the launch counts on: 3 quads per scanned frame,
    ``bench_lk``'s quads and its parity leg's level launches, nothing else.
-15. The step as one CUDA graph (``graph`` lines; ``runner.graph``). The
+15. The step as one CUDA graph (``graph`` lines; ``utils.cudagraph``). The
    scan family's step (``make_scan_step_fn``) replayed from its graph
    against the eager step (``_graph=False``) on GRAPH_STEPS steps of
    "straight" on both LK routes, the four batched courses in lockstep
@@ -250,6 +253,22 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    rounds on both routes and mono, with phase 6's device ms and busy
    share; the sweep's graphed and eager aggregate frames/s; and the
    captures made (seconds each, launches per replay, replays).
+16. The per-frame doors, the stepwise batched runner, the pipe and the
+   back end's solves as CUDA graphs (``doors_graph`` lines;
+   ``utils.cudagraph``), each graphed run (the default on a card) against
+   its eager run (``utils.cudagraph.dispatch(False)``) bit for bit, with its
+   launches, the replays it made and ms a step both ways in
+   DOOR_GRAPH_ROUNDS paired rounds on DOOR_GRAPH_STEPS steps of
+   "straight": ``VisualOdometry`` with track snapshots (every
+   ``FrameResult`` field, every snapshot, the final state and its
+   generator's state), ``run_sequence_buffered``, ``run_sequences_batched
+   (chunk=0)`` over the batched courses (B = BATCH) and
+   ``run_sequence_pipelined`` with both stages on this card; the command
+   line's unchunked ``run synthetic`` (CLI_GRAPH_FRAMES frames, pose files
+   byte for byte); on phase 7's loop course ``smooth_trajectory_ba`` with
+   the CLI's settings (and one window's solve, ms per GN iteration both
+   ways), ``close_loops`` (its loop edges and pose graph; the pose graph's
+   solve timed both ways).
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -453,6 +472,15 @@ BENCH_TIMEOUT = 600
 GRAPH_STEPS = 64
 GRAPH_MONO_STEPS = 32
 GRAPH_ROUNDS = 3
+#: phase 16: steps of the per-frame doors' graphed-vs-eager runs (phase
+#: 4's straight course; its batched courses for the stepwise runner), the
+#: paired rounds of ms a frame (each round one graphed and one eager run),
+#: the command line's unchunked run's frames, and the solves timed per
+#: mode
+DOOR_GRAPH_STEPS = 64
+DOOR_GRAPH_ROUNDS = 2
+CLI_GRAPH_FRAMES = 17
+SOLVE_REPS = 5
 
 
 def kitti_intrinsics(height: int, width: int):
@@ -3679,6 +3707,285 @@ def graph_phase(frames, courses, ref, xref, config, xconfig, intr, dev,
     return launches
 
 
+def _replays(*graphed) -> int:
+    """The replays made so far by every capture of these ``GraphedStep``s
+    and ``GraphedLoop``s."""
+    return sum(c.replays for g in graphed for c in g.captures.values())
+
+
+def door_turns(label, run, graphed_objs, rounds, per_replay=1):
+    """``run() -> (result, wall_s, steps)`` in turns, graphed (inside
+    ``utils.cudagraph.dispatch(True)``) and eager (``dispatch(False)``), in
+    ``rounds`` pairs (graph eager, eager graph, ...). Each run's launch
+    counts are read (the counts set to 0 just before it); every graphed
+    run must replay ``graphed_objs``' captures ``per_replay`` times a
+    step, every eager run none. Returns ({"graph": [ms a step...],
+    "eager": [...]}, {mode: (first result, its counts)})."""
+    from visual_odom_tpu_torch.utils.cudagraph import dispatch
+
+    ms = {"graph": [], "eager": []}
+    first = {}
+    for k in range(rounds):
+        for mode in (("graph", "eager") if k % 2 == 0 else ("eager", "graph")):
+            before = _replays(*graphed_objs)
+            with dispatch(mode == "graph"):
+                reset_counts()
+                res, wall, steps = run()
+                counts = read_counts()
+            replays = _replays(*graphed_objs) - before
+            want = per_replay * steps if mode == "graph" else 0
+            if replays != want:
+                raise AssertionError(f"doors_graph {label}: a {mode} run "
+                                     f"made {replays} replays, expected "
+                                     f"{want}")
+            ms[mode].append(1e3 * wall / steps)
+            first.setdefault(mode, (res, counts))
+    return ms, first
+
+
+def _door_line(part, ms, first, eq, **extra):
+    """Print a ``doors_graph`` line (ms a step both ways, medians, rounds
+    the graph won, launch counts both ways, the bit-for-bit checks) and
+    raise if a check failed or the launches differ."""
+    res = dict(part=part, ms_graph=ms["graph"], ms_eager=ms["eager"],
+               median_ms_graph=float(np.median(ms["graph"])),
+               median_ms_eager=float(np.median(ms["eager"])),
+               rounds_graph_faster=sum(g < e for g, e in zip(ms["graph"],
+                                                             ms["eager"])),
+               launch_counts_graph=first["graph"][1],
+               launch_counts_eager=first["eager"][1], bit_exact=eq, **extra)
+    print("doors_graph", json.dumps(res))
+    if not all(eq.values()):
+        raise AssertionError(f"doors_graph {part}: graphed and eager "
+                             f"differ: {eq}")
+    if first["graph"][1] != first["eager"][1]:
+        raise AssertionError(f"doors_graph {part}: launches differ: {res}")
+    return res
+
+
+def doors_graph_phase(frames, courses, lframes, lposes, lsnaps, config, intr,
+                      dev):
+    """Phase 16: the per-frame doors, the stepwise batched runner, the pipe
+    and the back end's solves replayed from CUDA graphs (the default on a
+    card) against their eager runs (``utils.cudagraph.dispatch(False)``),
+    bit for bit, with ms a step (or a solve) both ways (``doors_graph``
+    lines). Returns the graphed runs' launch counts, summed."""
+    import torch
+
+    from visual_odom_tpu_torch.ba import posegraph, schur, window
+    from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
+    from visual_odom_tpu_torch.parallel import pipe
+    from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
+    from visual_odom_tpu_torch.runner import loopclosure, pipeline
+    from visual_odom_tpu_torch.utils.cudagraph import dispatch
+
+    n = DOOR_GRAPH_STEPS
+    fr = frames[:n + 1]
+    launches = dict.fromkeys(read_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) VisualOdometry with track snapshots: every FrameResult field but
+    # the frame's time, every snapshot, the final state's arrays and its
+    # generator's state
+    def vo_run():
+        vo = pipeline.VisualOdometry(config, intr, with_tracks=True,
+                                     device=dev)
+        vo.initialize(*fr[0])
+        results, snaps = [], []
+        t = time.perf_counter()
+        for left, right in fr[1:]:
+            results.append(vo.process_frame(left, right))
+            snaps.append(vo.last_tracks)
+        wall = time.perf_counter() - t
+        return (results, snaps, pipeline.state_arrays(vo.state)), wall, n
+
+    g_tracks = pipeline._graphed_step(config, intr, True, dev)
+    ms, first = door_turns("VisualOdometry", vo_run, [g_tracks],
+                           DOOR_GRAPH_ROUNDS)
+    (gr, gs, gst), (er, es, est) = first["graph"][0], first["eager"][0]
+    eq = {"results": all(_bits(np.asarray(a[k]), np.asarray(b[k]))
+                         for a, b in zip(gr, er)
+                         for k in range(1, len(a) - 1)),
+          "poses": all(_bits(a.pose, b.pose) for a, b in zip(gr, er)),
+          "tracks": all(_bits(x, y) for a, b in zip(gs, es)
+                        for x, y in zip(a, b)),
+          "state": all(_bits(gst[k], est[k]) for k in est
+                       if k != "gen_state"),
+          "generator_state": _bits(gst["gen_state"], est["gen_state"])}
+    add(first["graph"][1])
+    _door_line("VisualOdometry", ms, first, eq, steps=n, tracks=True)
+
+    # (b) the buffered step, every frame on the card first
+    g_plain = pipeline._graphed_step(config, intr, False, dev)
+
+    def buffered_run():
+        poses, bufs, wall = pipeline.run_sequence_buffered(
+            fr, config, intr, preupload=True, device=dev)
+        return (poses, bufs), wall, n
+
+    ms, first = door_turns("buffered", buffered_run, [g_plain],
+                           DOOR_GRAPH_ROUNDS)
+    (gp, gb), (ep, eb) = first["graph"][0], first["eager"][0]
+    eq = {"poses": _bits(gp, ep),
+          "buffers": all(_bits(x, y) for x, y in zip(gb, eb))}
+    add(first["graph"][1])
+    _door_line("run_sequence_buffered", ms, first, eq, steps=n)
+
+    # (c) the stepwise batched runner, B = BATCH
+    seqs = [courses[k][0][:n + 1] for k in BATCH_COURSES]
+
+    def batched_run():
+        poses, stats, wall = run_sequences_batched(seqs, config, intr,
+                                                   chunk=0, device=dev)
+        return (poses, stats), wall, n
+
+    ms, first = door_turns("stepwise_batched", batched_run, [g_plain],
+                           DOOR_GRAPH_ROUNDS)
+    (gp, gs_), (ep, es_) = first["graph"][0], first["eager"][0]
+    eq = {"poses": all(_bits(a, b) for a, b in zip(gp, ep)),
+          "stats": gs_ == es_}
+    add(first["graph"][1])
+    _door_line("run_sequences_batched_chunk0", ms, first, eq, steps=n,
+               batch=BATCH)
+
+    # (d) the pipe, both stages on this card
+    stages = pipe._graphed_stages(config, intr, dev, dev)
+
+    def pipe_run():
+        poses, out, wall = pipe.run_sequence_pipelined(fr, config, intr,
+                                                       devices=[dev, dev])
+        return (poses, out), wall, n
+
+    ms, first = door_turns("pipe", pipe_run, stages, DOOR_GRAPH_ROUNDS,
+                           per_replay=2)
+    (gp, go), (ep, eo) = first["graph"][0], first["eager"][0]
+    eq = {"poses": _bits(gp, ep),
+          "outputs": all(_bits(x, y) for x, y in zip(go, eo))}
+    add(first["graph"][1])
+    _door_line("pipe", ms, first, eq, steps=n)
+
+    # (e) the command line's unchunked run (VisualOdometry), pose files
+    # byte for byte
+    with tempfile.TemporaryDirectory() as tmp:
+        calib = os.path.join(tmp, "calib.yaml")
+        write_calibration(calib, intr)
+        files, walls = {}, {}
+        for mode in ("graph", "eager"):
+            out = os.path.join(tmp, f"{mode}.txt")
+            with dispatch(mode == "graph"):
+                rc, stdout, stderr, sec = run_cli([
+                    "run", "synthetic", calib, "--max-frames",
+                    CLI_GRAPH_FRAMES, "--output", out, "--quiet"])
+            if rc != 0:
+                raise AssertionError(f"doors_graph cli ({mode}): rc {rc}: "
+                                     f"{stderr[-2000:]}")
+            files[mode], walls[mode] = read_bytes(out), sec
+    res = dict(part="cli_run_unchunked", frames=CLI_GRAPH_FRAMES,
+               command_s_graph=walls["graph"], command_s_eager=walls["eager"],
+               bit_exact={"poses_file": files["graph"] == files["eager"]})
+    print("doors_graph", json.dumps(res))
+    if not all(res["bit_exact"].values()):
+        raise AssertionError(f"doors_graph cli: {res}")
+
+    # (f) windowed BA on phase 7's loop course (the CLI's short-course
+    # settings): the smoothed trajectory both ways, and a solve of the
+    # first window timed both ways (ms per GN iteration)
+    kw = BA_SHORT
+    smoothed, walls = {}, {}
+    for mode in ("graph", "eager"):
+        with dispatch(mode == "graph"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            smoothed[mode] = window.smooth_trajectory_ba(
+                lsnaps, lposes, intr, window=kw["window"],
+                iterations=kw["iterations"],
+                max_landmarks=kw["max_landmarks"],
+                min_track_len=kw["min_track_len"],
+                huber_delta=kw["huber_delta"], device=dev)
+            walls[mode] = time.perf_counter() - t
+    problem = window.build_window_problem(
+        window.window_tracks(lsnaps, range(kw["window"])),
+        lposes[:kw["window"]], intr, max_landmarks=kw["max_landmarks"],
+        min_track_len=kw["min_track_len"], device=dev)
+    iter_ms = {}
+    for mode in ("graph", "eager"):
+        with dispatch(mode == "graph"):
+            iter_ms[mode] = time_ms(lambda: schur.ba_solve(
+                problem, iterations=kw["iterations"],
+                huber_delta=kw["huber_delta"]), reps=SOLVE_REPS,
+                warm=1) / kw["iterations"]
+    solved = {}
+    for mode in ("graph", "eager"):
+        with dispatch(mode == "graph"):
+            solved[mode] = schur.ba_solve(problem,
+                                          iterations=kw["iterations"],
+                                          huber_delta=kw["huber_delta"])
+    ba_loop = schur._graphed_solve(1e-4, float(kw["huber_delta"]), dev)
+    res = dict(part="ba", course="loop", **kw, windows=len(lposes)
+               // kw["window"], smooth_s_graph=walls["graph"],
+               smooth_s_eager=walls["eager"],
+               landmarks=int(problem.mask.shape[1]),
+               gn_iteration_ms_graph=iter_ms["graph"],
+               gn_iteration_ms_eager=iter_ms["eager"],
+               captures=[dict(shape=[list(s) for s, _ in key[0][0]][:2],
+                              seconds=c.seconds, replays=c.replays)
+                         for key, c in ba_loop.captures.items()],
+               bit_exact={
+                   "smoothed": _bits(smoothed["graph"], smoothed["eager"]),
+                   "solve": all(_bits(getattr(solved["graph"], k).cpu(),
+                                      getattr(solved["eager"], k).cpu())
+                                for k in ("poses", "landmarks"))})
+    print("doors_graph", json.dumps(res))
+    if not all(res["bit_exact"].values()):
+        raise AssertionError(f"doors_graph ba: {res}")
+
+    # (g) loop closure on the loop course: the loop edges measured by the
+    # edge step's graph, the keyframe pose graph solved by its loop
+    lf = SyntheticStereoSequence._loop_schedule(len(lframes))[2]
+    closed, walls, counts = {}, {}, {}
+    for mode in ("graph", "eager"):
+        with dispatch(mode == "graph"):
+            reset_counts()
+            t = time.perf_counter()
+            closed[mode] = loopclosure.close_loops(
+                lposes, lambda i: lframes[i], config, intr,
+                gt_loop_pair=(0, lf), device=dev)
+            walls[mode] = time.perf_counter() - t
+            counts[mode] = read_counts()
+    (gp, ginfo), (ep, einfo) = closed["graph"], closed["eager"]
+    graph = ginfo.graph
+    pg_ms, nodes = {}, {}
+    for mode in ("graph", "eager"):
+        with dispatch(mode == "graph"):
+            pg_ms[mode] = time_ms(lambda: posegraph.posegraph_solve(graph),
+                                  reps=SOLVE_REPS, warm=1)
+            nodes[mode] = posegraph.posegraph_solve(graph).nodes.cpu()
+    add(counts["graph"])
+    res = dict(part="loop_closure", course="loop", edges=ginfo.edges,
+               closure_before_m=ginfo.closure_before_m,
+               closure_after_m=ginfo.closure_after_m,
+               close_loops_s_graph=walls["graph"],
+               close_loops_s_eager=walls["eager"],
+               posegraph_nodes=int(graph.nodes.shape[0]) if graph is not None
+               else 0, posegraph_solve_ms_graph=pg_ms["graph"],
+               posegraph_solve_ms_eager=pg_ms["eager"],
+               launch_counts_graph=counts["graph"],
+               launch_counts_eager=counts["eager"],
+               bit_exact={"poses": _bits(gp, ep),
+                          "edges": ginfo.edges == einfo.edges,
+                          "candidates": ginfo.candidates == einfo.candidates,
+                          "posegraph_nodes": _bits(nodes["graph"],
+                                                   nodes["eager"])})
+    print("doors_graph", json.dumps(res))
+    if not (all(res["bit_exact"].values()) and ginfo.edges
+            and counts["graph"] == counts["eager"]):
+        raise AssertionError(f"doors_graph loop closure: {res}")
+    return launches
+
+
 def main() -> int:
     """Every phase; the render pool stops whatever happens."""
     with contextlib.ExitStack() as stack:
@@ -3877,7 +4184,6 @@ def run_phases(stack) -> int:
     backend_ba(snaps, lposes, lgt, intr, dev)
     loops, xloops, _, loop_poses = backend_loops(lframes, lposes, lgt,
                                                  config, xconfig, intr, dev)
-    del snaps
     print(f"phase 7: {time.perf_counter() - t:.1f} s")
 
     # ---- phase 8: resume, mono rotation, Shi-Tomasi, on "straight" -----
@@ -3944,6 +4250,13 @@ def run_phases(stack) -> int:
                                  xconfig, intr, dev, profiles, sweep)
     print(f"phase 15: {time.perf_counter() - t:.1f} s")
 
+    # ---- phase 16: the doors, the pipe and the solves as CUDA graphs ------
+    t = time.perf_counter()
+    door_graph_launches = doors_graph_phase(frames, courses, lframes, lposes,
+                                            snaps, config, intr, dev)
+    del snaps
+    print(f"phase 16: {time.perf_counter() - t:.1f} s")
+
     default = lk_cuda.variant()
 
     def row(name, replaces, paths, qs, lead, level, wide=None, top=None):
@@ -4007,7 +4320,8 @@ def run_phases(stack) -> int:
              "cli_ba_ring": cli_mesh_launches["quad"],
              "rank_loop_edges": rank_launches["rank_loop_edges"],
              "bench": bench_launches["quad"],
-             "graph": graph_launches["quad"]},
+             "graph": graph_launches["quad"],
+             "doors_graph": door_graph_launches["quad"]},
             quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
             {"batched_path": batched_run["kernel_launches"],
@@ -4016,7 +4330,8 @@ def run_phases(stack) -> int:
              "batch_mesh": mesh_launches["quad_batched"],
              "cli_batch_mesh": cli_mesh_launches["quad_batched"],
              "rank_batch_mesh": rank_launches["rank_batch_mesh_quad"],
-             "graph": graph_launches["quad_batched"]},
+             "graph": graph_launches["quad_batched"],
+             "doors_graph": door_graph_launches["quad_batched"]},
             bquads,
             bquads[0], False, wquad),
         row("lk_level_kernel", REPLACES_LEVEL,

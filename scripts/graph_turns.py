@@ -4,7 +4,7 @@ step, in turns, on one GPU.
 
     python3 scripts/graph_turns.py [--steps 64] [--mono-steps 32]
                                    [--batch-steps 16] [--rounds 10]
-                                   [--out DIR]
+                                   [--doors] [--out DIR]
 
 Renders the "straight" course at 1241x376 (the bench's camera) and the
 batched path's other courses (checker texture, "turning", "stress"), and
@@ -19,7 +19,22 @@ within a call falls on both alike:
   ``--batch-steps``, its upload outside the wall) over the four courses
   tiled to B sequences.
 
-Graphed runs replay the step's graph (the default on a card); eager
+With ``--doors`` the cases are the per-frame doors and the back end's
+solve instead, graphed (``utils.cudagraph.dispatch(True)``, the default on
+a card) against eager (``dispatch(False)``):
+
+- ``vo``: ``run_sequence`` (``VisualOdometry``, one fetch a frame) over
+  ``--steps`` steps of "straight";
+- ``buffered``: ``run_sequence_buffered`` (every frame on the card first)
+  over the same steps;
+- ``pipe``: ``run_sequence_pipelined`` with both stages on this card;
+- ``ba``: ``ba_solve`` of the first BA window (window 8, 256 landmarks,
+  Huber 1.5, 8 iterations: the command line's short-course settings) of
+  a ``collect_tracks`` scan of "straight", per GN iteration.
+
+Their profiles cover one door run over 4 frames (the state's first
+pyramids included) or one 8-iteration solve. Scan-family graphed runs
+replay the step's graph (the default on a card); eager
 ones run inside ``chip_smoke.scans(False)``
 (``make_scan_step_fn(_graph=False)``). Every run must give its case's
 first run's poses bit for bit. Each case's graph is captured before the
@@ -31,8 +46,9 @@ per case (ms per frame of each run and their median, the host CPU ms per
 frame, frames/s (aggregate for B sequences), each round's graph-minus-eager
 difference and the rounds the graph won, device ms and busy share: device
 ms over the median wall) and the card's name and power limit; with
-``--out DIR`` the lines also go to ``DIR/graph_turns.json``. Exits non-zero
-without a card.
+``--out DIR`` the lines also go to ``DIR/graph_turns.json`` (or, with
+``--doors``, ``DIR/graph_turns_doors.json``). Exits non-zero without a
+card.
 """
 
 from __future__ import annotations
@@ -88,12 +104,107 @@ def profile_scan(frames, config, intr, dev, graphed):
             "host_runtime_calls": cs.host_calls(prof, n)}
 
 
+def profile_run(run, per):
+    """Device ms, device ops and LK kernels per step of one ``run()``
+    (``per`` steps) under torch.profiler, and the host's CUDA runtime calls
+    per step; a first ``run()`` outside the profile captures its graphs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = cs.device_rows(prof)
+    return {"device_ms": sum(r[0] for r in rows) / 1e3 / per,
+            "device_ops": sum(r[2] for r in rows) / per,
+            "lk_kernels": sum(c for _, k, c in rows
+                              if "lk_quad_kernel" in k
+                              or "lk_level_kernel" in k) / per,
+            "host_runtime_calls": cs.host_calls(prof, per)}
+
+
+def door_cases(args, straight, config, intr, dev):
+    """``--doors``: {case: (run(graphed) -> (wall, steps, result),
+    profile(graphed) -> profile_run's dict, batch)}."""
+    import torch
+
+    import chip_smoke as cs
+    from visual_odom_tpu_torch.ba import schur, window
+    from visual_odom_tpu_torch.parallel import pipe
+    from visual_odom_tpu_torch.runner import pipeline
+    from visual_odom_tpu_torch.utils.cudagraph import dispatch
+
+    frames = straight[:args.steps + 1]
+    small = straight[:PROFILE_FRAMES + 1]
+
+    def vo(fr):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        poses, _ = pipeline.run_sequence(fr, config, intr, device=dev)
+        return time.perf_counter() - t, len(fr) - 1, poses
+
+    def buffered(fr):
+        poses, _, wall = pipeline.run_sequence_buffered(fr, config, intr,
+                                                        device=dev)
+        return wall, len(fr) - 1, poses
+
+    def piped(fr):
+        poses, _, wall = pipe.run_sequence_pipelined(fr, config, intr,
+                                                     devices=[dev, dev])
+        return wall, len(fr) - 1, poses
+
+    kw = cs.BA_SHORT
+    with dispatch(True):
+        _, _, _, _, snaps = pipeline.run_sequence_scan(
+            straight[:kw["window"] + 1], config, intr, chunk=32,
+            warmup=False, collect_tracks=True, device=dev)
+        poses = pipeline.run_sequence_scan(
+            straight[:kw["window"] + 1], config, intr, chunk=32,
+            warmup=False, device=dev)[0]
+    problem = window.build_window_problem(
+        window.window_tracks(snaps, range(kw["window"])), poses[:kw["window"]],
+        intr, max_landmarks=kw["max_landmarks"],
+        min_track_len=kw["min_track_len"], device=dev)
+
+    def ba(_):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = schur.ba_solve(problem, iterations=kw["iterations"],
+                             huber_delta=kw["huber_delta"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t, kw["iterations"],
+                torch.cat([out.poses.reshape(-1),
+                           out.landmarks.reshape(-1)]).cpu().numpy())
+
+    def case(fn, per):
+        def run(graphed):
+            with dispatch(graphed):
+                return fn(frames)
+
+        def prof(graphed):
+            with dispatch(graphed):
+                return profile_run(lambda: fn(small), per)
+
+        return run, prof, 1
+
+    return {"vo": case(vo, PROFILE_FRAMES),
+            "buffered": case(buffered, PROFILE_FRAMES),
+            "pipe": case(piped, PROFILE_FRAMES),
+            "ba": case(ba, kw["iterations"])}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--mono-steps", type=int, default=32)
     ap.add_argument("--batch-steps", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--doors", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -110,11 +221,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     n_straight = max(args.steps, args.mono_steps, args.batch_steps) + 1
+    keys = cs.BATCH_COURSES[:1] if args.doors else cs.BATCH_COURSES
     courses = cs.render_courses(
         [k + ((n_straight if k == ("straight", "value")
-               else args.batch_steps + 1),) for k in cs.BATCH_COURSES],
-        cs.H, cs.W)
-    full = [courses[k][0] for k in cs.BATCH_COURSES]
+               else args.batch_steps + 1),) for k in keys], cs.H, cs.W)
+    full = [courses[k][0] for k in keys]
     config = VOConfig.for_image(cs.H, cs.W)
     mconfig = VOConfig.for_image(cs.H, cs.W, mono_rotation=True)
     intr = cs.kitti_intrinsics(cs.H, cs.W)
@@ -141,11 +252,17 @@ def main() -> int:
 
         return run, cs.stacked_frames(seqs, PROFILE_FRAMES + 2), config, B
 
-    cases = {"quad": single(config, args.steps),
-             "mono": single(mconfig, args.mono_steps),
-             **{f"b{B}": batched(B) for B in (1, 4, 11)}}
+    def scan_case(run, frames, cfg, B):
+        return run, lambda g: profile_scan(frames, cfg, intr, dev, g), B
+
+    if args.doors:
+        cases = door_cases(args, full[0], config, intr, dev)
+    else:
+        cases = {"quad": scan_case(*single(config, args.steps)),
+                 "mono": scan_case(*single(mconfig, args.mono_steps)),
+                 **{f"b{B}": scan_case(*batched(B)) for B in (1, 4, 11)}}
     lines = []
-    for name, (run, frames, cfg, B) in cases.items():
+    for name, (run, profiler, B) in cases.items():
         refs = [run(g)[2] for g in (True, False)]   # capture, first use
         if not np.array_equal(refs[0], refs[1]):
             raise AssertionError(f"{name}: graphed and eager poses differ")
@@ -159,8 +276,7 @@ def main() -> int:
                 if not np.array_equal(poses, refs[0]):
                     raise AssertionError(f"{name}: a graphed={g} run's "
                                          f"poses differ")
-        prof = {g: profile_scan(frames, cfg, intr, dev, g)
-                for g in (True, False)}
+        prof = {g: profiler(g) for g in (True, False)}
         line = {"case": name, "batch": B, "steps": n, "rounds": args.rounds,
                 "card": card}
         for g, tag in ((True, "graph"), (False, "eager")):
@@ -186,7 +302,8 @@ def main() -> int:
         lines.append(line)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "graph_turns.json"), "w") as f:
+        name = "graph_turns_doors.json" if args.doors else "graph_turns.json"
+        with open(os.path.join(args.out, name), "w") as f:
             json.dump({"cases": lines, "cpus": os.cpu_count(),
                        "card": card}, f, indent=1)
     print(card)

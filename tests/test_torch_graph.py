@@ -1,4 +1,4 @@
-"""The scan family's step as one CUDA graph (``runner.graph``).
+"""The scan family's step as one CUDA graph (``utils.cudagraph``).
 
 On the CPU, where there are no graphs:
 
@@ -40,7 +40,8 @@ from visual_odom_tpu_torch.ops import lk_cuda
 from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
 from visual_odom_tpu_torch.parallel import batch
 from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
-from visual_odom_tpu_torch.runner import graph, pipeline
+from visual_odom_tpu_torch.runner import pipeline
+from visual_odom_tpu_torch.utils import cudagraph
 
 torch.set_num_threads(1)
 
@@ -95,11 +96,11 @@ def _same_outputs(xs, ys) -> bool:
 
 
 def _same_state(a, b) -> bool:
-    return (all(_equal(x, y) for x, y in zip(graph.state_tensors(a),
-                                             graph.state_tensors(b)))
+    return (all(_equal(x, y) for x, y in zip(cudagraph.state_tensors(a),
+                                             cudagraph.state_tensors(b)))
             and all(_equal(x.get_state(), y.get_state())
-                    for x, y in zip(graph.generators(a),
-                                    graph.generators(b))))
+                    for x, y in zip(cudagraph.generators(a),
+                                    cudagraph.generators(b))))
 
 
 @pytest.fixture(scope="module")
@@ -129,7 +130,7 @@ def test_graph_on_cpu_raises(setup, builder):
     calls = {
         "make_scan_step_fn": lambda: pipeline.make_scan_step_fn(
             cfg, intr, device="cpu", _graph=True),
-        "GraphedStep": lambda: graph.GraphedStep(
+        "GraphedStep": lambda: cudagraph.GraphedStep(
             pipeline.make_step_fn(cfg, intr, device="cpu"), "cpu")}
     with pytest.raises(ValueError, match="CUDA graph needs a card"):
         calls[builder]()
@@ -154,7 +155,7 @@ def test_cpu_default_is_the_eager_step(setup, door, monkeypatch):
     if door == "make_scan_step_fn":
         scan = pipeline.make_scan_step_fn(cfg, intr, device="cpu")
         assert not isinstance(getattr(scan, "__self__", None),
-                              graph.GraphedStep)
+                              cudagraph.GraphedStep)
     runs = {
         "make_scan_step_fn": lambda: pipeline.make_scan_step_fn(
             cfg, intr, device="cpu")(_init(cfg, intr, frames, False),
@@ -207,18 +208,18 @@ def test_state_tensors_round_trip(setup, batched):
     order, every other leaf (pyramid sizes, pad, generators) kept."""
     cfg, intr, frames = setup
     state = _init(cfg, intr, frames, batched)
-    ts = graph.state_tensors(state)
+    ts = cudagraph.state_tensors(state)
     assert len(ts) == 7 + 2 * len(state.lk_l0.pyramid) + 1
     clones = [t.clone() for t in ts]
-    back = graph.with_tensors(state, clones)
+    back = cudagraph.with_tensors(state, clones)
     assert type(back) is type(state)
-    assert all(x is y for x, y in zip(graph.state_tensors(back), clones))
+    assert all(x is y for x, y in zip(cudagraph.state_tensors(back), clones))
     assert back.lk_l0.shapes == state.lk_l0.shapes
     assert back.lk_l0.pad == state.lk_l0.pad
-    assert all(a is b for a, b in zip(graph.generators(back),
-                                      graph.generators(state)))
+    assert all(a is b for a, b in zip(cudagraph.generators(back),
+                                      cudagraph.generators(state)))
     with pytest.raises(ValueError, match="more tensors"):
-        graph.with_tensors(state, clones + [clones[0]])
+        cudagraph.with_tensors(state, clones + [clones[0]])
 
 
 @pytest.mark.parametrize("tracks", [False, True], ids=["outputs", "tracks"])
@@ -231,7 +232,7 @@ def test_output_rows_unpack_to_the_stacked_outputs(eager_runs, batched,
     _, (chunk, _) = eager_runs[batched, tracks]
     frames = [tuple(type(o)(*(x[i] for x in o)) for o in chunk)
               for i in range(2)]
-    layout = graph.OutputLayout(frames[0])
+    layout = cudagraph.OutputLayout(frames[0])
     stack = torch.zeros((2, layout.nbytes), dtype=torch.uint8)
     for i, outs in enumerate(frames):
         stack[i, :layout.used] = layout.pack(outs)
@@ -246,7 +247,7 @@ def test_output_rows_unpack_to_the_stacked_outputs(eager_runs, batched,
 def test_output_layout_refuses_other_outputs(eager_runs):
     _, (chunk, _) = eager_runs[False, False]
     out = type(chunk[0])(*(x[0] for x in chunk[0]))
-    layout = graph.OutputLayout([out])
+    layout = cudagraph.OutputLayout([out])
     with pytest.raises(ValueError, match="laid out as"):
         layout.pack([out._replace(scale=out.scale.double())])
 
@@ -264,15 +265,15 @@ def test_static_step_equals_eager_scan(setup, eager_runs, batched, tracks):
     lefts, rights = _stacks(frames, batched)
     step = pipeline.make_step_fn(cfg, intr, with_tracks=tracks, device="cpu")
     state = _init(cfg, intr, frames, batched)
-    static = graph._StaticStep(step, state, lefts[0], rights[0])
+    static = cudagraph._StaticStep(step, state, lefts[0], rights[0])
     static.body()                       # the capture's warm-up
     got, *a = static.run(state, lefts[:2], rights[:2], static.body)
     got, *b = static.run(got, lefts[2:], rights[2:], static.body)
     ref, (ra, rb) = eager_runs[batched, tracks]
     assert _same_outputs(a, ra) and _same_outputs(b, rb)
     assert _same_state(got, ref)
-    assert all(a is b for a, b in zip(graph.generators(got),
-                                      graph.generators(state)))
+    assert all(a is b for a, b in zip(cudagraph.generators(got),
+                                      cudagraph.generators(state)))
     assert static.loads == 1            # the first state only
 
 
@@ -284,7 +285,7 @@ def test_foreign_state_is_copied_and_returned_state_is_not(setup):
     lefts, rights = _stacks(frames, False)
     step = pipeline.make_step_fn(cfg, intr, device="cpu")
     state = _init(cfg, intr, frames, False)
-    static = graph._StaticStep(step, state, lefts[0], rights[0])
+    static = cudagraph._StaticStep(step, state, lefts[0], rights[0])
     static.body()
     s1, _ = static.run(state, lefts[:1], rights[:1], static.body)
     assert static.loads == 1
@@ -307,7 +308,7 @@ def test_state_with_other_generators_draws_as_eager(setup):
     lefts, rights = _stacks(frames, False)
     step = pipeline.make_step_fn(cfg, intr, device="cpu")
     first = _init(cfg, intr, frames, False, seed=1)
-    static = graph._StaticStep(step, first, lefts[0], rights[0])
+    static = cudagraph._StaticStep(step, first, lefts[0], rights[0])
     static.body()
     static.run(first, lefts[:1], rights[:1], static.body)
     other = _init(cfg, intr, frames, False, seed=7)
@@ -325,15 +326,15 @@ def test_hand_over_gives_the_original_draws():
     src = [torch.Generator().manual_seed(s) for s in (5, 6)]
     torch.rand(3, generator=src[0])
     dst = [torch.Generator().manual_seed(0) for _ in src]
-    graph.hand_over(dst, src)
+    cudagraph.hand_over(dst, src)
     for d, s in zip(dst, src):
         assert torch.equal(torch.rand(8, generator=d),
                            torch.rand(8, generator=s))
     state = src[1].get_state()
-    graph.hand_over(src[1:], src[1:])
+    cudagraph.hand_over(src[1:], src[1:])
     assert torch.equal(src[1].get_state(), state)
     with pytest.raises(ValueError, match="generators"):
-        graph.hand_over(dst, src[:1])
+        cudagraph.hand_over(dst, src[:1])
 
 
 def test_write_back_clones_a_new_state_that_aliases_the_static_one():
@@ -344,11 +345,11 @@ def test_write_back_clones_a_new_state_that_aliases_the_static_one():
     base = torch.arange(10.0)
     static[0] = base[:6]
     shifted = base[2:8]                 # overlaps static[0], shifted by 2
-    graph.write_back(static, [shifted, static[1]])
+    cudagraph.write_back(static, [shifted, static[1]])
     assert torch.equal(static[0], torch.arange(2.0, 8.0))
     assert torch.equal(static[1], torch.arange(4.0))
     with pytest.raises(ValueError, match="another structure"):
-        graph.write_back(static, [static[1], static[0]])
+        cudagraph.write_back(static, [static[1], static[0]])
 
 
 class _FakeGraph:
@@ -362,27 +363,27 @@ class _FakeGraph:
 def test_each_replay_adds_its_launches():
     """The launches a capture recorded per replay are added to the LK
     wrappers' counts at each replay, and only there."""
-    before = graph.launch_counts()
+    before = cudagraph.launch_counts()
     assert before == {"quad": lk_cuda.lk_circular_quad.launches,
                       "quad_batched": lk_cuda.lk_circular_quad.batched_launches,
                       "level": lk_track_pyramid.launches,
                       "level_batched": lk_track_pyramid.batched_launches}
     fake = _FakeGraph()
     packed = torch.zeros(3, dtype=torch.uint8)
-    cap = graph._Capture(None, fake, packed, {"quad": 3, "level_batched": 32},
-                         0.0)
+    cap = cudagraph._Capture(None, fake, packed,
+                             {"quad": 3, "level_batched": 32}, 0.0)
     try:
         for _ in range(5):
             assert cap.replay() is packed
-        after = graph.launch_counts()
+        after = cudagraph.launch_counts()
         assert after["quad"] == before["quad"] + 15
         assert after["level_batched"] == before["level_batched"] + 160
         assert after["quad_batched"] == before["quad_batched"]
         assert after["level"] == before["level"]
         assert fake.replays == cap.replays == 5
     finally:
-        graph.set_launch_counts(before)
-    assert graph.launch_counts() == before
+        cudagraph.set_launch_counts(before)
+    assert cudagraph.launch_counts() == before
 
 
 # --- on the card ------------------------------------------------------------
@@ -420,16 +421,16 @@ def test_graphed_scan_equals_eager_on_card(setup, cuda_device, batched):
     cfg, intr, frames = setup
     runs = {}
     for graphed in (False, True):
-        before = graph.launch_counts()
+        before = cudagraph.launch_counts()
         runs[graphed] = _card_scan(cfg, intr, frames, batched, graphed,
                                    cuda_device)
-        after = graph.launch_counts()
+        after = cudagraph.launch_counts()
         runs[graphed] += ({k: after[k] - before[k] for k in after},)
     (es, eo, ec), (gs, go, gc) = runs[False], runs[True]
     torch.cuda.synchronize()
     assert _same_outputs(eo, go)
-    assert all(_equal(x, y) for x, y in zip(graph.state_tensors(es),
-                                            graph.state_tensors(gs)))
+    assert all(_equal(x, y) for x, y in zip(cudagraph.state_tensors(es),
+                                            cudagraph.state_tensors(gs)))
     assert ec == gc and sum(ec.values()) == 3 * (N_FRAMES - 1)
 
 
@@ -492,7 +493,7 @@ def test_capture_that_cannot_proceed_raises(setup, cuda_device):
             raise AssertionError("unreachable")
         return new, out
 
-    graphed = graph.GraphedStep(syncing_step, cuda_device)
+    graphed = cudagraph.GraphedStep(syncing_step, cuda_device)
     state = pipeline.init_vo_state(cfg, intr, *frames[0][0],
                                    device=cuda_device)
     lefts, rights = (x.to(cuda_device) for x in _stacks(frames, False))

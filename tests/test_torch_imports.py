@@ -36,7 +36,7 @@ BACKEND = ("ba.problem", "ba.schur", "ba.window", "ba.posegraph",
            "utils.profiling", "parallel.batch_eval", "runner.cli",
            "parallel.mesh", "parallel.pipe", "parallel.collectives",
            "parallel.sharded_ba", "parallel.ring_ba", "parallel.batch",
-           "bench", "runner.graph")
+           "bench", "utils.cudagraph")
 
 
 def _imported_modules(path: pathlib.Path):

@@ -21,10 +21,14 @@ accumulated drift around the graph.
   shard's (H, b) sums meet in one ``psum`` (``parallel.collectives``), the
   solve is replicated. Communication per GN iteration: one (6N)^2 + 6N
   sum, independent of E.
+- On a card ``posegraph_solve`` replays one GN update from a CUDA graph
+  per iteration (``utils.cudagraph.GraphedLoop``), as the JAX package jits
+  its loop.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -32,6 +36,7 @@ import torch
 
 from visual_odom_tpu_torch import resolve_device
 from visual_odom_tpu_torch.core.lie import rodrigues, se3_matrix
+from visual_odom_tpu_torch.utils.cudagraph import GraphedLoop, use_graph
 
 
 class PoseGraph(NamedTuple):
@@ -152,16 +157,37 @@ def _gn_update(nodes, H, b):
     return _retract(nodes, delta)
 
 
+def _gn_iteration(carry, damping: float):
+    """One GN update of (nodes, edges, rel_inv, weight): only the nodes
+    change."""
+    nodes, edges, rel_inv, weight = carry
+    H, b, _ = _assemble(nodes, edges, rel_inv, weight, damping)
+    return (_gn_update(nodes, H, b), edges, rel_inv, weight)
+
+
+@functools.lru_cache(maxsize=8)
+def _graphed_solve(damping: float, device: torch.device):
+    """The GN update as a graphed fixed-trip loop, one per (damping,
+    device) in a process: one capture per (N, E)."""
+    return GraphedLoop(functools.partial(_gn_iteration, damping=damping),
+                       device)
+
+
 def posegraph_solve(graph: PoseGraph, iterations: int = 10,
                     damping: float = 1e-4) -> PoseGraph:
     """Damped GN on the pose graph, on the graph's device; returns the
-    graph with refined nodes. Node 0 is the gauge and does not move."""
-    rel_inv = _se3_inv(graph.rel)
-    nodes = graph.nodes
-    for _ in range(iterations):
-        H, b, _ = _assemble(nodes, graph.edges, rel_inv, graph.weight, damping)
-        nodes = _gn_update(nodes, H, b)
-    return graph._replace(nodes=nodes)
+    graph with refined nodes. Node 0 is the gauge and does not move. On a
+    card each iteration is one replay of the GN update's CUDA graph,
+    captured once per (N, E, damping), bit for bit the eager loop
+    (``utils.cudagraph.use_graph`` picks by the graph's device)."""
+    carry = (graph.nodes, graph.edges, _se3_inv(graph.rel), graph.weight)
+    if use_graph(graph.nodes.device):
+        carry = _graphed_solve(float(damping), graph.nodes.device)(
+            carry, iterations)
+    else:
+        for _ in range(iterations):
+            carry = _gn_iteration(carry, damping)
+    return graph._replace(nodes=carry[0])
 
 
 def _se3_inv(T: torch.Tensor) -> torch.Tensor:

@@ -21,17 +21,22 @@ summed system, and ``back_substitute`` updates the shard's landmarks.
 ``ba_gauss_newton_step`` is the three on one shard.
 
 Everything stays on the problem's device: no step reads a value back to the
-host (the non-finite guard is a ``torch.where``).
+host (the non-finite guard is a ``torch.where``). On a card ``ba_solve``
+replays one GN step from a CUDA graph per iteration
+(``utils.cudagraph.GraphedLoop``), the counterpart of the JAX package's
+``jit`` of a ``lax.scan`` over the iterations.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from visual_odom_tpu_torch.ba.problem import (BAProblem, intrinsics_of,
                                               project_stereo)
+from visual_odom_tpu_torch.utils.cudagraph import GraphedLoop, use_graph
 
 _GAUGE_PRIOR = 1e9
 
@@ -175,10 +180,26 @@ def ba_gauss_newton_step(problem: BAProblem, damping: float = 1e-4,
         landmarks=torch.where(ok, problem.landmarks - dx, problem.landmarks))
 
 
+@functools.lru_cache(maxsize=8)
+def _graphed_solve(damping: float, huber_delta: float, device: torch.device):
+    """The GN step as a graphed fixed-trip loop, one per (damping,
+    huber_delta, device) in a process: one capture per problem shape."""
+    return GraphedLoop(functools.partial(ba_gauss_newton_step,
+                                         damping=damping,
+                                         huber_delta=huber_delta), device)
+
+
 def ba_solve(problem: BAProblem, iterations: int = 10,
              damping: float = 1e-4, huber_delta: float = 0.0) -> BAProblem:
     """Fixed-iteration GN loop (extra steps are no-ops at the optimum).
-    ``huber_delta`` > 0 = robust (Huber IRLS) solve."""
+    ``huber_delta`` > 0 = robust (Huber IRLS) solve. On a card each
+    iteration is one replay of the GN step's CUDA graph, captured once per
+    (W, L, intrinsics, damping, huber_delta), bit for bit the eager loop
+    (``utils.cudagraph.use_graph`` picks by the problem's device)."""
+    dev = problem.poses.device
+    if use_graph(dev):
+        return _graphed_solve(float(damping), float(huber_delta),
+                              dev)(problem, iterations)
     for _ in range(iterations):
         problem = ba_gauss_newton_step(problem, damping=damping,
                                        huber_delta=huber_delta)

@@ -56,12 +56,14 @@ from visual_odom_tpu_torch.parallel.collectives import gather
 from visual_odom_tpu_torch.parallel.mesh import (Mesh, mesh_axis, position,
                                                  split_ranges)
 from visual_odom_tpu_torch.runner.pipeline import (StepOutput, VOState,
+                                                   _graphed_step,
                                                    make_scan_step_fn,
                                                    make_step_fn, prep_image,
                                                    restore_scan_state,
                                                    seeded_generator,
                                                    state_arrays)
 from visual_odom_tpu_torch.utils.checkpoint import STATE_KEYS
+from visual_odom_tpu_torch.utils.cudagraph import use_graph
 
 
 class MeshState(NamedTuple):
@@ -144,7 +146,13 @@ def make_batched_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     (B, iterations, padded_features) replaces the RANSAC draws. On a
     ``mesh`` of more than one device the state is a ``MeshState`` and the
     outputs come back on the mesh's first device; on a mesh of ranks, on
-    every rank's own device."""
+    every rank's own device.
+
+    On one card each call is one replay of the batched step's CUDA graph
+    (``utils.cudagraph.GraphedStep``, shared with the single-sequence doors
+    and the scan), bit for bit the eager step; a call given ``uniforms``
+    (the parity tests) steps eagerly (``utils.cudagraph.use_graph`` picks).
+    Meshes step eagerly."""
     if _ranked(mesh):
         me = _rank_row(mesh)
         fn = make_step_fn(config, intrinsics, device=me.device,
@@ -162,7 +170,18 @@ def make_batched_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
         return rank_step
     device, grid = _placement(device, mesh)
     if grid is None:
-        return make_step_fn(config, intrinsics, device=device)
+        eager = make_step_fn(config, intrinsics, device=device)
+        dev = resolve_device(device)
+        if not use_graph(dev):
+            return eager
+        graphed = _graphed_step(config, intrinsics, False, dev)
+
+        def one_card_step(state, lefts, rights, uniforms=None):
+            if uniforms is not None:
+                return eager(state, lefts, rights, uniforms)
+            return graphed(state, lefts, rights)
+
+        return one_card_step
     home = grid[0, 0]
     steps = [make_step_fn(config, intrinsics, device=row[0],
                           slot_devices=list(row) if len(row) > 1 else None)

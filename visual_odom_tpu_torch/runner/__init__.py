@@ -1,6 +1,5 @@
 """The per-frame step, its CUDA graph and the front doors that drive it."""
 
-from visual_odom_tpu_torch.runner.graph import GraphedStep
 from visual_odom_tpu_torch.runner.pipeline import (
     OutputBuffers,
     StepOutput,
@@ -12,6 +11,7 @@ from visual_odom_tpu_torch.runner.pipeline import (
     run_sequence,
     run_sequence_buffered,
 )
+from visual_odom_tpu_torch.utils.cudagraph import GraphedStep
 
 __all__ = [
     "GraphedStep",

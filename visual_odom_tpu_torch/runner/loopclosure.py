@@ -28,7 +28,9 @@ from visual_odom_tpu_torch.ba.posegraph import (PoseGraph, _so3_log_stable,
                                                 sharded_posegraph_solve)
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.core.lie import rodrigues
-from visual_odom_tpu_torch.runner.pipeline import init_vo_state, make_step_fn
+from visual_odom_tpu_torch.runner.pipeline import (_graphed_step,
+                                                   init_vo_state, make_step_fn)
+from visual_odom_tpu_torch.utils.cudagraph import use_graph
 
 
 class LoopClosureInfo(NamedTuple):
@@ -76,14 +78,27 @@ def make_edge_measure(config: VOConfig, intrinsics: CameraIntrinsics,
     only burn a fallback per frame) and has no inlier floor: edge
     acceptance is ``close_loops``' ``min_edge_inliers`` plus the
     bidirectional consistency check. ``uniforms`` replaces the RANSAC draw
-    (parity tests); each measurement's generator is seeded ``seed``."""
+    (parity tests); each measurement's generator is seeded ``seed``.
+
+    On a card a measurement is one replay of the edge step's CUDA graph
+    (``utils.cudagraph.GraphedStep.fetched``: the fresh state loaded into its
+    buffers, the outputs fetched in one copy), bit for bit the eager step;
+    one given ``uniforms`` steps eagerly (``utils.cudagraph.use_graph``
+    picks)."""
     dev = resolve_device(device)
     cfg = dataclasses.replace(config, lk_skip_mode="fixed",
                               lk_seed_skip_levels=0, min_accept_inliers=0)
     step = make_step_fn(cfg, intrinsics, device=dev)
+    graphed = (_graphed_step(cfg, intrinsics, False, dev)
+               if use_graph(dev) else None)
 
     def measure(frame_i, frame_j, uniforms=None):
         state = init_vo_state(cfg, intrinsics, *frame_i, seed=seed, device=dev)
+        if graphed is not None and uniforms is None:
+            _, out = graphed.fetched(state, *(np.asarray(x) for x in frame_j))
+            accept = bool(out.accept)
+            T = (np.asarray(out.T_inv, np.float64) if accept else np.eye(4))
+            return T, int(out.num_inliers), accept
         _, out = step(state, *(torch.as_tensor(np.asarray(x)).to(dev)
                                for x in frame_j), uniforms=uniforms)
         accept = bool(out.accept)

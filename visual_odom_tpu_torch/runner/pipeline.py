@@ -32,7 +32,12 @@ case without that dim. Each module keeps the batch dim through to the LK
 kernels, each launch covering all B sequences.
 
 The entry points run on CUDA unless ``device="cpu"`` is passed, and raise
-when CUDA is asked for and absent.
+when CUDA is asked for and absent. On a card every door steps through the
+step's CUDA graph (``utils.cudagraph.GraphedStep``, one per (config,
+intrinsics, ``with_tracks``, device) in a process, ``_graphed_step``):
+the scan family a chunk of replays at a time, ``VisualOdometry`` and the
+buffered step one replay a frame. Each equals the eager step bit for bit;
+the CPU steps eagerly.
 """
 
 from __future__ import annotations
@@ -64,13 +69,13 @@ from visual_odom_tpu_torch.frontend.matching import (commit_tracked_state,
                                                      skip_mode_match)
 from visual_odom_tpu_torch.io.kitti import PoseWriter, save_poses_kitti
 from visual_odom_tpu_torch.ops.lk import LKImage, LKParams, prepare_lk_image
-from visual_odom_tpu_torch.runner.graph import GraphedStep
 from visual_odom_tpu_torch.utils.checkpoint import (CorruptCheckpoint,
                                                     load_checkpoint,
                                                     load_scan_checkpoint,
                                                     restore_vo,
                                                     save_checkpoint,
                                                     save_scan_checkpoint)
+from visual_odom_tpu_torch.utils.cudagraph import GraphedStep, use_graph
 from visual_odom_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -373,17 +378,17 @@ def make_scan_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     padded. Frames (k, B, H, W) with a batched state step B sequences.
 
     On a card each frame is one replay of the step's CUDA graph
-    (``runner.graph.GraphedStep``, captured at the first chunk of each
+    (``utils.cudagraph.GraphedStep``, captured at the first chunk of each
     state and frame shape, once per (config, intrinsics, with_tracks,
     device) in a process); it gives the eager step's results bit for bit.
     The CPU has no graphs, so there the steps are eager launches.
     ``_graph``, the counterpart of the JAX step's private ``_jit``: None
-    picks by device, False steps eagerly on a card too (the reference the
-    graph is held to), True on the CPU raises. The doors that step
-    through this function look it up when they are called."""
+    picks by device (``utils.cudagraph.use_graph``), False steps eagerly on
+    a card too (the reference the graph is held to), True on the CPU raises.
+    The doors that step through this function look it up when they are
+    called."""
     dev = resolve_device(device)
-    graphed = dev.type == "cuda" if _graph is None else _graph
-    if graphed:
+    if use_graph(dev, _graph):
         return _graphed_step(config, intrinsics, with_tracks, dev).scan
     step = make_step_fn(config, intrinsics, with_tracks=with_tracks,
                         device=dev)
@@ -992,8 +997,14 @@ def make_buffered_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     """``step(state, left, right, bufs) -> (state, bufs)``: the step, its
     outputs written into ``bufs`` at ``bufs.idx`` (``index_copy_`` at the
     device-side cursor, which then advances on the device): no host sync
-    inside the frame loop. The buffers are updated in place."""
-    base = _make_raw_step(config, intrinsics, device=device)
+    inside the frame loop. The buffers are updated in place. On a card the
+    step is one replay of its CUDA graph (``GraphedStep.__call__``) and
+    the outputs are copied into ``bufs`` straight after it
+    (``utils.cudagraph.use_graph`` picks)."""
+    dev = resolve_device(device)
+    base = (_graphed_step(config, intrinsics, False, dev)
+            if use_graph(dev)
+            else _make_raw_step(config, intrinsics, device=dev))
     fields = OutputBuffers._fields[:-1]
 
     def step(state: VOState, left_t1, right_t1, bufs: OutputBuffers):
@@ -1015,7 +1026,9 @@ def run_sequence_buffered(frames, config: VOConfig,
     wall_seconds): the wall covers the frame loop and the wait for the
     device after it; with ``preupload`` every frame is on the device before
     it starts, so it excludes the uploads. The buffers come back in one
-    device-to-host copy.
+    device-to-host copy. On a card each frame is one replay of the step's
+    CUDA graph (``make_buffered_step_fn``), captured before the wall when
+    it is not yet.
     """
     dev = resolve_device(device)
     frames = list(frames)
@@ -1027,6 +1040,11 @@ def run_sequence_buffered(frames, config: VOConfig,
     state = init_vo_state(config, intrinsics, *frames[0], seed=seed,
                           device=dev)
     bufs = make_output_buffers(n, device=dev)
+    if n and use_graph(dev):
+        # Capture before the wall (a no-op once captured), as the scan's
+        # warm-up does; the capture steps copies, not ``state``.
+        _graphed_step(config, intrinsics, False, dev).capture(
+            state, *(torch.as_tensor(x) for x in frames[1]))
     _sync(dev)
     t0 = time.perf_counter()
     for left, right in frames[1:]:
@@ -1063,16 +1081,31 @@ class VisualOdometry:
     its track snapshot, kept as numpy in ``last_tracks``) come back in one
     device-to-host copy. The pose chains ``frame_pose @ T_inv`` in float64,
     as ``chain_poses_host`` does.
+
+    On a card each frame is one replay of the step's CUDA graph
+    (``GraphedStep.fetched``: the frame pair copied into the graph's
+    buffers, the replay, the state handed out as one copy, the outputs'
+    row fetched in the frame's one copy), bit for bit the eager step.
+    ``state`` is the caller's to read and set (``save_checkpoint``,
+    ``restore_vo``): a state set from outside is loaded into the graph's
+    buffers at the next frame. ``_graph`` as ``make_scan_step_fn``'s: None
+    picks by device, False steps eagerly on a card, True on the CPU
+    raises.
     """
 
     def __init__(self, config: VOConfig, intrinsics: CameraIntrinsics,
-                 seed: int = 0, with_tracks: bool = False, device=None):
+                 seed: int = 0, with_tracks: bool = False, device=None,
+                 _graph=None):
         self.config = config
         self.intrinsics = intrinsics
         self.with_tracks = with_tracks
         self.device = resolve_device(device)
-        self._step = make_step_fn(config, intrinsics, with_tracks,
-                                  device=self.device)
+        self._graphed = (_graphed_step(config, intrinsics, with_tracks,
+                                       self.device)
+                         if use_graph(self.device, _graph) else None)
+        self._step = (None if self._graphed is not None else
+                      make_step_fn(config, intrinsics, with_tracks,
+                                   device=self.device))
         self._seed = seed
         self.frame_pose = np.eye(4)  # float64 world pose (reference frame_pose)
         self.frame_id = 0
@@ -1092,8 +1125,12 @@ class VisualOdometry:
             raise RuntimeError("call initialize(left0, right0) first")
         t0 = time.perf_counter()
         self.frame_id += 1
-        self.state, *outs = self._step(self.state, left, right)
-        out, *tracks = _fetch_many(outs)
+        if self._graphed is not None:
+            self.state, out, *tracks = self._graphed.fetched(self.state, left,
+                                                             right)
+        else:
+            self.state, *outs = self._step(self.state, left, right)
+            out, *tracks = _fetch_many(outs)
         if self.with_tracks:
             self.last_tracks = tracks[0]
         accept = bool(out.accept)
