@@ -269,6 +269,23 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    the CLI's settings (and one window's solve, ms per GN iteration both
    ways), ``close_loops`` (its loop edges and pose graph; the pose graph's
    solve timed both ways).
+17. The multi-device paths as CUDA graphs (``mesh_graph`` lines;
+   ``utils.cudagraph``), each graphed run (the default on a card) against
+   its eager run (``dispatch(False)``) bit for bit: every output, the final
+   state's arrays, the generators' state and the launches. Phase 4's
+   batched courses (MESH_GRAPH_STEPS steps, one chunk) through the mesh
+   scan on MESH_SHAPES (this card named 2 and 4 times) on both LK routes,
+   the capture under sync debug mode "error", with ms a mesh step both
+   ways in paired rounds (MESH_GRAPH_ROUNDS on the quad route, one on the
+   per-leg route) and the host's runtime calls a step both ways; the
+   stepwise mesh step; ``sharded_ba_solve``, ``ring_ba_solve`` (and the
+   ring window solver) and ``close_loops(mesh=)`` (its edge-sharded pose
+   graph) over this card named MODEL_SHARDS / RING_WINDOWS times, with ms
+   a GN iteration or ring round both ways in paired rounds; then one NCCL
+   rank at world size 1 in this process (``initialize_distributed``): the
+   rank's scan on both routes and the three solvers, graphed (the NCCL
+   collectives inside the graphs) against eager, the rank's ms a step both
+   ways.
 
 Prints the ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -481,6 +498,19 @@ DOOR_GRAPH_STEPS = 64
 DOOR_GRAPH_ROUNDS = 2
 CLI_GRAPH_FRAMES = 17
 SOLVE_REPS = 5
+#: phase 17: steps of the graphed-vs-eager mesh runs (phase 4's batched
+#: courses, one chunk), paired rounds of ms a mesh step on the quad route
+#: (one on the per-leg route), the stepwise mesh steps, the steps under
+#: torch.profiler (host runtime calls), the ring's timed rounds and the
+#: solves' paired rounds. 8 steps and one round: at 16 and two the phase
+#: took 89-161 s, its eager runs most of it, and the script 938 s on a
+#: slow host
+MESH_GRAPH_STEPS = 8
+MESH_GRAPH_ROUNDS = 1
+MESH_GRAPH_STEPWISE = 4
+MESH_GRAPH_PROFILE_STEPS = 2
+RING_GRAPH_ROUNDS = 2
+SOLVE_GRAPH_ROUNDS = 2
 
 
 def kitti_intrinsics(height: int, width: int):
@@ -2827,15 +2857,19 @@ def batch_mesh_phase(courses, bposes, xbposes, config, xconfig, intr, dev):
     steps the JAX package misses the budget too, see phase 4), every chunk
     stepped under CUDA sync debug mode "error", and the quad's launches
     counted per mesh position (each row's 3 quads a step, or its 32 level
-    launches, split into ``model`` launches of n/model slots). Returns the
+    launches, split into ``model`` launches of n/model slots). Each row
+    replays its step's CUDA graph, captured inside the run (the
+    graph caches cleared before it), so that the launches' slots are read
+    from the calls made at capture. Returns the
     launches per kernel ({"quad_batched", "level_batched"}) and the
     one-device reference poses by route and data rows ({route: {1: phase
     4's, 2: the rows' own}})."""
     import torch
 
     from visual_odom_tpu_torch.ops import lk_cuda
-    from visual_odom_tpu_torch.parallel import batch_eval
+    from visual_odom_tpu_torch.parallel import batch, batch_eval
     from visual_odom_tpu_torch.parallel.mesh import split_ranges
+    from visual_odom_tpu_torch.runner import pipeline
 
     seqs = [courses[k][0][:MESH_STEPS + 1] for k in BATCH_COURSES]
     launches = {"quad_batched": 0, "level_batched": 0}
@@ -2867,6 +2901,11 @@ def batch_mesh_phase(courses, bposes, xbposes, config, xconfig, intr, dev):
         for rows, cols in MESH_SHAPES:
             want = by_rows[rows]
             mesh = card_mesh({"data": rows, "model": cols}, dev)
+            # The rows' graphs are captured inside the run (under the sync
+            # check), so that their kernels' calls, made at capture, are
+            # recorded.
+            pipeline._graphed_step.cache_clear()
+            batch._graphed_split_step.cache_clear()
             reset_counts()
             strict.clear()
             batch_eval.make_batched_scan_fn = strict_scan_fn
@@ -3986,6 +4025,385 @@ def doors_graph_phase(frames, courses, lframes, lposes, lsnaps, config, intr,
     return launches
 
 
+def _state_bits(a, b) -> bool:
+    """Two states (a ``MeshState``, a batched ``VOState``) hold the same
+    tensors and their generators the same state, bit for bit."""
+    from visual_odom_tpu_torch.utils.cudagraph import generators, state_tensors
+
+    rows = [(x.rows if hasattr(x, "rows") else (x,)) for x in (a, b)]
+    ta = [t for r in rows[0] for t in state_tensors(r)]
+    tb = [t for r in rows[1] for t in state_tensors(r)]
+    ga = [g.get_state() for r in rows[0] for g in generators(r)]
+    gb = [g.get_state() for r in rows[1] for g in generators(r)]
+    return (len(ta) == len(tb) and all(_bits(x.cpu(), y.cpu())
+                                       for x, y in zip(ta, tb))
+            and len(ga) == len(gb) and all(_bits(x, y)
+                                           for x, y in zip(ga, gb)))
+
+
+def _out_bits(a, b) -> bool:
+    return all(_bits(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def _mesh_chunk(seqs, n, dev):
+    """(first lefts, first rights) as numpy, and the n frames after them
+    stacked (n, B, H, W) on the card."""
+    import torch
+
+    first = [np.stack([s[0][k] for s in seqs]) for k in (0, 1)]
+    chunk = [torch.from_numpy(np.stack([np.stack([s[i][k] for s in seqs])
+                                        for i in range(1, n + 1)])).to(dev)
+             for k in (0, 1)]
+    return first, chunk
+
+
+def _mesh_scan_run(cfg, intr, mesh, first, chunk, graphed, strict=False):
+    """One chunk through the mesh scan built inside ``dispatch(graphed)``:
+    (state, outputs, launch counts, wall s, the scan). ``strict`` steps
+    it under sync debug mode "error"."""
+    import torch
+
+    from visual_odom_tpu_torch.parallel import batch
+    from visual_odom_tpu_torch.utils.cudagraph import dispatch
+
+    with dispatch(graphed):
+        scan = batch.make_batched_scan_fn(cfg, intr, chunk[0].shape[0],
+                                          mesh=mesh)
+        st = batch.batched_init_state(cfg, *first, mesh=mesh)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, out = scan(st, *chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+    return st, out, counts, wall, scan
+
+
+def _paired_ms(run, rounds, per):
+    """``run(graphed) -> wall s`` in ``rounds`` pairs (graph eager, eager
+    graph, ...): ms per ``per`` (steps, iterations) both ways."""
+    ms = {"graph": [], "eager": []}
+    for k in range(rounds):
+        for mode in (("graph", "eager") if k % 2 == 0 else ("eager", "graph")):
+            ms[mode].append(1e3 * run(mode == "graph") / per)
+    return ms
+
+
+def _host_calls_per_step(scan, state, chunk, graphed, steps):
+    """The host's CUDA runtime calls a step of ``scan`` (already captured
+    where it replays graphs), under torch.profiler."""
+    import torch
+
+    from visual_odom_tpu_torch.utils.cudagraph import dispatch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with dispatch(graphed), torch.profiler.profile(activities=acts) as prof:
+        scan(state, *chunk)
+        torch.cuda.synchronize()
+    calls = host_calls(prof, steps)
+    return dict(calls, total=sum(calls.values()))
+
+
+def mesh_graph_phase(courses, lframes, lposes, config, xconfig, intr, dev):
+    """Phase 17: the multi-device paths replayed from CUDA graphs against
+    their eager runs (``mesh_graph`` lines). Returns the graphed runs'
+    launch counts, summed."""
+    import torch
+
+    from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
+    from visual_odom_tpu_torch.parallel import batch
+    from visual_odom_tpu_torch.runner import loopclosure
+    from visual_odom_tpu_torch.utils.cudagraph import dispatch
+
+    n = MESH_GRAPH_STEPS
+    seqs = [courses[k][0][:n + 1] for k in BATCH_COURSES]
+    first, chunk = _mesh_chunk(seqs, n, dev)
+    launches = dict.fromkeys(read_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) the mesh scan on this card named 2 and 4 times, both routes
+    for cfg in (config, xconfig):
+        route = cfg.resolved_lk_backend()
+        for rows, cols in MESH_SHAPES:
+            mesh = card_mesh({"data": rows, "model": cols}, dev)
+            est, eout, ecounts, _, _ = _mesh_scan_run(cfg, intr, mesh, first,
+                                                      chunk, False)
+            t = time.perf_counter()
+            gst, gout, gcounts, _, gscan = _mesh_scan_run(
+                cfg, intr, mesh, first, chunk, True, strict=True)
+            capture_s = time.perf_counter() - t
+            rounds = MESH_GRAPH_ROUNDS if route == "pallas" else 1
+            again = []
+
+            def timed(graphed):
+                st, out, _, wall, _ = _mesh_scan_run(cfg, intr, mesh, first,
+                                                     chunk, graphed)
+                again.append(_out_bits(out, eout) and _state_bits(st, est))
+                return wall
+
+            ms = _paired_ms(timed, rounds, n)
+            res = dict(part="mesh_scan", route=route, mesh=mesh.shape,
+                       steps=n, batch=len(seqs),
+                       ms_graph=ms["graph"], ms_eager=ms["eager"],
+                       first_graph_run_s=capture_s,
+                       graphed_rows=sum(g is not None for g in (
+                           batch._row(cfg, intr, tuple(r)).graphed
+                           for r in mesh.devices)),
+                       launch_counts_graph=gcounts,
+                       launch_counts_eager=ecounts,
+                       bit_exact={"outputs": _out_bits(gout, eout),
+                                  "state": _state_bits(gst, est),
+                                  "rounds": all(again)})
+            if route == "pallas" and (rows, cols) == (2, 2):
+                prof_first, prof_chunk = _mesh_chunk(
+                    seqs, MESH_GRAPH_PROFILE_STEPS, dev)
+                res["host_calls_per_step"] = {}
+                for mode in ("graph", "eager"):
+                    with dispatch(mode == "graph"):
+                        scan = batch.make_batched_scan_fn(
+                            cfg, intr, MESH_GRAPH_PROFILE_STEPS, mesh=mesh)
+                        st = batch.batched_init_state(cfg, *prof_first,
+                                                      mesh=mesh)
+                        scan(st, *prof_chunk)       # captures, if graphed
+                    res["host_calls_per_step"][mode] = _host_calls_per_step(
+                        scan, st, prof_chunk, mode == "graph",
+                        MESH_GRAPH_PROFILE_STEPS)
+            print("mesh_graph", json.dumps(res))
+            if not (all(res["bit_exact"].values()) and gcounts == ecounts
+                    and res["graphed_rows"] == rows):
+                raise AssertionError(f"mesh_graph scan {mesh.shape}, "
+                                     f"{route}: {res}")
+            add(gcounts)
+
+    # (b) the stepwise mesh step, (2, 2), quad route
+    mesh = card_mesh({"data": 2, "model": 2}, dev)
+    runs = {}
+    for graphed in (False, True):
+        with dispatch(graphed):
+            step = batch.make_batched_step_fn(config, intr, mesh=mesh)
+            st = batch.batched_init_state(config, *first, mesh=mesh)
+            reset_counts()
+            outs = []
+            for i in range(MESH_GRAPH_STEPWISE):
+                st, out = step(st, chunk[0][i], chunk[1][i])
+                outs.append(out)
+            torch.cuda.synchronize()
+            runs[graphed] = (st, outs, read_counts())
+    (est, eouts, ec), (gst, gouts, gc) = runs[False], runs[True]
+    res = dict(part="mesh_step", mesh=mesh.shape, steps=MESH_GRAPH_STEPWISE,
+               launch_counts_graph=gc, launch_counts_eager=ec,
+               bit_exact={"outputs": all(_out_bits(a, b) for a, b in
+                                         zip(gouts, eouts)),
+                          "state": _state_bits(gst, est)})
+    print("mesh_graph", json.dumps(res))
+    if not (all(res["bit_exact"].values()) and gc == ec):
+        raise AssertionError(f"mesh_graph stepwise: {res}")
+    add(gc)
+
+    # (c) the solvers over this card named several times
+    _solvers_graph_line(card_mesh, dev, "card", MODEL_SHARDS, RING_WINDOWS)
+
+    # (d) close_loops(mesh=) on phase 7's loop course: the edges measured
+    # by the edge step's graph, the pose graph solved edge-sharded
+    lf = SyntheticStereoSequence._loop_schedule(len(lframes))[2]
+    mesh = card_mesh({"data": 1, "model": MODEL_SHARDS}, dev)
+    closed, counts = {}, {}
+    for mode in ("graph", "eager"):
+        with dispatch(mode == "graph"):
+            reset_counts()
+            closed[mode] = loopclosure.close_loops(
+                lposes, lambda i: lframes[i], config, intr,
+                gt_loop_pair=(0, lf), mesh=mesh, device=dev)
+            counts[mode] = read_counts()
+    (gp, ginfo), (ep, einfo) = closed["graph"], closed["eager"]
+    res = dict(part="close_loops", shards=MODEL_SHARDS, edges=ginfo.edges,
+               closure_before_m=ginfo.closure_before_m,
+               closure_after_m=ginfo.closure_after_m,
+               launch_counts_graph=counts["graph"],
+               launch_counts_eager=counts["eager"],
+               bit_exact={"poses": _bits(gp, ep),
+                          "edges": ginfo.edges == einfo.edges,
+                          "closure": ginfo.closure_after_m
+                          == einfo.closure_after_m})
+    print("mesh_graph", json.dumps(res))
+    if not (all(res["bit_exact"].values()) and ginfo.edges
+            and counts["graph"] == counts["eager"]):
+        raise AssertionError(f"mesh_graph close_loops: {res}")
+    add(counts["graph"])
+
+    # (e) one NCCL rank at world size 1, in this process
+    add(_nccl_rank_graph(seqs, first, chunk, config, xconfig, intr, dev))
+    return launches
+
+
+def _solvers_graph_line(make, dev, where, shards, windows):
+    """``sharded_ba_solve`` (SHARDED_BA_PROBLEMS) over ``shards`` landmark
+    shards, ``ring_ba_solve`` (phase 12's halo problem, RING_GRAPH_ROUNDS
+    rounds) and the ring window solver over ``windows`` windows, and
+    ``sharded_posegraph_solve`` over ``shards`` edge shards, on
+    ``make(axes, dev)`` meshes, graphed against eager bit for bit, with ms
+    a GN iteration or round both ways in paired rounds."""
+    import torch
+
+    from visual_odom_tpu_torch.ba import posegraph, problem
+    from visual_odom_tpu_torch.parallel import ring_ba
+    from visual_odom_tpu_torch.parallel.sharded_ba import sharded_ba_solve
+    from visual_odom_tpu_torch.utils.cudagraph import dispatch
+
+    def both(fn, per, rounds=SOLVE_GRAPH_ROUNDS):
+        """fn() graphed and eager: (results, ms per ``per`` paired)."""
+        out = {}
+        for mode in ("eager", "graph"):
+            with dispatch(mode == "graph"):
+                out[mode] = fn()
+        torch.cuda.synchronize()
+
+        def timed(graphed):
+            with dispatch(graphed):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                return time.perf_counter() - t
+
+        return out, _paired_ms(timed, rounds, per)
+
+    def line(part, out, ms, fields, **extra):
+        res = dict(part=part, where=where, ms_graph=ms["graph"],
+                   ms_eager=ms["eager"], **extra,
+                   bit_exact={k: _bits(getattr(out["graph"], k).cpu(),
+                                       getattr(out["eager"], k).cpu())
+                              for k in fields})
+        print("mesh_graph", json.dumps(res))
+        if not all(res["bit_exact"].values()):
+            raise AssertionError(f"mesh_graph {part} ({where}): {res}")
+
+    mesh = make({"data": 1, "model": shards}, dev)
+    for n_poses, n_landmarks in SHARDED_BA_PROBLEMS:
+        p, _, _ = problem.synthetic_ba_problem(
+            num_poses=n_poses, num_landmarks=n_landmarks, seed=7,
+            obs_window=None if n_poses <= 8 else 2, device=dev)
+        out, ms = both(lambda: sharded_ba_solve(
+            p, mesh, iterations=SHARDED_BA_ITERS), SHARDED_BA_ITERS)
+        line("sharded_ba", out, ms, ("poses", "landmarks"), poses=n_poses,
+             landmarks=n_landmarks, shards=shards,
+             iterations=SHARDED_BA_ITERS, unit="ms per GN iteration")
+
+    seq = make({"seq": windows}, dev)
+    p, _, _ = problem.synthetic_ba_problem(
+        num_poses=RING_POSES, num_landmarks=RING_LANDMARKS, pixel_noise=0.2,
+        pose_perturb=0.015, landmark_perturb=0.08, seed=3,
+        obs_window=RING_OBS_WINDOW, device=dev)
+    out, ms = both(lambda: ring_ba.ring_ba_solve(
+        p, seq, halo=RING_HALO, rounds=RING_GRAPH_ROUNDS,
+        cg_iters=RING_CG_ITERS), RING_GRAPH_ROUNDS)
+    line("ring_ba", out, ms, ("poses", "landmarks"), poses=RING_POSES,
+         landmarks=RING_LANDMARKS, windows=windows, halo=RING_HALO,
+         cg_iters=RING_CG_ITERS, rounds=RING_GRAPH_ROUNDS,
+         unit="ms per GN round")
+    solver = {}
+    for mode in ("eager", "graph"):
+        with dispatch(mode == "graph"):
+            s = ring_ba.make_ring_window_solver(seq, cg_iters=RING_CG_ITERS)
+            solver[mode] = (s(p), dict(s.branches))
+    line("ring_window_solver", {k: v[0] for k, v in solver.items()},
+         {"graph": [], "eager": []}, ("poses", "landmarks"),
+         branches=solver["graph"][1])
+
+    graph = posegraph.build_keyframe_graph(*_circle_chain(), device=dev)
+    out, ms = both(lambda: posegraph.sharded_posegraph_solve(graph, mesh),
+                   10)
+    line("posegraph_sharded", out, ms, ("nodes",), shards=shards,
+         nodes=int(graph.nodes.shape[0]), unit="ms per GN iteration")
+
+
+def _circle_chain(n=64):
+    """A drifted circle of ``n`` keyframes closed by one loop edge, as
+    tests/test_posegraph.py builds it: (poses, keyframe indices, loop
+    edges) for ``build_keyframe_graph``."""
+    th = 2 * np.pi * np.arange(n) / n
+    truth = np.tile(np.eye(4), (n, 1, 1))
+    truth[:, 0, 0] = truth[:, 2, 2] = np.cos(th)
+    truth[:, 0, 2], truth[:, 2, 0] = np.sin(th), -np.sin(th)
+    truth[:, 0, 3], truth[:, 2, 3] = 10 * np.sin(th), 10 * (1 - np.cos(th))
+    est = truth.copy()
+    est[:, :3, 3] += np.cumsum(np.random.default_rng(3).normal(
+        0, 0.02, (n, 3)), axis=0)
+    return est, np.arange(n), [(0, n - 1, np.linalg.inv(truth[0])
+                                @ truth[-1], 10.0)]
+
+
+def _nccl_rank_graph(seqs, first, chunk, config, xconfig, intr, dev):
+    """Phase 17 (e): one NCCL rank at world size 1 in this process: the
+    rank's scan on both routes (its LK launches split over its model group
+    of one, whose all-gathers the graph holds) graphed against eager bit
+    for bit, ms a step both ways in paired rounds, and the three solvers
+    over a line of this one rank. Returns the graphed scans' launches."""
+    import socket
+
+    import torch
+
+    from visual_odom_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                     make_mesh,
+                                                     visible_devices)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(coordinator=f"127.0.0.1:{port}", num_processes=1,
+                           process_id=0, device=dev)
+    launches = dict.fromkeys(read_counts(), 0)
+    try:
+        ranks = visible_devices()
+
+        def rank_mesh(axes, _dev):
+            return make_mesh(axes, ranks)
+
+        mesh = rank_mesh({"data": 1, "model": 1}, dev)
+        for cfg in (config, xconfig):
+            route = cfg.resolved_lk_backend()
+            est, eout, ec, _, _ = _mesh_scan_run(cfg, intr, mesh, first,
+                                                 chunk, False)
+            gst, gout, gc, _, _ = _mesh_scan_run(cfg, intr, mesh, first,
+                                                 chunk, True, strict=True)
+            again = []
+
+            def timed(graphed):
+                st, out, _, wall, _ = _mesh_scan_run(cfg, intr, mesh, first,
+                                                     chunk, graphed)
+                again.append(_out_bits(out, eout) and _state_bits(st, est))
+                return wall
+
+            ms = _paired_ms(timed, MESH_GRAPH_ROUNDS if route == "pallas"
+                            else 1, MESH_GRAPH_STEPS)
+            res = dict(part="nccl_rank_scan", route=route, world=1,
+                       steps=MESH_GRAPH_STEPS, batch=len(seqs),
+                       ms_graph=ms["graph"], ms_eager=ms["eager"],
+                       launch_counts_graph=gc, launch_counts_eager=ec,
+                       bit_exact={"outputs": _out_bits(gout, eout),
+                                  "state": _state_bits(gst, est),
+                                  "rounds": all(again)})
+            print("mesh_graph", json.dumps(res))
+            if not (all(res["bit_exact"].values()) and gc == ec):
+                raise AssertionError(f"mesh_graph NCCL rank, {route}: {res}")
+            for k, v in gc.items():
+                launches[k] += v
+        _solvers_graph_line(rank_mesh, dev, "nccl_rank", 1, 1)
+    finally:
+        torch.distributed.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     """Every phase; the render pool stops whatever happens."""
     with contextlib.ExitStack() as stack:
@@ -4257,6 +4675,12 @@ def run_phases(stack) -> int:
     del snaps
     print(f"phase 16: {time.perf_counter() - t:.1f} s")
 
+    # ---- phase 17: the multi-device paths as CUDA graphs -----------------
+    t = time.perf_counter()
+    mesh_graph_launches = mesh_graph_phase(courses, lframes, lposes, config,
+                                           xconfig, intr, dev)
+    print(f"phase 17: {time.perf_counter() - t:.1f} s")
+
     default = lk_cuda.variant()
 
     def row(name, replaces, paths, qs, lead, level, wide=None, top=None):
@@ -4321,7 +4745,8 @@ def run_phases(stack) -> int:
              "rank_loop_edges": rank_launches["rank_loop_edges"],
              "bench": bench_launches["quad"],
              "graph": graph_launches["quad"],
-             "doors_graph": door_graph_launches["quad"]},
+             "doors_graph": door_graph_launches["quad"],
+             "mesh_graph_loop_edges": mesh_graph_launches["quad"]},
             quads, quads[0], False, top=quad_full),
         row("lk_quad_kernel_batched", REPLACES_BATCHED,
             {"batched_path": batched_run["kernel_launches"],
@@ -4331,7 +4756,8 @@ def run_phases(stack) -> int:
              "cli_batch_mesh": cli_mesh_launches["quad_batched"],
              "rank_batch_mesh": rank_launches["rank_batch_mesh_quad"],
              "graph": graph_launches["quad_batched"],
-             "doors_graph": door_graph_launches["quad_batched"]},
+             "doors_graph": door_graph_launches["quad_batched"],
+             "mesh_graph": mesh_graph_launches["quad_batched"]},
             bquads,
             bquads[0], False, wquad),
         row("lk_level_kernel", REPLACES_LEVEL,
@@ -4347,7 +4773,8 @@ def run_phases(stack) -> int:
         row("lk_level_kernel_batched", REPLACES_LEVEL_BATCHED,
             {"batched_path": xbatched_run["kernel_launches"],
              "batch_mesh": mesh_launches["level_batched"],
-             "rank_batch_mesh": rank_launches["rank_batch_mesh_level"]},
+             "rank_batch_mesh": rank_launches["rank_batch_mesh_level"],
+             "mesh_graph": mesh_graph_launches["level_batched"]},
             blevels,
             finest(blevels), True, finest(wlevels))]}))
     print(card)

@@ -4,7 +4,7 @@ step, in turns, on one GPU.
 
     python3 scripts/graph_turns.py [--steps 64] [--mono-steps 32]
                                    [--batch-steps 16] [--rounds 10]
-                                   [--doors] [--out DIR]
+                                   [--doors | --mesh] [--out DIR]
 
 Renders the "straight" course at 1241x376 (the bench's camera) and the
 batched path's other courses (checker texture, "turning", "stress"), and
@@ -32,8 +32,27 @@ a card) against eager (``dispatch(False)``):
   Huber 1.5, 8 iterations: the command line's short-course settings) of
   a ``collect_tracks`` scan of "straight", per GN iteration.
 
-Their profiles cover one door run over 4 frames (the state's first
-pyramids included) or one 8-iteration solve. Scan-family graphed runs
+With ``--mesh`` the cases are the multi-device paths of one process,
+graphed against eager the same way:
+
+- ``mesh_2x1_card``, ``mesh_2x2_card``: ``run_sequences_batched`` (one
+  chunk of ``--batch-steps``) of the four batched courses (B = 4) on a
+  (2, 1) and a (2, 2) mesh of this card named 2 and 4 times, per step;
+- with two cards or more, ``mesh_2x1_across``: the same on a (2, 1) mesh
+  of cards 0 and 1 (each row one card: both rows replay graphs, on their
+  own cards); with four, ``mesh_2x2_across`` on cards 0-3 (rows across
+  cards: eager by rule both ways, the yardstick);
+- ``sharded_ba``: ``sharded_ba_solve`` over this card named
+  ``chip_smoke.MODEL_SHARDS`` times (``chip_smoke.SHARDED_BA_PROBLEMS[0]``,
+  ``SHARDED_BA_ITERS`` iterations), per GN iteration; ``ring``:
+  ``ring_ba_solve`` of ``chip_smoke``'s ring problem over
+  ``RING_WINDOWS`` windows of this card (``RING_GRAPH_ROUNDS`` rounds of
+  ``RING_CG_ITERS`` CG iterations), per round; ``posegraph``:
+  ``sharded_posegraph_solve`` of a 64-keyframe circle, per GN iteration.
+
+The multi-card times of one rank per card are ``scripts/rank_times.py
+--mesh``'s. Their profiles cover one door run over 4 frames (the state's
+first pyramids included), one mesh run of 4 steps, or one solve. Scan-family graphed runs
 replay the step's graph (the default on a card); eager
 ones run inside ``chip_smoke.scans(False)``
 (``make_scan_step_fn(_graph=False)``). Every run must give its case's
@@ -47,13 +66,14 @@ frame, frames/s (aggregate for B sequences), each round's graph-minus-eager
 difference and the rounds the graph won, device ms and busy share: device
 ms over the median wall) and the card's name and power limit; with
 ``--out DIR`` the lines also go to ``DIR/graph_turns.json`` (or, with
-``--doors``, ``DIR/graph_turns_doors.json``). Exits non-zero without a
-card.
+``--doors``, ``DIR/graph_turns_doors.json``; with ``--mesh``,
+``DIR/graph_turns_mesh.json``). Exits non-zero without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -198,6 +218,90 @@ def door_cases(args, straight, config, intr, dev):
             "ba": case(ba, kw["iterations"])}
 
 
+def mesh_cases(args, full, config, intr, dev):
+    """``--mesh``: {case: (run(graphed) -> (wall, steps, result),
+    profile(graphed) -> profile_run's dict, batch)}."""
+    import torch
+
+    import chip_smoke as cs
+    from visual_odom_tpu_torch.ba import posegraph, problem
+    from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
+    from visual_odom_tpu_torch.parallel.mesh import make_mesh
+    from visual_odom_tpu_torch.parallel.ring_ba import ring_ba_solve
+    from visual_odom_tpu_torch.parallel.sharded_ba import sharded_ba_solve
+    from visual_odom_tpu_torch.utils.cudagraph import dispatch
+
+    seqs = [f[:args.batch_steps + 1] for f in full]
+    small = [f[:PROFILE_FRAMES + 1] for f in full]
+
+    def mesh_run(mesh):
+        def fn(sq):
+            poses, _, wall = run_sequences_batched(
+                sq, config, intr, chunk=len(sq[0]) - 1, mesh=mesh)
+            return wall, len(sq[0]) - 1, np.stack(poses)
+        return fn
+
+    def timed(solve, per):
+        def fn(_):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = solve()
+            torch.cuda.synchronize()
+            arrays = [getattr(out, k).reshape(-1) for k in out._fields
+                      if k in ("poses", "landmarks", "nodes")]
+            return (time.perf_counter() - t, per,
+                    torch.cat(arrays).cpu().numpy())
+        return fn
+
+    def mode(graphed):
+        """Graphed: the default on a card (graphs wherever the dispatch
+        rule allows them); else eager."""
+        return contextlib.nullcontext() if graphed else dispatch(False)
+
+    def case(fn, frames, per, B):
+        def run(graphed):
+            with mode(graphed):
+                return fn(frames)
+
+        def prof(graphed):
+            with mode(graphed):
+                return profile_run(lambda: fn(small if B > 1 else frames),
+                                   per)
+
+        return run, prof, B
+
+    grids = {"mesh_2x1_card": ((2, 1), [dev] * 2),
+             "mesh_2x2_card": ((2, 2), [dev] * 4)}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        grids["mesh_2x1_across"] = ((2, 1), [torch.device("cuda", i)
+                                             for i in range(2)])
+    if n >= 4:
+        grids["mesh_2x2_across"] = ((2, 2), [torch.device("cuda", i)
+                                             for i in range(4)])
+    cases = {name: case(mesh_run(make_mesh(
+        {"data": shape[0], "model": shape[1]}, devs)), seqs, PROFILE_FRAMES,
+        len(seqs)) for name, (shape, devs) in grids.items()}
+    w, lm = cs.SHARDED_BA_PROBLEMS[0]
+    p = problem.synthetic_ba_problem(num_poses=w, num_landmarks=lm, seed=7,
+                                     obs_window=None, device=dev)[0]
+    shards = make_mesh({"data": 1, "model": cs.MODEL_SHARDS},
+                       [dev] * cs.MODEL_SHARDS)
+    cases["sharded_ba"] = case(timed(lambda: sharded_ba_solve(
+        p, shards, iterations=cs.SHARDED_BA_ITERS), cs.SHARDED_BA_ITERS),
+        None, cs.SHARDED_BA_ITERS, 1)
+    ring = cs._ring_problem(dev)
+    seq = make_mesh({"seq": cs.RING_WINDOWS}, [dev] * cs.RING_WINDOWS)
+    cases["ring"] = case(timed(lambda: ring_ba_solve(
+        ring, seq, halo=cs.RING_HALO, rounds=cs.RING_GRAPH_ROUNDS,
+        cg_iters=cs.RING_CG_ITERS), cs.RING_GRAPH_ROUNDS), None,
+        cs.RING_GRAPH_ROUNDS, 1)
+    graph = posegraph.build_keyframe_graph(*cs._circle_chain(), device=dev)
+    cases["posegraph"] = case(timed(lambda: posegraph.sharded_posegraph_solve(
+        graph, shards), 10), None, 10, 1)
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=64)
@@ -205,6 +309,7 @@ def main() -> int:
     ap.add_argument("--batch-steps", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--doors", action="store_true")
+    ap.add_argument("--mesh", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -257,6 +362,8 @@ def main() -> int:
 
     if args.doors:
         cases = door_cases(args, full[0], config, intr, dev)
+    elif args.mesh:
+        cases = mesh_cases(args, full, config, intr, dev)
     else:
         cases = {"quad": scan_case(*single(config, args.steps)),
                  "mono": scan_case(*single(mconfig, args.mono_steps)),
@@ -302,7 +409,8 @@ def main() -> int:
         lines.append(line)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        name = "graph_turns_doors.json" if args.doors else "graph_turns.json"
+        name = ("graph_turns_doors.json" if args.doors else
+                "graph_turns_mesh.json" if args.mesh else "graph_turns.json")
         with open(os.path.join(args.out, name), "w") as f:
             json.dump({"cases": lines, "cpus": os.cpu_count(),
                        "card": card}, f, indent=1)

@@ -48,7 +48,7 @@ from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.interop import (ba_problem_from_numpy,
                                            pose_graph_from_numpy)
 from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
-from visual_odom_tpu_torch.parallel import batch, batch_eval, pipe
+from visual_odom_tpu_torch.parallel import batch, pipe
 from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
 from visual_odom_tpu_torch.runner import loopclosure, pipeline
 from visual_odom_tpu_torch.utils import cudagraph
@@ -267,11 +267,12 @@ def body_form(monkeypatch):
             posegraph._gn_iteration, damping=damping), device,
             _replay_body=True)
 
-    for mod in (cudagraph, pipeline, batch, batch_eval, loopclosure, pipe,
-                schur, posegraph):
+    for mod in (cudagraph, pipeline, loopclosure, pipe, schur, posegraph):
         monkeypatch.setattr(mod, "use_graph", use)
         if hasattr(mod, "_graphed_step"):
             monkeypatch.setattr(mod, "_graphed_step", graphed_step)
+    monkeypatch.setattr(batch, "use_graph_on", use)
+    monkeypatch.setattr(batch, "_graphed_step", graphed_step)
     monkeypatch.setattr(pipe, "_graphed_stages", graphed_stages)
     monkeypatch.setattr(schur, "_graphed_solve", ba_loop)
     monkeypatch.setattr(posegraph, "_graphed_solve", pg_loop)

@@ -20,8 +20,17 @@ batched scenario also reads the JAX package's state and RANSAC draws from
 - ``card_core``, ``card_batch``: the split LK launches and the solvers,
   and ``run_sequences_batched`` on both routes on CARD_MESHES, one rank per
   card (tests/test_torch_cuda.py).
+- ``graph`` (gloo, the CPU): the mesh step, the chunked scan and the
+  solvers (``graph_paths``) by default, where gloo ranks step eagerly by
+  rule, with the graphs built counted, and in the CPU form of their graph
+  paths (``body_form``); ``card_graph`` (NCCL, one rank per card, and at
+  world size 1 on one card): the same paths inside
+  ``utils.cudagraph.dispatch(False)`` and by default, replayed from CUDA
+  graphs (tests/test_torch_graph_mesh.py).
 """
 
+import contextlib
+import functools
 import os
 import socket
 import subprocess
@@ -42,7 +51,8 @@ from visual_odom_tpu_torch.io.synthetic import (  # noqa: E402
 from visual_odom_tpu_torch.ops import lk_cuda  # noqa: E402
 from visual_odom_tpu_torch.ops.lk import (LKParams,  # noqa: E402
                                           lk_track_pyramid, prepare_lk_image)
-from visual_odom_tpu_torch.parallel import batch, collectives  # noqa: E402
+from visual_odom_tpu_torch.parallel import (batch, collectives,  # noqa: E402
+                                            ring_ba, sharded_ba)
 from visual_odom_tpu_torch.parallel.batch_eval import (  # noqa: E402
     run_sequences_batched)
 from visual_odom_tpu_torch.parallel.mesh import (  # noqa: E402
@@ -50,6 +60,8 @@ from visual_odom_tpu_torch.parallel.mesh import (  # noqa: E402
 from visual_odom_tpu_torch.parallel.ring_ba import ring_ba_solve  # noqa: E402
 from visual_odom_tpu_torch.parallel.sharded_ba import (  # noqa: E402
     sharded_ba_solve)
+from visual_odom_tpu_torch.runner import pipeline  # noqa: E402
+from visual_odom_tpu_torch.utils import cudagraph  # noqa: E402
 
 H, W = 120, 160
 INTR = dict(fx=120.0, fy=120.0, cx=W / 2, cy=H / 2, bf=-120.0 * 0.54,
@@ -73,6 +85,12 @@ MESHES = ((2, 1), (1, 2))
 ROUTES = ("pallas", "xla")
 #: the meshes of one rank per card, by world size
 CARD_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+#: the graph scenarios: sequences, steps (the scan's chunk too) and the
+#: meshes by world size; the solvers' iterations
+GRAPH_B = 2
+GRAPH_STEPS = 2
+GRAPH_MESHES = {1: ((1, 1),), 2: ((2, 1), (1, 2)), 4: ((2, 2), (1, 4))}
+GRAPH_ITERS = 3
 
 
 def collective_inputs(D: int) -> dict:
@@ -294,11 +312,204 @@ def jax_rows(d, a: int, b: int) -> dict:
             "tvec": d["state_tvec"][a:b]}
 
 
+# ---- the graph paths ------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def body_form():
+    """Route the batched step's rows and the three solvers to their graph
+    paths in the CPU form: ``use_graph_on`` says yes wherever a graph is not
+    switched off (on the CPU and on gloo ranks too), and each factory
+    builds its ``GraphedStep`` or ``GraphedLoop`` with
+    ``_replay_body=True`` (the static buffers and loops a capture records,
+    each replay the body itself), once per key. Yields the objects each
+    factory made, by factory."""
+    def use(axis, graphed=None):
+        graphed = cudagraph._DISPATCH if graphed is None else graphed
+        return graphed is not False
+
+    made = {}
+
+    def recorded(name, factory):
+        made[name] = []
+
+        @functools.lru_cache(maxsize=None)
+        def build(*args, **kwargs):
+            made[name].append(factory(*args, **kwargs, _replay_body=True))
+            return made[name][-1]
+
+        return build
+
+    def one_device(config, intrinsics, with_tracks, device, _replay_body):
+        return cudagraph.GraphedStep(pipeline.make_step_fn(
+            config, intrinsics, with_tracks=with_tracks, device=device),
+            device, _replay_body=_replay_body)
+
+    patches = [(batch, "_graphed_step", recorded("one_device", one_device))]
+    for name, (m, attr) in {"split": (batch, "_graphed_split_step"),
+                            "sharded_ba": (sharded_ba, "_graphed_solve"),
+                            "ring": (ring_ba, "_graphed_round"),
+                            "posegraph": (posegraph,
+                                          "_graphed_sharded_solve")}.items():
+        patches.append((m, attr, recorded(name, getattr(m, attr).__wrapped__)))
+    patches += [(m, "use_graph_on", use)
+                for m in (batch, sharded_ba, ring_ba, collectives)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
+    try:
+        for m, name, value in patches:
+            setattr(m, name, value)
+        yield made
+    finally:
+        for m, name, value in saved:
+            setattr(m, name, value)
+
+
+def replays(graphs) -> list:
+    """The replays each of ``graphs`` (``GraphedStep``s or
+    ``GraphedLoop``s) made, over all its captures."""
+    return [sum(c.replays for c in g.captures.values()) for g in graphs]
+
+
+@contextlib.contextmanager
+def graphs_built():
+    """Count the ``GraphedStep``s and ``GraphedLoop``s made in the block:
+    yields a list that gets one entry per graph object made."""
+    made = []
+    inits = {cls: cls.__init__ for cls in (cudagraph.GraphedStep,
+                                           cudagraph.GraphedLoop)}
+
+    def counted(init):
+        def wrapper(self, *args, **kwargs):
+            made.append(type(self).__name__)
+            init(self, *args, **kwargs)
+        return wrapper
+
+    try:
+        for cls, init in inits.items():
+            cls.__init__ = counted(init)
+        yield made
+    finally:
+        for cls, init in inits.items():
+            cls.__init__ = init
+
+
+def graph_sequences() -> list:
+    """GRAPH_B sequences of GRAPH_STEPS + 1 frames at 120x160."""
+    intr = CameraIntrinsics(**INTR)
+    return [list(SyntheticStereoSequence(intr, num_frames=GRAPH_STEPS + 1,
+                                         seed=s, speed=0.5))
+            for s in range(GRAPH_B)]
+
+
+def _stacked(sequences, i):
+    return tuple(np.stack([s[i][k] for s in sequences]) for k in (0, 1))
+
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` on the CPU (a graph's outputs and states are views
+    of its byte buffers; ``torch.save`` keeps each tensor whole)."""
+    return t.to("cpu", copy=True)
+
+
+def _state_summary(state) -> dict:
+    """A batched state's tensors (on the CPU) and its generators' states,
+    row by row."""
+    rows = state.rows if isinstance(state, batch.MeshState) else (state,)
+    return {"tensors": [_own(t) for r in rows
+                        for t in cudagraph.state_tensors(r)],
+            "generators": [g.get_state() for r in rows
+                           for g in cudagraph.generators(r)]}
+
+
+def _counted(fn) -> dict:
+    """``fn()``'s result with the LK launches it counted."""
+    before = cudagraph.launch_counts()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    after = cudagraph.launch_counts()
+    return {"out": out, "launches": {k: after[k] - before[k] for k in after}}
+
+
+def mesh_step_run(config, sequences, mesh, steps=GRAPH_STEPS,
+                  device=None) -> dict:
+    """``steps`` batched steps on ``mesh`` from frames on ``device`` (the
+    host by default): every step's outputs and the final state."""
+    intr = CameraIntrinsics(**INTR)
+    step = batch.make_batched_step_fn(config, intr, mesh=mesh)
+    st = batch.batched_init_state(config, *_stacked(sequences, 0), seed=1,
+                                  mesh=mesh)
+    outs = []
+    for i in range(1, steps + 1):
+        st, out = step(st, *(torch.from_numpy(x).to(device or "cpu")
+                             for x in _stacked(sequences, i)))
+        outs.append([_own(x) for x in out])
+    return {"outputs": outs, **_state_summary(st)}
+
+
+def mesh_scan_run(config, sequences, mesh, steps=GRAPH_STEPS) -> dict:
+    """One chunk of ``steps`` frames through the mesh's scan: the stacked
+    outputs and the final state."""
+    intr = CameraIntrinsics(**INTR)
+    scan = batch.make_batched_scan_fn(config, intr, steps, mesh=mesh)
+    st = batch.batched_init_state(config, *_stacked(sequences, 0), seed=1,
+                                  mesh=mesh)
+    frames = [_stacked(sequences, i) for i in range(1, steps + 1)]
+    st, out = scan(st, *(np.stack(x) for x in zip(*frames)))
+    return {"outputs": [_own(x) for x in out], **_state_summary(st)}
+
+
+def graph_solvers(devices, D: int, device="cpu") -> dict:
+    """The three solvers over a line of D ``devices``: landmark shards on a
+    (1, D) mesh, the ring (halo 2; auto halo with Huber) on a "seq" axis,
+    the graph's edges over a "model" axis; problems on ``device``."""
+    out = {}
+    p = problem.synthetic_ba_problem(device=device, **BA)[0]
+    got = _counted(lambda: sharded_ba_solve(
+        p, make_mesh({"data": 1, "model": D}, devices),
+        iterations=GRAPH_ITERS))
+    out["sharded_ba"] = dict(got, out=[_own(x) for x in got["out"][:2]])
+    seq = make_mesh({"seq": D}, devices)
+    for name, prob in ring_problems().items():
+        prob = prob._replace(**{k: getattr(prob, k).to(device) for k in (
+            "poses", "landmarks", "observations", "mask")})
+        kw = dict(RING_RUNS[name], rounds=GRAPH_ITERS)
+        got = _counted(lambda: ring_ba_solve(prob, seq, **kw))
+        out[f"ring_{name}"] = dict(got, out=[_own(x) for x in got["out"][:2]])
+    g = circle_graph()
+    g = g._replace(**{k: getattr(g, k).to(device) for k in g._fields})
+    got = _counted(lambda: posegraph.sharded_posegraph_solve(
+        g, make_mesh({"model": D}, devices), iterations=GRAPH_ITERS))
+    out["posegraph"] = dict(got, out=[_own(got["out"].nodes)])
+    return out
+
+
+def graph_paths(devices, world: int, device="cpu", routes=("pallas",)) -> dict:
+    """The mesh step and the chunked scan on GRAPH_MESHES[world] (and each
+    LK route of ``routes``) and the solvers, each with the launches it
+    counted, by path name."""
+    sequences = graph_sequences()
+    out = {}
+    for shape in GRAPH_MESHES[world]:
+        for route in routes:
+            cfg = batch_config(route)
+            mesh = make_mesh({"data": shape[0], "model": shape[1]}, devices)
+            name = f"{shape[0]}x{shape[1]}_{route}"
+            out[f"step_{name}"] = _counted(lambda: mesh_step_run(
+                cfg, sequences, mesh, device=device))
+            out[f"scan_{name}"] = _counted(lambda: mesh_scan_run(
+                cfg, sequences, mesh))
+    out.update(graph_solvers(devices, world, device))
+    return out
+
+
 # ---- the launcher: spawns a set of ranks and waits for them ------------------
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: seconds a set of ranks may take, each rank
+#: seconds a set of ranks may take, each rank (CARD_GRAPH_TIMEOUT for the
+#: ``card_graph`` scenario: both LK routes graphed and eager on each mesh)
 TIMEOUT = 120
+CARD_GRAPH_TIMEOUT = 300
 
 
 def start_ranks(scenario, world, where):
@@ -342,7 +553,7 @@ def finish_ranks(procs, scenario, where, timeout=TIMEOUT):
     return all(p.returncode == 0 for p, _ in procs), logs
 
 
-def run_ranks(scenario, world, where, during=None):
+def run_ranks(scenario, world, where, during=None, timeout=TIMEOUT):
     """One set of ranks to its end (``during()`` runs in the caller
     meanwhile); returns (each rank's saved results, on the CPU,
     ``during()``'s result). Retries once on a port taken between choosing
@@ -353,7 +564,7 @@ def run_ranks(scenario, world, where, during=None):
         try:
             extra = during() if during is not None else None
         finally:
-            ok, logs = finish_ranks(procs, scenario, where)
+            ok, logs = finish_ranks(procs, scenario, where, timeout)
         if ok:
             return [torch.load(os.path.join(where, f"{scenario}-rank{r}.pt"),
                                map_location="cpu", weights_only=False)
@@ -389,6 +600,28 @@ def main() -> int:
         res = {"collectives": run_collectives(collective_inputs(world), world,
                                               axis),
                "lk": run_lk(axis), **run_solvers(devices, world)}
+    elif scenario == "graph":
+        with graphs_built() as built:
+            default = graph_paths(devices, world)
+        with body_form():
+            body = graph_paths(devices, world)
+        res = {"default": default, "graphs_built": list(built),
+               "body": body}
+    elif scenario == "card_graph":
+        dev = devices[rank].device
+        with cudagraph.dispatch(False):
+            eager = graph_paths(devices, world, dev, ROUTES)
+        with graphs_built() as built:
+            graphed = graph_paths(devices, world, dev, ROUTES)
+        line = mesh_axis(make_mesh({"x": world}, devices), "x")
+        try:
+            with cudagraph.dispatch(True):
+                collectives.use_graph_on(line)
+            refused = False
+        except ValueError:
+            refused = True
+        res = {"eager": eager, "graphed": graphed,
+               "graphs_built": list(built), "line_refuses_graph": refused}
     elif scenario == "batch":
         res = {"runs": run_batch(devices, batch_sequences()),
                "jax_fed": jax_fed_steps(devices, os.path.join(

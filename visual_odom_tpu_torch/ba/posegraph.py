@@ -23,7 +23,8 @@ accumulated drift around the graph.
   sum, independent of E.
 - On a card ``posegraph_solve`` replays one GN update from a CUDA graph
   per iteration (``utils.cudagraph.GraphedLoop``), as the JAX package jits
-  its loop.
+  its loop; so does ``sharded_posegraph_solve`` on an axis of one card or
+  of NCCL ranks (the all-gathers inside the graph).
 """
 
 from __future__ import annotations
@@ -196,6 +197,32 @@ def _se3_inv(T: torch.Tensor) -> torch.Tensor:
     return se3_matrix(R_t, -(R_t @ T[..., :3, 3:])[..., 0])
 
 
+def _sharded_gn_iteration(carry, ax, damping: float):
+    """One GN update of the edge-sharded graph: ``carry`` is (the nodes on
+    each shard this process holds, each shard's (edges, rel_inv, weight));
+    only the nodes change."""
+    from visual_odom_tpu_torch.parallel.collectives import psum, replicated
+
+    nodes, local = carry
+    H, b, _ = zip(*(_edge_terms(n, *s) for n, s in zip(nodes, local)))
+    nodes = replicated(
+        ax, lambda n, H, b: _gn_update(n, *_pin_and_damp(H, b, damping)),
+        nodes, psum(H, ax), psum(b, ax))
+    return tuple(nodes), local
+
+
+@functools.lru_cache(maxsize=8)
+def _graphed_sharded_solve(ax, damping: float, _replay_body: bool = False):
+    """The edge-sharded GN update over ``ax`` (a tuple of one card, or an
+    NCCL ``RankAxis`` of one rank) as a graphed fixed-trip loop, one per (axis,
+    damping) in a process: one capture per shape."""
+    from visual_odom_tpu_torch.parallel.collectives import graph_place
+
+    return GraphedLoop(functools.partial(_sharded_gn_iteration, ax=ax,
+                                         damping=damping),
+                       graph_place(ax)[0], _replay_body=_replay_body)
+
+
 def sharded_posegraph_solve(graph: PoseGraph, mesh, iterations: int = 10,
                             damping: float = 1e-4,
                             axis: str = "model") -> PoseGraph:
@@ -209,10 +236,15 @@ def sharded_posegraph_solve(graph: PoseGraph, mesh, iterations: int = 10,
     damping go on once, after it. The solve and the retraction run on each
     shard's device. Returns the graph, on its own device, with the solved
     nodes; on a mesh of ranks every rank passes the same graph and gets
-    the same solved nodes."""
-    from visual_odom_tpu_torch.parallel.collectives import (axis_size, psum,
-                                                            replicated,
-                                                            shards)
+    the same solved nodes. On a card each iteration replays its CUDA graph
+    (``utils.cudagraph.GraphedLoop``: on an axis of one card the whole
+    update, on an NCCL rank at world size 1 its own with the all-gathers
+    inside), bit for bit the eager loop; an axis across cards in one
+    process, gloo ranks and the ranks of a larger world iterate eagerly
+    by rule (``parallel.collectives.graph_place``)."""
+    from visual_odom_tpu_torch.parallel.collectives import (axis_key,
+                                                            axis_size, shards,
+                                                            use_graph_on)
     from visual_odom_tpu_torch.parallel.mesh import mesh_axis
 
     ax = mesh_axis(mesh, axis)
@@ -229,16 +261,17 @@ def sharded_posegraph_solve(graph: PoseGraph, mesh, iterations: int = 10,
     rel_inv = _se3_inv(rel)
     per = (E + pad) // D
     mine = shards(ax)
-    local = [(edges[k * per:(k + 1) * per].to(d),
-              rel_inv[k * per:(k + 1) * per].to(d),
-              weight[k * per:(k + 1) * per].to(d)) for k, d in mine]
-    nodes = [graph.nodes.to(d) for _, d in mine]
-    for _ in range(iterations):
-        H, b, _ = zip(*(_edge_terms(n, *s) for n, s in zip(nodes, local)))
-        nodes = replicated(
-            ax, lambda n, H, b: _gn_update(n, *_pin_and_damp(H, b, damping)),
-            nodes, psum(H, ax), psum(b, ax))
-    return graph._replace(nodes=nodes[0].to(dev))
+    local = tuple((edges[k * per:(k + 1) * per].to(d),
+                   rel_inv[k * per:(k + 1) * per].to(d),
+                   weight[k * per:(k + 1) * per].to(d)) for k, d in mine)
+    carry = (tuple(graph.nodes.to(d) for _, d in mine), local)
+    if use_graph_on(ax):
+        carry = _graphed_sharded_solve(axis_key(ax), float(damping))(
+            carry, iterations)
+    else:
+        for _ in range(iterations):
+            carry = _sharded_gn_iteration(carry, ax, damping)
+    return graph._replace(nodes=carry[0][0].to(dev))
 
 
 # ---------------------------------------------------------------------------

@@ -40,10 +40,24 @@ split as above:
   the slots back in order;
 - the outputs of every sequence come back on every rank, all-gathered over
   its "data" group (once per step, or once per chunk of the scan).
+
+On a card each row replays its step's CUDA graph (``utils.cudagraph``), as
+the JAX package jits its sharded step and scans it over a chunk: a row of
+one device replays the one-card batched step's graph (shared with the
+single-sequence doors); a row of one card named several times, the graph
+of its split step (``_graphed_split_step``); an NCCL rank at world size
+1, the graph of its row's split step with the model group's all-gather
+inside. Every row's replay is issued before any output moves to the home
+device, so that rows on different cards overlap. A row that spans
+distinct cards in one process, a rank over gloo and a rank of a larger
+world step eagerly by rule
+(``parallel.collectives.graph_place``), as does a call given
+``uniforms``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -52,7 +66,9 @@ import torch
 from visual_odom_tpu_torch import resolve_device
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.frontend.featureset import empty_feature_state
-from visual_odom_tpu_torch.parallel.collectives import gather
+from visual_odom_tpu_torch.parallel.collectives import (RankAxis, gather,
+                                                        graph_place,
+                                                        use_graph_on)
 from visual_odom_tpu_torch.parallel.mesh import (Mesh, mesh_axis, position,
                                                  split_ranges)
 from visual_odom_tpu_torch.runner.pipeline import (StepOutput, VOState,
@@ -63,7 +79,7 @@ from visual_odom_tpu_torch.runner.pipeline import (StepOutput, VOState,
                                                    seeded_generator,
                                                    state_arrays)
 from visual_odom_tpu_torch.utils.checkpoint import STATE_KEYS
-from visual_odom_tpu_torch.utils.cudagraph import use_graph
+from visual_odom_tpu_torch.utils.cudagraph import GraphedStep
 
 
 class MeshState(NamedTuple):
@@ -139,6 +155,69 @@ def _rows(x, ranges):
     return [x[a:b] for a, b in ranges]
 
 
+@functools.lru_cache(maxsize=8)
+def _graphed_split_step(config: VOConfig, intrinsics: CameraIntrinsics,
+                        slots, _replay_body: bool = False) -> GraphedStep:
+    """The batched step of a mesh row whose LK launches split their slots
+    over ``slots`` (a tuple of one card named several times, or an NCCL
+    ``RankAxis`` of one rank) as a ``GraphedStep``, one per (config, intrinsics, slots)
+    in a process."""
+    dev = graph_place(slots)[0]
+    return GraphedStep(make_step_fn(
+        config, intrinsics, device=dev,
+        slot_devices=slots if isinstance(slots, RankAxis) else list(slots)),
+        dev, _replay_body=_replay_body)
+
+
+class _Row(NamedTuple):
+    """A mesh row's step: eager, and its ``GraphedStep`` where it replays
+    one (None where it steps eagerly)."""
+
+    device: torch.device
+    eager: object
+    graphed: object
+
+    def step(self, state, lefts, rights, uniforms=None):
+        """One batched step of the row's sequences; ``uniforms`` steps
+        eagerly."""
+        if self.graphed is None or uniforms is not None:
+            return self.eager(state, lefts, rights, None if uniforms is None
+                              else uniforms.to(self.device))
+        return self.graphed(state, lefts, rights)
+
+    def scan(self, state, lefts, rights):
+        """k steps of the row's sequences, (k, B_row, H, W) frames ->
+        (state, StepOutput stacked (k, B_row, ...))."""
+        if self.graphed is not None:
+            return self.graphed.scan(state, lefts, rights)
+        dl, dr = lefts.to(self.device), rights.to(self.device)
+        outs = []
+        for i in range(dl.shape[0]):
+            state, out = self.eager(state, dl[i], dr[i])
+            outs.append(out)
+        return state, StepOutput(*(torch.stack(x) for x in zip(*outs)))
+
+    def capture(self, state, lefts, rights) -> None:
+        """Capture the row's graph for ``state`` and these frames now."""
+        if self.graphed is not None:
+            self.graphed.capture(state, lefts, rights)
+
+
+def _row(config, intrinsics, slots) -> _Row:
+    """The step of a mesh row whose LK slots split over ``slots`` (a tuple
+    of the row's devices, or this rank's model ``RankAxis``); a row of one
+    device replays the one-card batched step's graph."""
+    dev = graph_place(slots)[0]
+    one = not isinstance(slots, RankAxis) and len(slots) == 1
+    eager = make_step_fn(config, intrinsics, device=dev,
+                         slot_devices=None if one else slots)
+    graphed = None
+    if use_graph_on(slots):
+        graphed = (_graphed_step(config, intrinsics, False, dev) if one
+                   else _graphed_split_step(config, intrinsics, slots))
+    return _Row(dev, eager, graphed)
+
+
 def make_batched_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
                          device=None, mesh: Mesh = None):
     """``step(state, lefts (B, H, W), rights (B, H, W), uniforms=None) ->
@@ -148,59 +227,68 @@ def make_batched_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     outputs come back on the mesh's first device; on a mesh of ranks, on
     every rank's own device.
 
-    On one card each call is one replay of the batched step's CUDA graph
-    (``utils.cudagraph.GraphedStep``, shared with the single-sequence doors
-    and the scan), bit for bit the eager step; a call given ``uniforms``
-    (the parity tests) steps eagerly (``utils.cudagraph.use_graph`` picks).
-    Meshes step eagerly."""
+    On a card each call replays CUDA graphs, bit for bit the eager step:
+    one card, the batched step's (``utils.cudagraph.GraphedStep``, shared
+    with the single-sequence doors and the scan); a mesh, each row's (see
+    the module docstring). A call given ``uniforms`` (the parity tests)
+    steps eagerly, as do the CPU and the rows and ranks that
+    ``parallel.collectives.graph_place`` keeps eager by rule.
+    ``step.capture(state, lefts, rights)`` captures the graphs ahead of
+    the first step (a no-op where the step is eager)."""
     if _ranked(mesh):
         me = _rank_row(mesh)
-        fn = make_step_fn(config, intrinsics, device=me.device,
-                          slot_devices=me.model)
+        row = _row(config, intrinsics, me.model)
+
+        def mine(x, ranges):
+            a, b = ranges[me.row]
+            return None if x is None else x[a:b].to(me.device)
 
         def rank_step(state: MeshState, lefts, rights, uniforms=None):
             ranges = me.ranges(lefts.shape[0])
-            a, b = ranges[me.row]
-            st, out = fn(state.rows[0], lefts[a:b].to(me.device),
-                         rights[a:b].to(me.device),
-                         None if uniforms is None
-                         else uniforms[a:b].to(me.device))
+            st, out = row.step(state.rows[0], mine(lefts, ranges),
+                               mine(rights, ranges), mine(uniforms, ranges))
             return MeshState((st,)), _gather_rows(out, ranges, me)
 
+        def capture(state: MeshState, lefts, rights):
+            ranges = me.ranges(lefts.shape[0])
+            row.capture(state.rows[0], *(torch.as_tensor(x)[slice(
+                *ranges[me.row])] for x in (lefts, rights)))
+
+        rank_step.capture = capture
         return rank_step
     device, grid = _placement(device, mesh)
     if grid is None:
-        eager = make_step_fn(config, intrinsics, device=device)
-        dev = resolve_device(device)
-        if not use_graph(dev):
-            return eager
-        graphed = _graphed_step(config, intrinsics, False, dev)
+        row = _row(config, intrinsics, (resolve_device(device),))
 
         def one_card_step(state, lefts, rights, uniforms=None):
-            if uniforms is not None:
-                return eager(state, lefts, rights, uniforms)
-            return graphed(state, lefts, rights)
+            return row.step(state, lefts, rights, uniforms)
 
+        one_card_step.capture = row.capture
         return one_card_step
     home = grid[0, 0]
-    steps = [make_step_fn(config, intrinsics, device=row[0],
-                          slot_devices=list(row) if len(row) > 1 else None)
-             for row in grid]
+    rows = [_row(config, intrinsics, tuple(r)) for r in grid]
 
     def step(state: MeshState, lefts, rights, uniforms=None):
         ranges = _row_ranges(lefts.shape[0], grid)
         us = (_rows(uniforms, ranges) if uniforms is not None
               else [None] * len(ranges))
         new, outs = [], []
-        for fn, st, row, l, r, u in zip(steps, state.rows, grid,
-                                        _rows(lefts, ranges),
-                                        _rows(rights, ranges), us):
-            st, out = fn(st, l, r, None if u is None else u.to(row[0]))
+        for row, st, l, r, u in zip(rows, state.rows, _rows(lefts, ranges),
+                                    _rows(rights, ranges), us):
+            st, out = row.step(st, l, r, u)
             new.append(st)
             outs.append(out)
         return MeshState(tuple(new)), StepOutput(
             *(torch.cat([x.to(home) for x in xs]) for xs in zip(*outs)))
 
+    def capture(state: MeshState, lefts, rights):
+        lefts, rights = torch.as_tensor(lefts), torch.as_tensor(rights)
+        ranges = _row_ranges(lefts.shape[0], grid)
+        for row, st, l, r in zip(rows, state.rows, _rows(lefts, ranges),
+                                 _rows(rights, ranges)):
+            row.capture(st, l, r)
+
+    step.capture = capture
     return step
 
 
@@ -210,42 +298,42 @@ def make_batched_scan_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     (state, StepOutput stacked (chunk, B, ...))``: the chunk is uploaded
     in one copy (to the mesh's first device; each row's frames go on from
     there) and stepped frame by frame; the outputs stay on the device. On
-    one card each step is a replay of the batched step's CUDA graph
-    (``runner.pipeline.make_scan_step_fn``); on a mesh the steps are
-    eager. On a mesh of ranks each rank uploads its row's frames to its
+    a card each step is a replay of a CUDA graph: the batched step's on
+    one card (``runner.pipeline.make_scan_step_fn``), each row's on a mesh
+    (every row's chunk issued before any output moves to the first
+    device). On a mesh of ranks each rank uploads its row's frames to its
     device and gathers the chunk's outputs over its data group once."""
-    device, grid = (None, None) if _ranked(mesh) else _placement(device,
-                                                                  mesh)
     if _ranked(mesh):
         me = _rank_row(mesh)
-        fn = make_step_fn(config, intrinsics, device=me.device,
-                          slot_devices=me.model)
+        row = _row(config, intrinsics, me.model)
 
         def scan_chunk(state, lefts, rights):
             ranges = me.ranges(lefts.shape[1])
             a, b = ranges[me.row]
-            dl = torch.as_tensor(lefts[:, a:b]).to(me.device)
-            dr = torch.as_tensor(rights[:, a:b]).to(me.device)
-            (st,), outs = state.rows, []
-            for i in range(dl.shape[0]):
-                st, out = fn(st, dl[i], dr[i])
-                outs.append(out)
-            return MeshState((st,)), _gather_rows(
-                StepOutput(*(torch.stack(x) for x in zip(*outs))), ranges,
-                me, dim=1)
-    elif grid is None:
-        scan_chunk = make_scan_step_fn(config, intrinsics, device=device)
+            st, out = row.scan(state.rows[0], *(
+                torch.as_tensor(x[:, a:b]).to(me.device)
+                for x in (lefts, rights)))
+            return MeshState((st,)), _gather_rows(out, ranges, me, dim=1)
     else:
-        step = make_batched_step_fn(config, intrinsics, mesh=mesh)
+        device, grid = _placement(device, mesh)
+        if grid is None:
+            scan_chunk = make_scan_step_fn(config, intrinsics, device=device)
+        else:
+            home = grid[0, 0]
+            rows = [_row(config, intrinsics, tuple(r)) for r in grid]
 
-        def scan_chunk(state, lefts, rights):
-            dl = torch.as_tensor(lefts).to(grid[0, 0])
-            dr = torch.as_tensor(rights).to(grid[0, 0])
-            outs = []
-            for i in range(dl.shape[0]):
-                state, out = step(state, dl[i], dr[i])
-                outs.append(out)
-            return state, StepOutput(*(torch.stack(x) for x in zip(*outs)))
+            def scan_chunk(state, lefts, rights):
+                dl = torch.as_tensor(lefts).to(home)
+                dr = torch.as_tensor(rights).to(home)
+                ranges = _row_ranges(dl.shape[1], grid)
+                new, outs = [], []
+                for row, st, (a, b) in zip(rows, state.rows, ranges):
+                    st, out = row.scan(st, dl[:, a:b], dr[:, a:b])
+                    new.append(st)
+                    outs.append(out)
+                return MeshState(tuple(new)), StepOutput(*(
+                    torch.cat([x.to(home) for x in xs], dim=1)
+                    for xs in zip(*outs)))
 
     def scan(state, lefts, rights):
         if lefts.shape[0] != chunk or rights.shape[0] != chunk:

@@ -43,14 +43,12 @@ from visual_odom_tpu_torch.parallel.batch import (batched_init_state,
 from visual_odom_tpu_torch.parallel.mesh import Mesh, position
 from visual_odom_tpu_torch.runner.pipeline import (_ChunkUploader, _concat,
                                                    _fetch, _fetch_chunks,
-                                                   _graphed_step,
                                                    _on_current_stream, _sync,
                                                    chain_poses_host)
 from visual_odom_tpu_torch.utils.checkpoint import (BATCH_OUTPUTS,
                                                     CorruptCheckpoint,
                                                     load_batch_checkpoint,
                                                     save_batch_checkpoint)
-from visual_odom_tpu_torch.utils.cudagraph import use_graph
 
 
 #: the outputs the batched runner keeps (and a snapshot stores), each with
@@ -120,10 +118,14 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
     ``checkpoint_path``: a snapshot would have to gather every row's state
     to one writer and resume on every rank, which it does not do.
 
-    On one card every step is a replay of the batched step's CUDA graph
+    On a card every step replays CUDA graphs
     (``parallel.batch.make_batched_scan_fn`` for a chunked run,
-    ``make_batched_step_fn`` for ``chunk == 0``, whose graph is captured
-    before the wall); the meshes step eagerly.
+    ``make_batched_step_fn`` for ``chunk == 0``, whose graphs are captured
+    before the wall): the batched step's on one card, each data row's on
+    a one-process mesh whose rows are each one card, each rank's on a mesh
+    of one NCCL rank (world size 1). A one-process row across cards, gloo
+    ranks and the ranks of a larger world step eagerly
+    (``parallel.collectives.graph_place``).
     """
     if mesh is not None and device is not None:
         raise ValueError("run_sequences_batched takes a device or a mesh, "
@@ -191,10 +193,11 @@ def _run_stepwise(stacked, n_steps, config, intrinsics, seed, dev, mesh):
     state = batched_init_state(config, *stacked(0), seed=seed,
                                **_on(dev, mesh))
     step = make_batched_step_fn(config, intrinsics, **_on(dev, mesh))
-    if mesh is None and n_steps and use_graph(dev):
-        # The graph is captured here, outside the wall (a no-op once it is).
-        _graphed_step(config, intrinsics, False, dev).capture(state,
-                                                              *stacked(1))
+    if n_steps:
+        # The graphs are captured here, outside the wall (a no-op once they
+        # are, or where the step is eager; every rank of a mesh of ranks
+        # captures here together).
+        step.capture(state, *stacked(1))
     outs = []
     with ThreadPoolExecutor(max_workers=1) as ex:
         pending = ex.submit(stacked, 1) if n_steps else None

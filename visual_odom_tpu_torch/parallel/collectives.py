@@ -34,6 +34,8 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
+from visual_odom_tpu_torch.utils import cudagraph
+
 
 class RankAxis(NamedTuple):
     """A mesh axis whose shards are ranks: shard k is rank ``ranks[k]`` on
@@ -57,6 +59,52 @@ def shards(axis) -> list:
 def axis_size(axis) -> int:
     """The number of shards D along ``axis``."""
     return len(axis.ranks if isinstance(axis, RankAxis) else axis)
+
+
+def axis_key(axis):
+    """``axis`` as a cache key: a ``RankAxis`` as it is, a list of devices
+    as a tuple."""
+    return axis if isinstance(axis, RankAxis) else tuple(axis)
+
+
+def graph_place(axis) -> tuple:
+    """Where a CUDA graph of a step or an iteration over ``axis`` (a
+    one-process row or axis, a list or tuple of devices; or a
+    ``RankAxis``) is captured, and whether it may be: (the device, why
+    ``axis`` steps eagerly by rule or None). A rank axis' device is its
+    own rank's. Eager by rule:
+
+    - a rank axis over gloo: its collectives run on the host;
+    - a rank axis of a world of more than one rank: NCCL collectives
+      inside a capture are held to their eager run at world size 1 only,
+      not yet across cards (ROADMAP "Speed" 2);
+    - a one-process row or axis across distinct cards: one capture
+      records one card's work.
+    """
+    if isinstance(axis, RankAxis):
+        dev = torch.device(axis.devices[axis.index])
+        backend = _dist().get_backend(axis.group)
+        if backend != "nccl":
+            return dev, f"{backend}'s collectives run on the host"
+        world = _dist().get_world_size()
+        if world > 1:
+            return dev, (f"a rank of a world of {world} ranks: NCCL "
+                         f"collectives inside a capture are not yet held "
+                         f"to their eager run across cards")
+        return dev, None
+    devs = list(dict.fromkeys(torch.device(d) for d in axis))
+    if len(devs) > 1:
+        return devs[0], (f"a one-process row or axis across "
+                         f"{[str(d) for d in devs]}: one capture records "
+                         f"one card's work")
+    return devs[0], None
+
+
+def use_graph_on(axis, graphed=None) -> bool:
+    """``utils.cudagraph.use_graph`` for a step or an iteration over
+    ``axis``, at ``graph_place``'s device and by its rule."""
+    device, eager = graph_place(axis)
+    return cudagraph.use_graph(device, graphed, eager)
 
 
 def _dist():

@@ -36,6 +36,7 @@ halo + 1 keyframes). ``make_ring_windows`` raises on a longer track;
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -43,10 +44,13 @@ import torch
 
 from visual_odom_tpu_torch.ba.problem import BAProblem
 from visual_odom_tpu_torch.ba.schur import _jacobian_blocks, ba_solve
-from visual_odom_tpu_torch.parallel.collectives import (axis_size, gather,
+from visual_odom_tpu_torch.parallel.collectives import (axis_key, axis_size,
+                                                        gather, graph_place,
                                                         ppermute, psum,
-                                                        replicated, shards)
+                                                        replicated, shards,
+                                                        use_graph_on)
 from visual_odom_tpu_torch.parallel.mesh import Mesh, mesh_axis
+from visual_odom_tpu_torch.utils.cudagraph import GraphedLoop
 
 
 class RingWindows(NamedTuple):
@@ -155,6 +159,154 @@ def merge_ring_windows(problem: BAProblem, win: RingWindows, out_poses,
             problem.landmarks.dtype))
 
 
+class _Window(NamedTuple):
+    """One window's operands in a GN round: its problem (the window's
+    poses, the replicated landmarks, its observation rows) and its
+    constants."""
+
+    problem: BAProblem
+    pose_valid: torch.Tensor    # (Wl,) bool
+    core_w: torch.Tensor        # (Wl,) 1 on core slots, 0 on halo slots
+    free: torch.Tensor          # (Wl, 1) 1 on the slots the CG solves for
+    eye3: torch.Tensor
+    eye6: torch.Tensor
+    eyeWl: torch.Tensor
+
+
+def _ring_round(windows, ax, core: int, halo: int, cg_iters: int,
+                damping: float, huber_delta: float):
+    """One exact global GN round over the windows this process holds (a
+    tuple of ``_Window``s): halo refresh, the windows' Jacobian blocks, the
+    landmark normal equations summed, the reduced system solved by the
+    distributed PCG, the landmarks back-substituted. Only the poses and
+    the landmarks change."""
+    D = axis_size(ax)
+    fwd = [(i, i + 1) for i in range(D - 1)]     # window 0 receives zeros
+    bwd = [(i + 1, i) for i in range(D - 1)]     # window D-1 receives zeros
+    pose_valid = [w.pose_valid for w in windows]
+    core_w = [w.core_w for w in windows]
+    free = [w.free for w in windows]
+    eye3 = [w.eye3 for w in windows]
+    eye6 = [w.eye6 for w in windows]
+    eyeWl = [w.eyeWl for w in windows]
+    poses = [w.problem.poses for w in windows]
+
+    def refresh_halos(xs):
+        """Each window's halo slots of a distributed (Wl, ...) vector set to
+        its neighbours' boundary core entries (zeros past the ring's
+        ends)."""
+        from_left = ppermute([x[core:core + halo] for x in xs], fwd, ax)
+        from_right = ppermute([x[halo:2 * halo] for x in xs], bwd, ax)
+        return [torch.cat([lf, x[halo:halo + core], rt])
+                for x, lf, rt in zip(xs, from_left, from_right)]
+
+    def dot(a, b):
+        return psum([torch.sum(x * y) for x, y in zip(a, b)], ax)
+
+    def ratio(num, den):
+        """num / den where den > 0, else 0 (the CG's guards)."""
+        return torch.where(den > 0, num / torch.clamp(den, min=1e-30),
+                           torch.zeros_like(num))
+
+    # Linearization point: halo poses mirror their owner exactly.
+    poses = [torch.where(v[:, None], p, q) for v, p, q in
+             zip(pose_valid, refresh_halos(poses), poses)]
+    blocks = [_jacobian_blocks(w.problem._replace(poses=p),
+                               huber_delta=huber_delta)
+              for w, p in zip(windows, poses)]
+    # (Wl, L, 3, 6), (Wl, L, 3, 3), (Wl, L, 3)
+
+    # --- globally reduced landmark normal equations -----------------------
+    # Every observation row is core to exactly one window, so the sum of
+    # the core rows' contributions is the full problem's.
+    Bc = [B * w[:, None, None, None] for (_, B, _), w in zip(blocks, core_w)]
+    Hll = psum([torch.einsum("wlri,wlrj->lij", bc, B)
+                for bc, (_, B, _) in zip(Bc, blocks)], ax)
+    bl = psum([torch.einsum("wlri,wlr->li", bc, r)
+               for bc, (_, _, r) in zip(Bc, blocks)], ax)
+    Hll_inv = replicated(
+        ax, lambda H, e: torch.linalg.inv_ex(H + damping * e)[0],
+        Hll, eye3)                                              # (L, 3, 3)
+
+    # --- local rows of the global reduced camera system -------------------
+    # Halo rows replicate the neighbour's observation rows, so S[w, v] for
+    # v up to `halo` slots into the neighbour is exact.
+    S, rhs, Hpl, Pinv = [], [], [], []
+    for k, (A, B, r) in enumerate(blocks):
+        Hpp = torch.einsum("wlri,wlrj->wij", A, A)
+        hpl = torch.einsum("wlri,wlrj->wlij", A, B)
+        bp = torch.einsum("wlri,wlr->wi", A, r)
+        HplWinv = torch.einsum("wlij,ljk->wlik", hpl, Hll_inv[k])
+        s = -torch.einsum("wlik,vljk->wvij", HplWinv, hpl)
+        s = s + torch.einsum("wv,wij->wvij", eyeWl[k],
+                             Hpp + damping * eye6[k])
+        S.append(s)
+        rhs.append(bp - torch.einsum("wlik,lk->wi", HplWinv, bl[k]))
+        Hpl.append(hpl)
+        Pinv.append(torch.linalg.inv_ex(
+            torch.diagonal(s, dim1=0, dim2=1).permute(2, 0, 1)
+            + 1e-12 * eye6[k])[0])                              # (Wl, 6, 6)
+
+    # --- distributed block-Jacobi PCG on S dp = rhs -----------------------
+    def matvec(xs):
+        return [torch.einsum("wvij,vj->wi", s, x) * f
+                for s, x, f in zip(S, refresh_halos(xs), free)]
+
+    def precond(rs):
+        return [torch.einsum("wij,wj->wi", p, r) * f
+                for p, r, f in zip(Pinv, rs, free)]
+
+    b = [r * f for r, f in zip(rhs, free)]
+    x = [torch.zeros_like(v) for v in b]
+    res = b
+    z = precond(b)
+    p = z
+    rz = dot(b, z)
+    for _ in range(cg_iters):
+        Ap = matvec(p)
+        pAp = dot(p, Ap)
+        # the scalars are psum outputs: once per device
+        alpha = replicated(ax, ratio, rz, pAp)
+        x = [xi + a * pi for xi, a, pi in zip(x, alpha, p)]
+        res = [ri - a * api for ri, a, api in zip(res, alpha, Ap)]
+        z = precond(res)
+        rz_new = dot(res, z)
+        beta = replicated(ax, ratio, rz_new, rz)
+        p = [zi + bt * pi for zi, bt, pi in zip(z, beta, p)]
+        rz = rz_new
+    dp = x
+
+    # --- exact global landmark back-substitution --------------------------
+    # corr_l sums Hpl' dp over every global row: core rows per window, then
+    # a psum; dx is the same on every device.
+    corr = psum([torch.einsum("wlij,wi->lj", h * w[:, None, None, None], d)
+                 for h, w, d in zip(Hpl, core_w, dp)], ax)
+    dx = replicated(ax, lambda Hi, b_, c: torch.einsum(
+        "lij,lj->li", Hi, b_ - c), Hll_inv, bl, corr)
+
+    # windows with a non-finite update, counted on every device
+    bad = psum([(~(torch.isfinite(d).all() & torch.isfinite(x_).all()))
+                .to(torch.int32) for d, x_ in zip(dp, dx)], ax)
+    poses = [torch.where(n > 0, q, q - d) for q, d, n in zip(poses, dp, bad)]
+    landmarks = replicated(ax, lambda lm, x_, n: torch.where(
+        n > 0, lm, lm - x_), [w.problem.landmarks for w in windows], dx, bad)
+    return tuple(w._replace(problem=w.problem._replace(poses=q, landmarks=lm))
+                 for w, q, lm in zip(windows, poses, landmarks))
+
+
+@functools.lru_cache(maxsize=8)
+def _graphed_round(ax, core: int, halo: int, cg_iters: int, damping: float,
+                   huber_delta: float, _replay_body: bool = False):
+    """The GN round over ``ax`` (a tuple of one card, or an NCCL
+    ``RankAxis`` of one rank) as a graphed fixed-trip loop, one per (axis, window
+    split, CG iterations, damping, Huber scale) in a process: one capture
+    per shape and intrinsics."""
+    return GraphedLoop(functools.partial(
+        _ring_round, ax=ax, core=core, halo=halo, cg_iters=cg_iters,
+        damping=damping, huber_delta=huber_delta), graph_place(ax)[0],
+        _replay_body=_replay_body)
+
+
 def ring_ba_solve(
     problem: BAProblem,
     mesh: Mesh,
@@ -177,6 +329,14 @@ def ring_ba_solve(
     and landmarks. On a mesh of ranks every rank passes the same problem,
     solves its own window and returns the whole solved problem, the same
     bits on each (the windows' poses all-gathered).
+
+    On a card each round, its ``cg_iters`` CG iterations unrolled, is one
+    replay of a CUDA graph (``utils.cudagraph.GraphedLoop``), bit for bit
+    the eager round: on an axis of one card the whole round, on an NCCL
+    rank at world size 1 its own window's with the ``ppermute``s and
+    all-gathers inside. An axis across cards in one process, gloo ranks
+    and the ranks of a larger world iterate eagerly by rule
+    (``parallel.collectives.graph_place``).
     """
     ax = mesh_axis(mesh, axis)
     mine = shards(ax)
@@ -186,141 +346,42 @@ def ring_ba_solve(
     win = make_ring_windows(problem, D, halo=halo)
     core = win.core
     Wl = core + 2 * halo
-    intr = dict(fx=problem.fx, fy=problem.fy, cx=problem.cx, cy=problem.cy,
-                bf=problem.bf)
     dtype = problem.poses.dtype
-
-    poses = [win.poses[k].to(d) for k, d in mine]
-    landmarks = [problem.landmarks.to(d) for _, d in mine]
-    obs = [win.observations[k].to(d) for k, d in mine]
-    mask = [win.mask[k].to(d) for k, d in mine]
-    pose_valid = [win.pose_valid[k].to(d) for k, d in mine]
     pos = np.arange(Wl)
     is_core = (pos >= halo) & (pos < halo + core)
-    core_w, free, eye3, eye6, eyeWl = [], [], [], [], []
-    for i, (k, d) in enumerate(mine):
+    windows = []
+    for k, d in mine:
         is_gauge = (k == 0) & (pos == halo)                     # global pose 0
-        core_w.append(torch.as_tensor(is_core, dtype=dtype, device=d))
-        # CG solves over the free core slots; gauge and invalid slots pinned.
-        free.append(torch.as_tensor(is_core & ~is_gauge, device=d)
-                    & pose_valid[i])
-        eye3.append(torch.eye(3, dtype=dtype, device=d))
-        eye6.append(torch.eye(6, dtype=dtype, device=d))
-        eyeWl.append(torch.eye(Wl, dtype=dtype, device=d))
-    free = [f.to(dtype)[:, None] for f in free]
-    fwd = [(i, i + 1) for i in range(D - 1)]     # window 0 receives zeros
-    bwd = [(i + 1, i) for i in range(D - 1)]     # window D-1 receives zeros
-
-    def refresh_halos(xs):
-        """Each window's halo slots of a distributed (Wl, ...) vector set to
-        its neighbours' boundary core entries (zeros past the ring's
-        ends)."""
-        from_left = ppermute([x[core:core + halo] for x in xs], fwd, ax)
-        from_right = ppermute([x[halo:2 * halo] for x in xs], bwd, ax)
-        return [torch.cat([lf, x[halo:halo + core], rt])
-                for x, lf, rt in zip(xs, from_left, from_right)]
-
-    def dot(a, b):
-        return psum([torch.sum(x * y) for x, y in zip(a, b)], ax)
-
-    def ratio(num, den):
-        """num / den where den > 0, else 0 (the CG's guards)."""
-        return torch.where(den > 0, num / torch.clamp(den, min=1e-30),
-                           torch.zeros_like(num))
-
-    for _ in range(rounds):
-        # Linearization point: halo poses mirror their owner exactly.
-        poses = [torch.where(v[:, None], p, q) for v, p, q in
-                 zip(pose_valid, refresh_halos(poses), poses)]
-        blocks = [_jacobian_blocks(BAProblem(poses=p, landmarks=lm,
-                                             observations=o, mask=m, **intr),
-                                   huber_delta=huber_delta)
-                  for p, lm, o, m in zip(poses, landmarks, obs, mask)]
-        # (Wl, L, 3, 6), (Wl, L, 3, 3), (Wl, L, 3)
-
-        # --- globally reduced landmark normal equations -------------------
-        # Every observation row is core to exactly one window, so the sum of
-        # the core rows' contributions is the full problem's.
-        Bc = [B * w[:, None, None, None] for (_, B, _), w in zip(blocks,
-                                                                   core_w)]
-        Hll = psum([torch.einsum("wlri,wlrj->lij", bc, B)
-                    for bc, (_, B, _) in zip(Bc, blocks)], ax)
-        bl = psum([torch.einsum("wlri,wlr->li", bc, r)
-                   for bc, (_, _, r) in zip(Bc, blocks)], ax)
-        Hll_inv = replicated(
-            ax, lambda H, e: torch.linalg.inv_ex(H + damping * e)[0],
-            Hll, eye3)                                          # (L, 3, 3)
-
-        # --- local rows of the global reduced camera system ---------------
-        # Halo rows replicate the neighbour's observation rows, so S[w, v]
-        # for v up to `halo` slots into the neighbour is exact.
-        S, rhs, Hpl, Pinv = [], [], [], []
-        for k, (A, B, r) in enumerate(blocks):
-            Hpp = torch.einsum("wlri,wlrj->wij", A, A)
-            hpl = torch.einsum("wlri,wlrj->wlij", A, B)
-            bp = torch.einsum("wlri,wlr->wi", A, r)
-            HplWinv = torch.einsum("wlij,ljk->wlik", hpl, Hll_inv[k])
-            s = -torch.einsum("wlik,vljk->wvij", HplWinv, hpl)
-            s = s + torch.einsum("wv,wij->wvij", eyeWl[k],
-                                 Hpp + damping * eye6[k])
-            S.append(s)
-            rhs.append(bp - torch.einsum("wlik,lk->wi", HplWinv, bl[k]))
-            Hpl.append(hpl)
-            Pinv.append(torch.linalg.inv_ex(
-                torch.diagonal(s, dim1=0, dim2=1).permute(2, 0, 1)
-                + 1e-12 * eye6[k])[0])                          # (Wl, 6, 6)
-
-        # --- distributed block-Jacobi PCG on S dp = rhs -------------------
-        def matvec(xs):
-            return [torch.einsum("wvij,vj->wi", s, x) * f
-                    for s, x, f in zip(S, refresh_halos(xs), free)]
-
-        def precond(rs):
-            return [torch.einsum("wij,wj->wi", p, r) * f
-                    for p, r, f in zip(Pinv, rs, free)]
-
-        b = [r * f for r, f in zip(rhs, free)]
-        x = [torch.zeros_like(v) for v in b]
-        res = b
-        z = precond(b)
-        p = z
-        rz = dot(b, z)
-        for _ in range(cg_iters):
-            Ap = matvec(p)
-            pAp = dot(p, Ap)
-            # the scalars are psum outputs: once per device
-            alpha = replicated(ax, ratio, rz, pAp)
-            x = [xi + a * pi for xi, a, pi in zip(x, alpha, p)]
-            res = [ri - a * api for ri, a, api in zip(res, alpha, Ap)]
-            z = precond(res)
-            rz_new = dot(res, z)
-            beta = replicated(ax, ratio, rz_new, rz)
-            p = [zi + bt * pi for zi, bt, pi in zip(z, beta, p)]
-            rz = rz_new
-        dp = x
-
-        # --- exact global landmark back-substitution ----------------------
-        # corr_l sums Hpl' dp over every global row: core rows per window,
-        # then a psum; dx is the same on every device.
-        corr = psum([torch.einsum("wlij,wi->lj", h * w[:, None, None, None],
-                                  d) for h, w, d in zip(Hpl, core_w, dp)],
-                    ax)
-        dx = replicated(ax, lambda Hi, b_, c: torch.einsum(
-            "lij,lj->li", Hi, b_ - c), Hll_inv, bl, corr)
-
-        # windows with a non-finite update, counted on every device
-        bad = psum([(~(torch.isfinite(d).all() & torch.isfinite(x_).all()))
-                    .to(torch.int32) for d, x_ in zip(dp, dx)], ax)
-        poses = [torch.where(n > 0, q, q - d)
-                 for q, d, n in zip(poses, dp, bad)]
-        landmarks = replicated(ax, lambda lm, x_, n: torch.where(
-            n > 0, lm, lm - x_), landmarks, dx, bad)
+        pose_valid = win.pose_valid[k].to(d)
+        windows.append(_Window(
+            problem=problem._replace(poses=win.poses[k].to(d),
+                                     landmarks=problem.landmarks.to(d),
+                                     observations=win.observations[k].to(d),
+                                     mask=win.mask[k].to(d)),
+            pose_valid=pose_valid,
+            core_w=torch.as_tensor(is_core, dtype=dtype, device=d),
+            # CG solves over the free core slots; gauge and invalid slots
+            # pinned.
+            free=(torch.as_tensor(is_core & ~is_gauge, device=d)
+                  & pose_valid).to(dtype)[:, None],
+            eye3=torch.eye(3, dtype=dtype, device=d),
+            eye6=torch.eye(6, dtype=dtype, device=d),
+            eyeWl=torch.eye(Wl, dtype=dtype, device=d)))
+    windows = tuple(windows)
+    kw = dict(core=core, halo=halo, cg_iters=int(cg_iters),
+              damping=float(damping), huber_delta=float(huber_delta))
+    if use_graph_on(ax):
+        windows = _graphed_round(axis_key(ax), **kw)(windows, rounds)
+    else:
+        for _ in range(rounds):
+            windows = _ring_round(windows, ax, **kw)
 
     dev = problem.poses.device
-    return merge_ring_windows(problem, win,
-                              torch.stack([q.to(dev)
-                                           for q in gather(poses, ax)]),
-                              landmarks[0].to(dev)[None])
+    return merge_ring_windows(
+        problem, win,
+        torch.stack([q.to(dev) for q in gather(
+            [w.problem.poses for w in windows], ax)]),
+        windows[0].problem.landmarks.to(dev)[None])
 
 
 def make_ring_window_solver(mesh: Mesh, axis: str = "seq",

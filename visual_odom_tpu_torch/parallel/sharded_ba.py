@@ -16,20 +16,61 @@ prior applied once after the sum (``ba.schur.solve_reduced``); landmark
 back-substitution is local to each shard. Communication per GN iteration:
 (W, 6, 6), (W, 6), (W, W, 6, 6) and (W, 6) floats and one flag per shard,
 independent of L.
+
+On a card the GN iteration is captured once as a CUDA graph and replayed
+per iteration (``utils.cudagraph.GraphedLoop``), the counterpart of the
+JAX package's ``jit`` of a ``lax.scan`` over the iterations: on an axis of
+one card (named once per shard) the whole iteration, on an NCCL rank at
+world size 1 the rank's iteration with its all-gathers inside. An axis
+across cards in one process, gloo ranks and the ranks of a larger world
+iterate eagerly by rule (``parallel.collectives.graph_place``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from visual_odom_tpu_torch.ba.problem import BAProblem
 from visual_odom_tpu_torch.ba.schur import (SchurParts, back_substitute,
                                             schur_parts, solve_reduced)
-from visual_odom_tpu_torch.parallel.collectives import (axis_size, gather,
+from visual_odom_tpu_torch.parallel.collectives import (axis_key, axis_size,
+                                                        gather, graph_place,
                                                         psum, replicated,
-                                                        shards)
+                                                        shards, use_graph_on)
 from visual_odom_tpu_torch.parallel.mesh import (Mesh, mesh_axis,
                                                  split_ranges)
+from visual_odom_tpu_torch.utils.cudagraph import GraphedLoop
+
+
+def _gn_iteration(local, ax, damping: float):
+    """One GN iteration of every shard this process holds (a tuple of
+    landmark-sharded ``BAProblem``s): the Schur sums met by ``psum``, the
+    reduced solve replicated, the landmarks back-substituted locally."""
+    parts, blocks = zip(*(schur_parts(s, damping) for s in local))
+    summed = [SchurParts(*xs) for xs in zip(
+        *(psum([getattr(p, k) for p in parts], ax)
+          for k in SchurParts._fields))]
+    dp = replicated(ax, lambda S, poses: solve_reduced(S, poses, damping),
+                    summed, [s.poses for s in local])
+    dx = [back_substitute(b, d) for b, d in zip(blocks, dp)]
+    # shards with a non-finite update, counted on every device
+    bad = psum([(~(torch.isfinite(d).all() & torch.isfinite(x).all()))
+                .to(torch.int32) for d, x in zip(dp, dx)], ax)
+    return tuple(s._replace(
+        poses=torch.where(n > 0, s.poses, s.poses - d),
+        landmarks=torch.where(n > 0, s.landmarks, s.landmarks - x))
+        for s, d, x, n in zip(local, dp, dx, bad))
+
+
+@functools.lru_cache(maxsize=8)
+def _graphed_solve(ax, damping: float, _replay_body: bool = False):
+    """The GN iteration over ``ax`` (``axis_key``) as a graphed fixed-trip
+    loop, one per (axis, damping) in a process: one capture per shape."""
+    return GraphedLoop(functools.partial(_gn_iteration, ax=ax,
+                                         damping=damping),
+                       graph_place(ax)[0], _replay_body=_replay_body)
 
 
 def sharded_ba_solve(problem: BAProblem, mesh: Mesh, iterations: int = 10,
@@ -44,7 +85,9 @@ def sharded_ba_solve(problem: BAProblem, mesh: Mesh, iterations: int = 10,
     Returns the problem, on its own device, with the solved poses and
     landmarks. On a mesh of ranks every rank passes the same problem,
     solves its own landmarks and returns the whole solved problem, the
-    same bits on each (the landmarks all-gathered)."""
+    same bits on each (the landmarks all-gathered). On a card each
+    iteration replays its CUDA graph (see the module docstring), bit for
+    bit the eager loop."""
     ax = mesh_axis(mesh, "model")
     home = problem.poses.device
     ranges = split_ranges(problem.landmarks.shape[0], axis_size(ax))
@@ -55,22 +98,13 @@ def sharded_ba_solve(problem: BAProblem, mesh: Mesh, iterations: int = 10,
             poses=problem.poses.to(d), landmarks=problem.landmarks[a:b].to(d),
             observations=problem.observations[:, a:b].to(d),
             mask=problem.mask[:, a:b].to(d)))
-    for _ in range(iterations):
-        parts, blocks = zip(*(schur_parts(s, damping) for s in local))
-        summed = [SchurParts(*xs) for xs in zip(
-            *(psum([getattr(p, k) for p in parts], ax)
-              for k in SchurParts._fields))]
-        dp = replicated(ax,
-                        lambda S, poses: solve_reduced(S, poses, damping),
-                        summed, [s.poses for s in local])
-        dx = [back_substitute(b, d) for b, d in zip(blocks, dp)]
-        # shards with a non-finite update, counted on every device
-        bad = psum([(~(torch.isfinite(d).all() & torch.isfinite(x).all()))
-                    .to(torch.int32) for d, x in zip(dp, dx)], ax)
-        local = [s._replace(
-            poses=torch.where(n > 0, s.poses, s.poses - d),
-            landmarks=torch.where(n > 0, s.landmarks, s.landmarks - x))
-            for s, d, x, n in zip(local, dp, dx, bad)]
+    local = tuple(local)
+    if use_graph_on(ax):
+        local = _graphed_solve(axis_key(ax), float(damping))(local,
+                                                             iterations)
+    else:
+        for _ in range(iterations):
+            local = _gn_iteration(local, ax, damping)
     landmarks = gather([s.landmarks for s in local], ax,
                        sizes=[b - a for a, b in ranges])
     return problem._replace(

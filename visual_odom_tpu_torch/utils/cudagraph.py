@@ -23,14 +23,25 @@ the pipe and the solvers build on it. On a card they are the default of:
 - the pipe's two stages (``parallel.pipe``, ``GraphedStep.stage``);
 - ``ba.schur.ba_solve`` (so ``ba.window.smooth_trajectory_ba``) and
   ``ba.posegraph.posegraph_solve`` (so ``close_loops``), through
-  ``GraphedLoop``.
+  ``GraphedLoop``;
+- the multi-device paths (the JAX package jits its sharded batched step,
+  ``sharded_ba_solve``, ``ring_ba_solve`` and the edge-sharded pose graph
+  too): on a one-process mesh each data row whose devices are one card
+  replays that row's step (``parallel.batch``), and ``sharded_ba_solve``,
+  ``ring_ba_solve`` (one GN round a replay) and ``sharded_posegraph_solve``
+  on an axis of one card replay their iteration; an NCCL rank at world
+  size 1 replays its own, the NCCL collectives of the step (the split LK
+  launches' all-gather) or of the iteration (``psum``, ``gather``,
+  ``ppermute``) captured inside the graph.
 
 The CPU has no graphs: there every path runs eagerly. ``use_graph`` picks
 by device; ``dispatch`` is the switch: inside ``dispatch(False)`` every
 path runs eagerly on a card too (the reference a graph is held to),
-inside ``dispatch(True)`` replays graphs, which raises on the CPU.
-``make_scan_step_fn`` and ``VisualOdometry`` also take a private
-``_graph`` that overrides both.
+inside ``dispatch(True)`` replays graphs, which raises on the CPU and where
+the caller's place steps eagerly by rule (``parallel.collectives.
+graph_place``: a gloo rank axis, a rank of a world of several ranks, a
+one-process row or axis across cards). ``make_scan_step_fn`` and
+``VisualOdometry`` also take a private ``_graph`` that overrides both.
 
 A graph replays fixed addresses, so the step runs on static buffers
 (``_StaticStep``):
@@ -128,18 +139,24 @@ def dispatch(graphed: bool):
         _DISPATCH = prev
 
 
-def use_graph(device, graphed=None) -> bool:
+def use_graph(device, graphed=None, eager=None) -> bool:
     """Whether an entry point on ``device`` replays a graph: ``graphed``
     (an entry point's private ``_graph``), else ``dispatch``'s choice, else
-    whether ``device`` is a card. A graph on the CPU raises."""
+    whether ``device`` is a card and ``eager`` is None. ``eager`` says why
+    the caller's place steps eagerly by rule (``parallel.collectives``'
+    ``graph_place`` gives it for a mesh row or axis). A graph on the CPU,
+    or where ``eager`` is given, raises."""
     device = torch.device(device)
     if graphed is None:
         graphed = _DISPATCH
     if graphed is None:
-        return device.type == "cuda"
+        return device.type == "cuda" and eager is None
     if graphed and device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a card, got {device}: the "
                          f"step runs eagerly on the CPU")
+    if graphed and eager is not None:
+        raise ValueError(f"no CUDA graph here, the step runs eagerly: "
+                         f"{eager}")
     return bool(graphed)
 
 
@@ -465,12 +482,15 @@ class _Capture:
 
 
 class _BodyCapture(_Capture):
-    """The CPU form of a capture: after the same warm-up, whose draws are
-    taken back, each replay runs the body itself."""
+    """The CPU form of a capture: after the same warm-up, whose draws and
+    launches are taken back, each replay runs the body itself (and counts
+    the launches it makes)."""
 
     def __init__(self, static, body):
         saved = [g.get_state() for g in static.generators]
+        counts = launch_counts()
         body()
+        set_launch_counts(counts)
         for g, s in zip(static.generators, saved):
             g.set_state(s)
         super().__init__(static, None, None, {}, 0.0)
