@@ -4243,6 +4243,130 @@ def mesh_graph_phase(courses, lframes, lposes, config, xconfig, intr, dev):
 
     # (e) one NCCL rank at world size 1, in this process
     add(_nccl_rank_graph(seqs, first, chunk, config, xconfig, intr, dev))
+
+    # (f) a capture that fails leaves nothing capturing
+    _failed_capture_line(dev)
+
+    # (g) the batched mono and Shi-Tomasi steps, B sequences on this card
+    add(_batched_variants_graph(seqs, first, chunk, intr, dev))
+    return launches
+
+
+def _failed_capture_line(dev):
+    """Phase 17 (f): a loop whose body fails while it is captured, by a
+    Python error or by a value read back to the host (which CUDA refuses
+    inside a capture), raises to the caller and keeps no capture; no
+    stream of the card is left capturing, the card synchronises, and the
+    next capture in this process replays bit for bit its eager loop."""
+    import torch
+
+    from visual_odom_tpu_torch.utils import cudagraph
+
+    def loop_body(fail=None):
+        calls, streams = [], []
+
+        def body(carry):
+            calls.append(1)
+            (x,) = carry
+            total = x.sum()
+            if fail and len(calls) == 2:        # the capture
+                streams.append(torch.cuda.current_stream(dev))
+                if fail == "raise":
+                    raise RuntimeError("injected failure")
+                float(total)
+            return (x * 0.5 + total,)
+
+        return body, streams
+
+    x0 = torch.arange(12, dtype=torch.float32, device=dev).reshape(3, 4)
+    res = dict(part="failed_capture")
+    for fail in ("raise", "host_read"):
+        body, streams = loop_body(fail)
+        loop = cudagraph.GraphedLoop(body, dev)
+        try:
+            loop((x0,), 3)
+            raised = None
+        except RuntimeError as err:
+            raised = str(err).splitlines()[0][:120]
+        capturing = []
+        for st in streams + [torch.cuda.current_stream(dev)]:
+            with torch.cuda.stream(st):
+                capturing.append(torch.cuda.is_current_stream_capturing())
+        torch.cuda.synchronize()
+        good = loop_body()[0]
+        again = cudagraph.GraphedLoop(good, dev)
+        got = again((x0,), 3)
+        want = (x0,)
+        for _ in range(3):
+            want = good(want)
+        res[fail] = dict(raised=raised, captures_kept=len(loop.captures),
+                         streams_capturing=sum(capturing),
+                         open_captures=len(cudagraph._open()),
+                         next_capture_replays=sum(
+                             c.replays for c in again.captures.values()),
+                         next_capture_bit_exact=_bits(got[0].cpu(),
+                                                      want[0].cpu()))
+    print("mesh_graph", json.dumps(res))
+    for fail in ("raise", "host_read"):
+        r = res[fail]
+        if not (r["raised"] and r["captures_kept"] == 0
+                and r["streams_capturing"] == 0 and r["open_captures"] == 0
+                and r["next_capture_replays"] == 3
+                and r["next_capture_bit_exact"]):
+            raise AssertionError(f"mesh_graph failed_capture: {res}")
+
+
+def _batched_variants_graph(seqs, first, chunk, intr, dev):
+    """Phase 17 (g): the batched step with mono rotation and with the
+    Shi-Tomasi detector, the B sequences of ``seqs`` on this card, stepwise:
+    graphed (captured before the timed steps) against eager, bit for bit
+    with equal launches. Returns the graphed runs' launch counts."""
+    import torch
+
+    from visual_odom_tpu_torch.config import VOConfig
+    from visual_odom_tpu_torch.parallel import batch
+    from visual_odom_tpu_torch.utils.cudagraph import dispatch
+
+    launches = dict.fromkeys(read_counts(), 0)
+    for name, opts in (("mono", dict(mono_rotation=True)),
+                       ("shi_tomasi", dict(detector="shi-tomasi"))):
+        cfg = VOConfig.for_image(H, W, **opts)
+        runs = {}
+        for graphed in (False, True):
+            with dispatch(graphed):
+                step = batch.make_batched_step_fn(cfg, intr, device=dev)
+                st = batch.batched_init_state(cfg, *first, device=dev)
+                t = time.perf_counter()
+                step.capture(st, chunk[0][0], chunk[1][0])
+                torch.cuda.synchronize()
+                capture_s = time.perf_counter() - t
+                reset_counts()
+                t = time.perf_counter()
+                outs = []
+                for i in range(chunk[0].shape[0]):
+                    st, out = step(st, chunk[0][i], chunk[1][i])
+                    outs.append(out)
+                torch.cuda.synchronize()
+                runs[graphed] = (st, outs, read_counts(),
+                                 time.perf_counter() - t, capture_s)
+        (est, eouts, ec, ew, _), (gst, gouts, gc, gw, gcap) = (runs[False],
+                                                              runs[True])
+        n = len(gouts)
+        res = dict(part=f"batched_{name}", batch=len(seqs), steps=n,
+                   ms_graph=1e3 * gw / n, ms_eager=1e3 * ew / n,
+                   capture_s=gcap,
+                   accept=float(np.mean([o.accept.cpu().numpy()
+                                         for o in gouts])),
+                   launch_counts_graph=gc, launch_counts_eager=ec,
+                   bit_exact={"outputs": all(_out_bits(a, b) for a, b in
+                                             zip(gouts, eouts)),
+                              "state": _state_bits(gst, est)})
+        print("mesh_graph", json.dumps(res))
+        if not (all(res["bit_exact"].values()) and gc == ec
+                and sum(gc.values()) > 0):
+            raise AssertionError(f"mesh_graph batched {name}: {res}")
+        for k, v in gc.items():
+            launches[k] += v
     return launches
 
 

@@ -38,17 +38,22 @@ graphed against eager the same way:
 - ``mesh_2x1_card``, ``mesh_2x2_card``: ``run_sequences_batched`` (one
   chunk of ``--batch-steps``) of the four batched courses (B = 4) on a
   (2, 1) and a (2, 2) mesh of this card named 2 and 4 times, per step;
-- with two cards or more, ``mesh_2x1_across``: the same on a (2, 1) mesh
-  of cards 0 and 1 (each row one card: both rows replay graphs, on their
-  own cards); with four, ``mesh_2x2_across`` on cards 0-3 (rows across
-  cards: eager by rule both ways, the yardstick);
+- with two cards or more, ``mesh_2x1_across`` and ``mesh_1x2_across``:
+  the same on a (2, 1) and a (1, 2) mesh of cards 0 and 1 (rows of one
+  card each replay their own graph; a row across the two cards replays
+  each card's graphs in turn, ``utils.cudagraph._Recording``); with four,
+  ``mesh_2x2_across`` on cards 0-3;
 - ``sharded_ba``: ``sharded_ba_solve`` over this card named
   ``chip_smoke.MODEL_SHARDS`` times (``chip_smoke.SHARDED_BA_PROBLEMS[0]``,
   ``SHARDED_BA_ITERS`` iterations), per GN iteration; ``ring``:
   ``ring_ba_solve`` of ``chip_smoke``'s ring problem over
   ``RING_WINDOWS`` windows of this card (``RING_GRAPH_ROUNDS`` rounds of
   ``RING_CG_ITERS`` CG iterations), per round; ``posegraph``:
-  ``sharded_posegraph_solve`` of a 64-keyframe circle, per GN iteration.
+  ``sharded_posegraph_solve`` of a 64-keyframe circle, per GN iteration;
+- over distinct cards: ``sharded_ba_across_2`` (with two cards or more)
+  and ``sharded_ba_across_4``, ``ring_across_4`` and
+  ``posegraph_across_4`` (with four): the same solves, one shard, window
+  or edge slice per card.
 
 The multi-card times of one rank per card are ``scripts/rank_times.py
 --mesh``'s. Their profiles cover one door run over 4 frames (the state's
@@ -273,12 +278,12 @@ def mesh_cases(args, full, config, intr, dev):
     grids = {"mesh_2x1_card": ((2, 1), [dev] * 2),
              "mesh_2x2_card": ((2, 2), [dev] * 4)}
     n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n)]
     if n >= 2:
-        grids["mesh_2x1_across"] = ((2, 1), [torch.device("cuda", i)
-                                             for i in range(2)])
+        grids["mesh_2x1_across"] = ((2, 1), cards[:2])
+        grids["mesh_1x2_across"] = ((1, 2), cards[:2])
     if n >= 4:
-        grids["mesh_2x2_across"] = ((2, 2), [torch.device("cuda", i)
-                                             for i in range(4)])
+        grids["mesh_2x2_across"] = ((2, 2), cards[:4])
     cases = {name: case(mesh_run(make_mesh(
         {"data": shape[0], "model": shape[1]}, devs)), seqs, PROFILE_FRAMES,
         len(seqs)) for name, (shape, devs) in grids.items()}
@@ -299,6 +304,26 @@ def mesh_cases(args, full, config, intr, dev):
     graph = posegraph.build_keyframe_graph(*cs._circle_chain(), device=dev)
     cases["posegraph"] = case(timed(lambda: posegraph.sharded_posegraph_solve(
         graph, shards), 10), None, 10, 1)
+    # the solvers over distinct cards
+    for k in (2, 4) if n >= 4 else (2,) if n >= 2 else ():
+        line = make_mesh({"data": 1, "model": k}, cards[:k])
+        cases[f"sharded_ba_across_{k}"] = case(timed(
+            lambda line=line: sharded_ba_solve(
+                p, line, iterations=cs.SHARDED_BA_ITERS),
+            cs.SHARDED_BA_ITERS), None, cs.SHARDED_BA_ITERS, 1)
+    if n >= cs.RING_WINDOWS:
+        seq = make_mesh({"seq": cs.RING_WINDOWS}, cards[:cs.RING_WINDOWS])
+        cases[f"ring_across_{cs.RING_WINDOWS}"] = case(timed(
+            lambda: ring_ba_solve(ring, seq, halo=cs.RING_HALO,
+                                  rounds=cs.RING_GRAPH_ROUNDS,
+                                  cg_iters=cs.RING_CG_ITERS),
+            cs.RING_GRAPH_ROUNDS), None, cs.RING_GRAPH_ROUNDS, 1)
+    if n >= cs.MODEL_SHARDS:
+        edges = make_mesh({"data": 1, "model": cs.MODEL_SHARDS},
+                          cards[:cs.MODEL_SHARDS])
+        cases[f"posegraph_across_{cs.MODEL_SHARDS}"] = case(timed(
+            lambda: posegraph.sharded_posegraph_solve(graph, edges), 10),
+            None, 10, 1)
     return cases
 
 

@@ -14,7 +14,10 @@ first n cards and then from n ranks, one per card:
   ``chip_smoke``'s ring problem (``RING_CG_ITERS`` CG iterations);
 - ``mesh_step``: ``run_sequences_batched`` of ``chip_smoke``'s four batched
   courses at 1241x376 for ``MESH_STEPS`` steps on a (2, n/2) mesh, ms per
-  step (the runner's wall over its loop).
+  step (the runner's wall over its loop); with two cards also
+  ``mesh_step_1x2``, the same on a (1, 2) mesh;
+- ``posegraph``: one GN iteration of ``sharded_posegraph_solve`` of a
+  64-keyframe circle, its edges split over n cards.
 
 A time is the median over ``--reps`` calls of the host's wall from the call
 to the end of the work on every card it used (each rank: a barrier, the
@@ -28,15 +31,16 @@ With ``--mesh`` every part is timed graphed (the default on a card:
 eager (``dispatch(False)``) in ``--reps`` paired rounds (graph eager,
 eager graph, ...) after one warm call each way, in both forms, and
 ``sharded_ba`` runs ``chip_smoke.SHARDED_BA_ITERS`` iterations a call and
-``ring`` ``chip_smoke.RING_GRAPH_ROUNDS`` rounds (ms per iteration or
-round). From one process the (2, 1) mesh of 2 cards replays each row's
-graph on its own card; the rows of its (2, 2) mesh of 4 cards and its
-solvers over n cards span cards and step eagerly by rule either way, as
-does every rank of the rank-per-card form (a rank of a world of more than
-one rank: ``parallel.collectives.graph_place``), whose two modes are then
-two eager runs. Lines carry ``mode`` ("graph" or "eager") and go to
-``DIR/rank_times_mesh.json``. This mode has not yet completed on four
-cards.
+``ring`` ``chip_smoke.RING_GRAPH_ROUNDS`` rounds and ``posegraph`` 10
+iterations (ms per iteration or round). From one process the (2, 1) mesh
+of 2 cards replays each row's graph on its own card, and a row or a
+solver axis across cards replays each card's graphs in turn, with the
+copies between cards between them (``utils.cudagraph._Recording``); every
+rank of the rank-per-card form (a rank of a world of more than one rank)
+steps eagerly by rule (``parallel.collectives.graph_place``), so its two
+modes are two eager runs. Lines carry ``mode`` ("graph" or "eager") and
+go to ``DIR/rank_times_mesh.json``. This mode has not yet completed on
+four cards.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ def _ops(devices, cards, frames, mesh_mode=False):
     """{part: fn()} over a mesh of ``devices`` (devices or ranks); with
     ``mesh_mode`` the solvers run several iterations (rounds) a call and
     return ms per iteration (round)."""
-    from visual_odom_tpu_torch.ba import problem
+    from visual_odom_tpu_torch.ba import posegraph, problem
     from visual_odom_tpu_torch.config import VOConfig
     from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
     from visual_odom_tpu_torch.parallel.mesh import make_mesh
@@ -89,10 +93,20 @@ def _ops(devices, cards, frames, mesh_mode=False):
     config = VOConfig.for_image(cs.H, cs.W)
     intr = cs.kitti_intrinsics(cs.H, cs.W)
     seqs = [[(f[0], f[1]) for f in c] for c in frames]
-    grid = make_mesh({"data": 2, "model": n // 2}, devices)
-    # the runner's own wall over its loop, per step
-    ops["mesh_step"] = lambda: 1e3 * run_sequences_batched(
-        seqs, config, intr, chunk=cs.MESH_CHUNK, mesh=grid)[2] / cs.MESH_STEPS
+    grids = {"mesh_step": (2, n // 2)}
+    if n == 2:
+        grids["mesh_step_1x2"] = (1, 2)
+    for name, (rows, cols) in grids.items():
+        grid = make_mesh({"data": rows, "model": cols}, devices)
+        # the runner's own wall over its loop, per step
+        ops[name] = lambda grid=grid: 1e3 * run_sequences_batched(
+            seqs, config, intr, chunk=cs.MESH_CHUNK,
+            mesh=grid)[2] / cs.MESH_STEPS
+    graph = posegraph.build_keyframe_graph(*cs._circle_chain(), device=dev)
+    edges = make_mesh({"model": n}, devices)
+    iters = 10 if mesh_mode else 1
+    ops["posegraph"] = _per(lambda: posegraph.sharded_posegraph_solve(
+        graph, edges, iterations=iters), iters, cards)
     return ops
 
 

@@ -18,10 +18,10 @@ On the CPU, where there are no graphs:
   RANSAC draws, against JAX's jitted sharded batched step on a (2, 1)
   CPU mesh (tests/test_torch_batch_mesh.py's course, state and bounds);
 - the dispatch rule (``parallel.collectives.graph_place``): a gloo
-  ``RankAxis``, an NCCL ``RankAxis`` in a world of more than one rank
-  and a one-process row across cards step eagerly, and a graph asked for
-  there raises; an NCCL rank at world size 1 replays graphs; every
-  batched step carries ``capture``;
+  ``RankAxis`` and an NCCL ``RankAxis`` in a world of more than one rank
+  step eagerly, and a graph asked for there raises; an NCCL rank at world
+  size 1 and a one-process row across cards replay graphs; every batched
+  step carries ``capture``;
 - 2 gloo ranks (``tests/torch_dist_worker.py``, scenario ``graph``): by
   default they build no graph and give the one-process eager results bit
   for bit; in the CPU form of the graph paths, the same.
@@ -30,10 +30,11 @@ On the card (``cuda`` marker, skipped here): each path graphed against
 ``dispatch(False)`` bit for bit on this card named 2 and 4 times, the
 first call of each under sync-debug "error"; one NCCL rank at world size
 1; across 2 and 4 cards (they skip with fewer) one process (rows of one
-card graphed, rows and solvers across cards eager by rule) and one rank
-per card (scenario ``card_graph``, the kernels built before the ranks
-start; eager by rule, no graph built). The card has no JAX: this file imports
-the JAX package only inside the test that compares with it.
+card graphed on their own card, rows and solvers across cards graphed
+card by card) and one rank per card (scenario ``card_graph``, the kernels
+built before the ranks start; eager by rule, no graph built). The card
+has no JAX: this file imports the JAX package only inside the test that
+compares with it.
 
 Alone on the CPU this file takes ~100 s (one core).
 """
@@ -327,19 +328,21 @@ def test_nccl_ranks_of_a_larger_world_step_eagerly_by_rule(monkeypatch, n,
 
 def test_rows_of_one_card_are_graphed_rows_across_cards_are_not():
     """A one-process row or axis is graphed when its devices are one card
-    (named any number of times); across cards it steps eagerly by rule
-    (asking for a graph raises), and on the CPU too."""
+    (named any number of times) and across cards too, its graphs kept on
+    its first card and recorded on each (``graph_devices``); a graph asked
+    for across cards is accepted. On the CPU it steps eagerly."""
     one = [torch.device("cuda", 1)] * 4
     assert (collectives.use_graph_on(one)
             and collectives.use_graph_on(tuple(one)))
     assert collectives.graph_place(one) == (torch.device("cuda", 1), None)
+    assert collectives.graph_devices(one) == (torch.device("cuda", 1),)
     across = [torch.device("cuda", 0), torch.device("cuda", 1)]
-    assert not collectives.use_graph_on(across)
-    with pytest.raises(ValueError, match="one capture records one card"):
-        collectives.use_graph_on(across, True)
-    with cudagraph.dispatch(True), pytest.raises(ValueError,
-                                                 match="one card"):
-        collectives.use_graph_on(across)
+    assert collectives.use_graph_on(across)
+    assert collectives.graph_place(across) == (torch.device("cuda", 0), None)
+    assert collectives.graph_devices(across + across) == tuple(across)
+    assert collectives.use_graph_on(across, True)
+    with cudagraph.dispatch(True):
+        assert collectives.use_graph_on(across)
     assert not collectives.use_graph_on([CPU, CPU])
     with pytest.raises(ValueError, match="CUDA graph needs a card"):
         collectives.use_graph_on([CPU] * 2, True)
@@ -574,9 +577,10 @@ def test_one_process_mesh_across_cards_graphed_equals_eager(sequences,
                                                             cuda_device,
                                                             shape):
     """One process over distinct cards: each row of one card replays its
-    graph on its own card ((2, 1)); a row across cards steps eagerly by
-    rule, and a graph asked for there raises. Either way the step and the
-    scan, both routes, equal their eager runs bit for bit."""
+    graph on its own card ((2, 1)); a row across cards replays its graphs
+    card by card ((1, 2), (2, 2): ``cudagraph._Recording``), and a graph
+    asked for there is accepted. The step and the scan, both routes, equal
+    their eager runs bit for bit with their launches, with graphs built."""
     n = shape[0] * shape[1]
     if torch.cuda.device_count() < n:
         pytest.skip(f"needs {n} CUDA devices")
@@ -587,23 +591,31 @@ def test_one_process_mesh_across_cards_graphed_equals_eager(sequences,
         for run in (lambda: wk.mesh_step_run(cfg, sequences, mesh,
                                              device=devs[0]),
                     lambda: wk.mesh_scan_run(cfg, sequences, mesh)):
-            eager, got = _graphed_vs_eager(run)
+            for cached in _CACHES:
+                cached.cache_clear()
+            with wk.graphs_built() as built:
+                eager, got = _graphed_vs_eager(run)
             assert _equal(got, eager)
-    if shape[1] > 1:
-        with cudagraph.dispatch(True), pytest.raises(ValueError,
-                                                     match="one card"):
-            batch.make_batched_step_fn(cfg, CameraIntrinsics(**wk.INTR),
-                                       mesh=mesh)
+            assert built
+    with cudagraph.dispatch(True):
+        batch.make_batched_step_fn(cfg, CameraIntrinsics(**wk.INTR),
+                                   mesh=mesh)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
-def test_solvers_across_cards_in_one_process_step_eagerly(cuda_device, n):
-    """The three solvers over n distinct cards from one process iterate
-    eagerly by rule: by default they give their eager runs' bits."""
+def test_solvers_across_cards_in_one_process_replay_graphs(cuda_device, n):
+    """The three solvers over n distinct cards from one process replay
+    their iterations' graphs card by card (built; a graph asked for is
+    accepted) and give their eager runs' bits with their launches."""
     if torch.cuda.device_count() < n:
         pytest.skip(f"needs {n} CUDA devices")
     devs = [torch.device("cuda", i) for i in range(n)]
-    assert not collectives.use_graph_on(devs)
-    eager, got = _graphed_vs_eager(lambda: wk.graph_solvers(devs, n, devs[0]))
+    assert collectives.use_graph_on(devs, True)
+    for cached in _CACHES:
+        cached.cache_clear()
+    with wk.graphs_built() as built:
+        eager, got = _graphed_vs_eager(
+            lambda: wk.graph_solvers(devs, n, devs[0]))
     assert _equal(got, eager)
+    assert built

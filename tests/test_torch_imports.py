@@ -21,6 +21,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "door_turns.py",
                                         ROOT / "scripts" / "graph_turns.py",
                                         ROOT / "scripts" / "kitti_turns.py",
+                                        ROOT / "scripts" / "nccl_graph_probe.py",
                                         ROOT / "scripts" / "pipe_turns.py",
                                         ROOT / "scripts" / "rank_times.py",
                                         ROOT / "tests" / "torch_dist_worker.py"]

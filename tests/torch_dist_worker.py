@@ -26,11 +26,12 @@ batched scenario also reads the JAX package's state and RANSAC draws from
   paths (``body_form``); ``card_graph`` (NCCL, one rank per card, and at
   world size 1 on one card): the same paths inside
   ``utils.cudagraph.dispatch(False)`` and by default, replayed from CUDA
-  graphs (tests/test_torch_graph_mesh.py).
+  graphs, every capture logged (tests/test_torch_graph_mesh.py).
 """
 
 import contextlib
 import functools
+import logging
 import os
 import socket
 import subprocess
@@ -608,6 +609,13 @@ def main() -> int:
         res = {"default": default, "graphs_built": list(built),
                "body": body}
     elif scenario == "card_graph":
+        # each capture's warm-up, capture and end in the rank's log, so
+        # that a hang names the body whose collectives it waits in
+        log = logging.getLogger(cudagraph.__name__)
+        log.addHandler(logging.StreamHandler())
+        log.handlers[-1].setFormatter(logging.Formatter(
+            f"%(asctime)s rank {rank}: %(message)s"))
+        log.setLevel(logging.DEBUG)
         dev = devices[rank].device
         with cudagraph.dispatch(False):
             eager = graph_paths(devices, world, dev, ROUTES)

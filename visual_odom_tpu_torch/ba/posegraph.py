@@ -213,14 +213,16 @@ def _sharded_gn_iteration(carry, ax, damping: float):
 
 @functools.lru_cache(maxsize=8)
 def _graphed_sharded_solve(ax, damping: float, _replay_body: bool = False):
-    """The edge-sharded GN update over ``ax`` (a tuple of one card, or an
-    NCCL ``RankAxis`` of one rank) as a graphed fixed-trip loop, one per (axis,
+    """The edge-sharded GN update over ``ax`` (a tuple of devices, or an
+    NCCL ``RankAxis``) as a graphed fixed-trip loop, one per (axis,
     damping) in a process: one capture per shape."""
-    from visual_odom_tpu_torch.parallel.collectives import graph_place
+    from visual_odom_tpu_torch.parallel.collectives import (graph_devices,
+                                                            graph_place)
 
     return GraphedLoop(functools.partial(_sharded_gn_iteration, ax=ax,
                                          damping=damping),
-                       graph_place(ax)[0], _replay_body=_replay_body)
+                       graph_place(ax)[0], _replay_body=_replay_body,
+                       devices=graph_devices(ax))
 
 
 def sharded_posegraph_solve(graph: PoseGraph, mesh, iterations: int = 10,
@@ -238,10 +240,10 @@ def sharded_posegraph_solve(graph: PoseGraph, mesh, iterations: int = 10,
     nodes; on a mesh of ranks every rank passes the same graph and gets
     the same solved nodes. On a card each iteration replays its CUDA graph
     (``utils.cudagraph.GraphedLoop``: on an axis of one card the whole
-    update, on an NCCL rank at world size 1 its own with the all-gathers
-    inside), bit for bit the eager loop; an axis across cards in one
-    process, gloo ranks and the ranks of a larger world iterate eagerly
-    by rule (``parallel.collectives.graph_place``)."""
+    update, across cards in one process each card's graphs in turn, on an
+    NCCL rank at world size 1 its own with the all-gathers inside), bit
+    for bit the eager loop; gloo ranks and the ranks of a larger world
+    iterate eagerly by rule (``parallel.collectives.graph_place``)."""
     from visual_odom_tpu_torch.parallel.collectives import (axis_key,
                                                             axis_size, shards,
                                                             use_graph_on)

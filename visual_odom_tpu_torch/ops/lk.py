@@ -95,6 +95,7 @@ def lk_track_pyramid(image_I: LKImage, image_J: LKImage, pts: torch.Tensor,
     for bit the unsplit leg (``ops.lk_cuda.split_slots``).
     """
     from visual_odom_tpu_torch.ops import lk_cuda
+    from visual_odom_tpu_torch.utils.cudagraph import kernel
 
     if lk_cuda.wants_split(slot_devices):
         if init_pts is None:
@@ -131,9 +132,9 @@ def lk_track_pyramid(image_I: LKImage, image_J: LKImage, pts: torch.Tensor,
         prev = safe / 2.0 ** level - half
         if level != sl:
             nxt = nxt * 2.0
-        out, ok = track(image_I.pyramid[level], image_J.pyramid[level], rows,
-                        cols, image_I.pad, prev, nxt - half, mask, params,
-                        level == 0)[:2]
+        out, ok = kernel(track, image_I.pyramid[level],
+                         image_J.pyramid[level], rows, cols, image_I.pad,
+                         prev, nxt - half, mask, params, level == 0)[:2]
         nxt = out + half
     return torch.where(keep, nxt, pts), ok & valid
 

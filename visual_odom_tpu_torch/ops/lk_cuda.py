@@ -581,9 +581,11 @@ def lk_circular_quad(img_l0: LKImage, img_r0: LKImage, img_r1: LKImage,
         out, status = lk_quad_cuda(planes, shapes, img_l0.pad, pts, valid,
                                    flow, disp, params, sl)
     elif pts.device.type == "cpu":
+        from visual_odom_tpu_torch.utils.cudagraph import kernel
+
         plain = lk_quad_plain_batched if pts.dim() == 3 else lk_quad_plain
-        out, status, _ = plain(planes, shapes, img_l0.pad, pts, valid, flow,
-                               disp, params, sl)
+        out, status, _ = kernel(plain, planes, shapes, img_l0.pad, pts, valid,
+                                flow, disp, params, sl)
     else:
         raise ValueError(f"no LK implementation for device {pts.device}")
     return out[0], out[1], out[2], out[3], status
@@ -624,15 +626,30 @@ def split_slots(track, images, per_slot, n_points, slot_devices):
         return x.narrow(dim, a, b - a).contiguous()
 
     if not isinstance(slot_devices, RankAxis):
-        home, parts = pts.device, []
-        for dev, (a, b) in zip(slot_devices, ranges):
-            if b > a:
-                ims = [im._replace(pyramid=tuple(p.to(dev)
-                                                 for p in im.pyramid))
+        from visual_odom_tpu_torch.utils.cudagraph import moves
+
+        devs = [torch.device(d) for d in slot_devices]
+        home = devs[0]
+        planes = [p for im in images for p in im.pyramid]
+        slices = [(d, [cut(x, a, b) for x in per_slot])
+                  for d, (a, b) in zip(devs, ranges) if b > a]
+        # one group of copies out to the other positions, one back
+        out = iter(moves([(x, d) for d, args in slices if d != home
+                          for x in planes + args]))
+        parts = []
+        for d, args in slices:
+            ims = images
+            if d != home:
+                ims = [im._replace(pyramid=tuple(next(out)
+                                                 for _ in im.pyramid))
                        for im in images]
-                parts.append(track(ims, *(cut(x, a, b).to(dev)
-                                          for x in per_slot)))
-        return tuple(torch.cat([p[i].to(home) for p in parts],
+                args = [next(out) for _ in args]
+            parts.append((d, track(ims, *args)))
+        back = iter(moves([(y, home) for d, p in parts if d != home
+                           for y in p]))
+        parts = [p if d == home else [next(back) for _ in p]
+                 for d, p in parts]
+        return tuple(torch.cat([p[i] for p in parts],
                                dim=-2 if i < n_points else -1)
                      for i in range(n_points + 1))
     a, b = ranges[slot_devices.index]

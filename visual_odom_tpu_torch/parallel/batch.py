@@ -45,13 +45,14 @@ On a card each row replays its step's CUDA graph (``utils.cudagraph``), as
 the JAX package jits its sharded step and scans it over a chunk: a row of
 one device replays the one-card batched step's graph (shared with the
 single-sequence doors); a row of one card named several times, the graph
-of its split step (``_graphed_split_step``); an NCCL rank at world size
-1, the graph of its row's split step with the model group's all-gather
-inside. Every row's replay is issued before any output moves to the home
-device, so that rows on different cards overlap. A row that spans
-distinct cards in one process, a rank over gloo and a rank of a larger
-world step eagerly by rule
-(``parallel.collectives.graph_place``), as does a call given
+of its split step (``_graphed_split_step``); a row across distinct
+cards in one process, the graphs of its split step on each card in turn,
+cut at the copies between cards (``utils.cudagraph._Recording``); an
+NCCL rank at world size 1, the graph of its row's split step with the
+model group's all-gather inside. Every row's replay is issued before any
+output moves to the home device, so that rows on different cards
+overlap. A rank over gloo and a rank of a larger world step eagerly by
+rule (``parallel.collectives.graph_place``), as does a call given
 ``uniforms``.
 """
 
@@ -67,6 +68,7 @@ from visual_odom_tpu_torch import resolve_device
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.frontend.featureset import empty_feature_state
 from visual_odom_tpu_torch.parallel.collectives import (RankAxis, gather,
+                                                        graph_devices,
                                                         graph_place,
                                                         use_graph_on)
 from visual_odom_tpu_torch.parallel.mesh import (Mesh, mesh_axis, position,
@@ -159,14 +161,14 @@ def _rows(x, ranges):
 def _graphed_split_step(config: VOConfig, intrinsics: CameraIntrinsics,
                         slots, _replay_body: bool = False) -> GraphedStep:
     """The batched step of a mesh row whose LK launches split their slots
-    over ``slots`` (a tuple of one card named several times, or an NCCL
-    ``RankAxis`` of one rank) as a ``GraphedStep``, one per (config, intrinsics, slots)
-    in a process."""
+    over ``slots`` (a tuple of devices: one card named several times, or
+    distinct cards; or an NCCL ``RankAxis`` of one rank) as a
+    ``GraphedStep``, one per (config, intrinsics, slots) in a process."""
     dev = graph_place(slots)[0]
     return GraphedStep(make_step_fn(
         config, intrinsics, device=dev,
         slot_devices=slots if isinstance(slots, RankAxis) else list(slots)),
-        dev, _replay_body=_replay_body)
+        dev, _replay_body=_replay_body, devices=graph_devices(slots))
 
 
 class _Row(NamedTuple):
@@ -231,7 +233,7 @@ def make_batched_step_fn(config: VOConfig, intrinsics: CameraIntrinsics,
     one card, the batched step's (``utils.cudagraph.GraphedStep``, shared
     with the single-sequence doors and the scan); a mesh, each row's (see
     the module docstring). A call given ``uniforms`` (the parity tests)
-    steps eagerly, as do the CPU and the rows and ranks that
+    steps eagerly, as do the CPU and the ranks that
     ``parallel.collectives.graph_place`` keeps eager by rule.
     ``step.capture(state, lefts, rights)`` captures the graphs ahead of
     the first step (a no-op where the step is eager)."""

@@ -122,9 +122,9 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
     (``parallel.batch.make_batched_scan_fn`` for a chunked run,
     ``make_batched_step_fn`` for ``chunk == 0``, whose graphs are captured
     before the wall): the batched step's on one card, each data row's on
-    a one-process mesh whose rows are each one card, each rank's on a mesh
-    of one NCCL rank (world size 1). A one-process row across cards, gloo
-    ranks and the ranks of a larger world step eagerly
+    a one-process mesh (a row across cards, each card's graphs in turn),
+    each rank's on a mesh of one NCCL rank (world size 1). Gloo ranks and
+    the ranks of a larger world step eagerly
     (``parallel.collectives.graph_place``).
     """
     if mesh is not None and device is not None:

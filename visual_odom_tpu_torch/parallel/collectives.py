@@ -11,9 +11,10 @@ issues, and each function below maps such a list to another. The axis
 - **One process** (a list of D devices): the list holds every shard,
   shard k's on the k-th device. Between cards a shard moves by a
   device-to-device copy, which PyTorch orders on both cards' current
-  streams. One card named several times (``[cuda:0] * 4``) and CPU devices
-  take the same code; a copy to the device a tensor is already on is no
-  copy.
+  streams; each function's copies go as one group through
+  ``utils.cudagraph.moves``, where a capture across cards cuts its
+  graphs. One card named several times (``[cuda:0] * 4``) and CPU devices
+  take the same code; a shard bound for its own device is not copied.
 - **One rank per shard** (a ``RankAxis``): the list holds this rank's
   shard alone, and the values move through ``torch.distributed`` over the
   axis' process group. NCCL runs its collectives on the card's streams, so
@@ -70,16 +71,16 @@ def axis_key(axis):
 def graph_place(axis) -> tuple:
     """Where a CUDA graph of a step or an iteration over ``axis`` (a
     one-process row or axis, a list or tuple of devices; or a
-    ``RankAxis``) is captured, and whether it may be: (the device, why
-    ``axis`` steps eagerly by rule or None). A rank axis' device is its
-    own rank's. Eager by rule:
+    ``RankAxis``) keeps its static buffers, and whether it may be
+    captured: (the device, why ``axis`` steps eagerly by rule or None).
+    A rank axis' device is its own rank's; a one-process axis', its first
+    device's, and a one-process axis across cards captures every card's
+    work (``graph_devices``). Eager by rule:
 
     - a rank axis over gloo: its collectives run on the host;
     - a rank axis of a world of more than one rank: NCCL collectives
-      inside a capture are held to their eager run at world size 1 only,
-      not yet across cards (ROADMAP "Speed" 2);
-    - a one-process row or axis across distinct cards: one capture
-      records one card's work.
+      inside a capture are held to their eager run at world size 1 only;
+      captured across 2 and 4 cards they failed (ROADMAP queue 3).
     """
     if isinstance(axis, RankAxis):
         dev = torch.device(axis.devices[axis.index])
@@ -92,12 +93,16 @@ def graph_place(axis) -> tuple:
                          f"collectives inside a capture are not yet held "
                          f"to their eager run across cards")
         return dev, None
-    devs = list(dict.fromkeys(torch.device(d) for d in axis))
-    if len(devs) > 1:
-        return devs[0], (f"a one-process row or axis across "
-                         f"{[str(d) for d in devs]}: one capture records "
-                         f"one card's work")
-    return devs[0], None
+    return graph_devices(axis)[0], None
+
+
+def graph_devices(axis) -> tuple:
+    """The devices a graph over ``axis`` records work on, in order: a rank
+    axis' own; a one-process axis' distinct devices (one card named
+    several times is one device)."""
+    if isinstance(axis, RankAxis):
+        return (torch.device(axis.devices[axis.index]),)
+    return tuple(dict.fromkeys(torch.device(d) for d in axis))
 
 
 def use_graph_on(axis, graphed=None) -> bool:
@@ -148,25 +153,28 @@ def psum(parts: Sequence[torch.Tensor], axis=None) -> list:
         for p in got[1:]:
             total = total + p
         return [total]
+    devs = _positions(parts, axis)
+    there = iter(cudagraph.moves([(p, devs[0]) for p, d in
+                                  zip(parts[1:], devs[1:]) if d != devs[0]]))
     total = parts[0]
-    for p in parts[1:]:
-        total = total + p.to(total.device)
-    return broadcast(total, [p.device for p in parts])
+    for p, d in zip(parts[1:], devs[1:]):
+        total = total + (p if d == devs[0] else next(there))
+    return broadcast(total, devs)
 
 
 def broadcast(x: torch.Tensor, axis) -> list:
-    """``x`` on each shard. One process (``axis`` a device list): one copy
-    per distinct device. Process form: shard 0's ``x`` on this rank, sent
-    from shard 0's rank."""
+    """``x`` on each shard. One process (``axis`` a device list, ``x`` on
+    shard 0's device): one copy per other distinct device. Process form:
+    shard 0's ``x`` on this rank, sent from shard 0's rank."""
     if isinstance(axis, RankAxis):
         y = x.contiguous().clone()
         _dist().broadcast(y, src=axis.ranks[0], group=axis.group)
         return [y]
-    copies = {}
-    for d in axis:
-        if d not in copies:
-            copies[d] = x.to(d)
-    return [copies[d] for d in axis]
+    devs = [torch.device(d) for d in axis]
+    others = list(dict.fromkeys(d for d in devs if d != devs[0]))
+    copies = dict(zip(others, cudagraph.moves([(x, d) for d in others])))
+    copies[devs[0]] = x
+    return [copies[d] for d in devs]
 
 
 def ppermute(parts: Sequence[torch.Tensor], perm, axis=None) -> list:
@@ -181,9 +189,13 @@ def ppermute(parts: Sequence[torch.Tensor], perm, axis=None) -> list:
     if twice:
         raise ValueError(f"ppermute: shard {twice[0]} receives twice")
     if not isinstance(axis, RankAxis):
+        devs = _positions(parts, axis)
+        crossing = [(s, d) for s, d in perm if devs[s] != devs[d]]
+        moved = dict(zip(crossing, cudagraph.moves(
+            [(parts[s], devs[d]) for s, d in crossing])))
         out = [None] * len(parts)
         for src, dst in perm:
-            out[dst] = parts[src].to(parts[dst].device)
+            out[dst] = moved.get((src, dst), parts[src])
         return [torch.zeros_like(p) if o is None else o
                 for p, o in zip(parts, out)]
     (x,) = parts
@@ -209,6 +221,13 @@ def ppermute(parts: Sequence[torch.Tensor], perm, axis=None) -> list:
     if recv is None:
         return [torch.zeros_like(x)]
     return [recv.to(x.device) if host else recv]
+
+
+def _positions(parts, axis) -> list:
+    """The device of each shard of a one-process ``axis`` (its parts' own
+    devices where ``axis`` is None)."""
+    return [torch.device(d) for d in
+            (axis if axis is not None else [p.device for p in parts])]
 
 
 def replicated(axis, fn: Callable, *args: Sequence) -> list:

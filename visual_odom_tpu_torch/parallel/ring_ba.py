@@ -45,7 +45,8 @@ import torch
 from visual_odom_tpu_torch.ba.problem import BAProblem
 from visual_odom_tpu_torch.ba.schur import _jacobian_blocks, ba_solve
 from visual_odom_tpu_torch.parallel.collectives import (axis_key, axis_size,
-                                                        gather, graph_place,
+                                                        gather, graph_devices,
+                                                        graph_place,
                                                         ppermute, psum,
                                                         replicated, shards,
                                                         use_graph_on)
@@ -297,14 +298,14 @@ def _ring_round(windows, ax, core: int, halo: int, cg_iters: int,
 @functools.lru_cache(maxsize=8)
 def _graphed_round(ax, core: int, halo: int, cg_iters: int, damping: float,
                    huber_delta: float, _replay_body: bool = False):
-    """The GN round over ``ax`` (a tuple of one card, or an NCCL
-    ``RankAxis`` of one rank) as a graphed fixed-trip loop, one per (axis, window
+    """The GN round over ``ax`` (a tuple of devices, or an NCCL
+    ``RankAxis``) as a graphed fixed-trip loop, one per (axis, window
     split, CG iterations, damping, Huber scale) in a process: one capture
     per shape and intrinsics."""
     return GraphedLoop(functools.partial(
         _ring_round, ax=ax, core=core, halo=halo, cg_iters=cg_iters,
         damping=damping, huber_delta=huber_delta), graph_place(ax)[0],
-        _replay_body=_replay_body)
+        _replay_body=_replay_body, devices=graph_devices(ax))
 
 
 def ring_ba_solve(
@@ -332,11 +333,12 @@ def ring_ba_solve(
 
     On a card each round, its ``cg_iters`` CG iterations unrolled, is one
     replay of a CUDA graph (``utils.cudagraph.GraphedLoop``), bit for bit
-    the eager round: on an axis of one card the whole round, on an NCCL
+    the eager round: on an axis of one card the whole round; on an axis
+    across cards in one process each card's graphs in turn, cut at the
+    copies between windows (``utils.cudagraph._Recording``); on an NCCL
     rank at world size 1 its own window's with the ``ppermute``s and
-    all-gathers inside. An axis across cards in one process, gloo ranks
-    and the ranks of a larger world iterate eagerly by rule
-    (``parallel.collectives.graph_place``).
+    all-gathers inside. Gloo ranks and the ranks of a larger world iterate
+    eagerly by rule (``parallel.collectives.graph_place``).
     """
     ax = mesh_axis(mesh, axis)
     mine = shards(ax)

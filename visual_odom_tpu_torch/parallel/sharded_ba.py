@@ -20,10 +20,12 @@ independent of L.
 On a card the GN iteration is captured once as a CUDA graph and replayed
 per iteration (``utils.cudagraph.GraphedLoop``), the counterpart of the
 JAX package's ``jit`` of a ``lax.scan`` over the iterations: on an axis of
-one card (named once per shard) the whole iteration, on an NCCL rank at
-world size 1 the rank's iteration with its all-gathers inside. An axis
-across cards in one process, gloo ranks and the ranks of a larger world
-iterate eagerly by rule (``parallel.collectives.graph_place``).
+one card (named once per shard) the whole iteration, on an axis across
+cards in one process each card's graphs in turn, cut at the ``psum``'s
+copies between cards (``utils.cudagraph._Recording``), on an NCCL rank
+at world size 1 the rank's iteration with its all-gathers inside. Gloo
+ranks and the ranks of a larger world iterate eagerly by rule
+(``parallel.collectives.graph_place``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ from visual_odom_tpu_torch.ba.problem import BAProblem
 from visual_odom_tpu_torch.ba.schur import (SchurParts, back_substitute,
                                             schur_parts, solve_reduced)
 from visual_odom_tpu_torch.parallel.collectives import (axis_key, axis_size,
-                                                        gather, graph_place,
+                                                        gather, graph_devices,
+                                                        graph_place,
                                                         psum, replicated,
                                                         shards, use_graph_on)
 from visual_odom_tpu_torch.parallel.mesh import (Mesh, mesh_axis,
@@ -70,7 +73,8 @@ def _graphed_solve(ax, damping: float, _replay_body: bool = False):
     loop, one per (axis, damping) in a process: one capture per shape."""
     return GraphedLoop(functools.partial(_gn_iteration, ax=ax,
                                          damping=damping),
-                       graph_place(ax)[0], _replay_body=_replay_body)
+                       graph_place(ax)[0], _replay_body=_replay_body,
+                       devices=graph_devices(ax))
 
 
 def sharded_ba_solve(problem: BAProblem, mesh: Mesh, iterations: int = 10,

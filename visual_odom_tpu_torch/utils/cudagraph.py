@@ -26,21 +26,22 @@ the pipe and the solvers build on it. On a card they are the default of:
   ``GraphedLoop``;
 - the multi-device paths (the JAX package jits its sharded batched step,
   ``sharded_ba_solve``, ``ring_ba_solve`` and the edge-sharded pose graph
-  too): on a one-process mesh each data row whose devices are one card
-  replays that row's step (``parallel.batch``), and ``sharded_ba_solve``,
-  ``ring_ba_solve`` (one GN round a replay) and ``sharded_posegraph_solve``
-  on an axis of one card replay their iteration; an NCCL rank at world
-  size 1 replays its own, the NCCL collectives of the step (the split LK
-  launches' all-gather) or of the iteration (``psum``, ``gather``,
-  ``ppermute``) captured inside the graph.
+  too): on a one-process mesh each data row replays its step
+  (``parallel.batch``), and ``sharded_ba_solve``, ``ring_ba_solve`` (one
+  GN round a replay) and ``sharded_posegraph_solve`` replay their
+  iteration, on one card or, across cards, each card's graphs in turn
+  (``_Recording``); an NCCL rank at world size 1 replays its own, the
+  NCCL collectives of the step (the split LK launches' all-gather) or of
+  the iteration (``psum``, ``gather``, ``ppermute``) captured inside the
+  graph.
 
 The CPU has no graphs: there every path runs eagerly. ``use_graph`` picks
 by device; ``dispatch`` is the switch: inside ``dispatch(False)`` every
 path runs eagerly on a card too (the reference a graph is held to),
 inside ``dispatch(True)`` replays graphs, which raises on the CPU and where
 the caller's place steps eagerly by rule (``parallel.collectives.
-graph_place``: a gloo rank axis, a rank of a world of several ranks, a
-one-process row or axis across cards). ``make_scan_step_fn`` and
+graph_place``: a gloo rank axis, a rank of a world of several ranks).
+``make_scan_step_fn`` and
 ``VisualOdometry`` also take a private ``_graph`` that overrides both.
 
 A graph replays fixed addresses, so the step runs on static buffers
@@ -77,11 +78,14 @@ observations, the edges) as the caller's own.
 Capture (``_capture``): one eager run of the body on a side stream first
 makes whatever the body makes at its first use (the kernels' library,
 cuBLAS's handles, the cached device constants, which a pageable upload
-builds and which may not be captured). Then the body is captured on that
-stream in "thread_local" mode, so the uploader threads' copies on their
-own streams neither break the capture nor are broken by it. Nothing
-synchronises with the host. A capture that fails raises; nothing falls
-back to the eager path.
+builds and which may not be captured; an NCCL rank's communicators).
+Then the body is captured on that stream in "thread_local" mode, so the
+uploader threads' copies on their own streams neither break the capture
+nor are broken by it; a body over several cards, on a side stream of
+each, cut into graphs at its copies between cards (``_Recording``,
+``moves``). Nothing synchronises with the host. A capture that fails
+ends every capture this thread has open, on every card
+(``end_captures``), and raises; nothing falls back to the eager path.
 
 Launch counts: the LK wrappers count the kernels they launch
 (``lk_circular_quad.launches`` and ``lk_track_pyramid.launches``, and
@@ -95,11 +99,16 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import logging
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
+from torch.utils._pytree import tree_map_only
 
 from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
 from visual_odom_tpu_torch.ops.lk_cuda import lk_circular_quad
@@ -119,6 +128,8 @@ _MAX_LOOP_CAPTURES = 32
 #: byte alignment of each state tensor in the static byte buffer, the
 #: caching allocator's
 _ALIGN = 512
+
+_log = logging.getLogger(__name__)
 
 
 @contextlib.contextmanager
@@ -463,7 +474,9 @@ def _key(state, *inputs) -> tuple:
 
 
 class _Capture:
-    """One captured graph, its static step and its launches per replay."""
+    """One captured graph, its static step and its launches per replay.
+    ``graph`` is what replays: a ``_Recording`` on a card, a ``_Tape`` in
+    the CPU form of a body over several positions."""
 
     def __init__(self, static, graph, packed, per_replay: dict,
                  seconds: float):
@@ -481,18 +494,26 @@ class _Capture:
         return self.packed
 
 
+def _taken_back(static, body):
+    """``body()``, with the draws of ``static``'s generators and the
+    launches it counted taken back."""
+    saved = [g.get_state() for g in static.generators]
+    counts = launch_counts()
+    try:
+        return body()
+    finally:
+        set_launch_counts(counts)
+        for g, s in zip(static.generators, saved):
+            g.set_state(s)
+
+
 class _BodyCapture(_Capture):
     """The CPU form of a capture: after the same warm-up, whose draws and
     launches are taken back, each replay runs the body itself (and counts
     the launches it makes)."""
 
     def __init__(self, static, body):
-        saved = [g.get_state() for g in static.generators]
-        counts = launch_counts()
-        body()
-        set_launch_counts(counts)
-        for g, s in zip(static.generators, saved):
-            g.set_state(s)
+        _taken_back(static, body)
         super().__init__(static, None, None, {}, 0.0)
         self.body = body
 
@@ -501,41 +522,373 @@ class _BodyCapture(_Capture):
         return self.body()
 
 
-def _capture(static, body, device) -> _Capture:
+# --- captures over one card or several ------------------------------------
+
+#: this thread's state: ``open``, the captures it has begun and not ended
+#: ((graph, stream, pool), oldest first); ``recording``, the capture of a
+#: body over several positions in progress (``moves`` cuts it)
+_THREAD = threading.local()
+
+
+def _open() -> list:
+    if not hasattr(_THREAD, "open"):
+        _THREAD.open = []
+    return _THREAD.open
+
+
+def _begin(graph, stream, pool) -> None:
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+    _open().append((graph, stream, pool))
+
+
+def _end(graph, stream, pool) -> None:
+    with torch.cuda.stream(stream), _no_empty_warning():
+        graph.capture_end()
+    _open().remove((graph, stream, pool))
+
+
+@contextlib.contextmanager
+def _no_empty_warning():
+    """Over several cards a card's graph between two groups of copies may
+    hold no work, and so may a capture ended by ``end_captures``."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+        yield
+
+
+def end_captures() -> None:
+    """End every capture this thread has begun and not ended, newest
+    first, on every card. A capture left open fails every later CUDA call
+    on its stream ("operation not permitted when stream is capturing"), so
+    a capture whose body or ``capture_end`` raises ends them all before
+    the error propagates. A capture that CUDA has invalidated ends with an
+    error, which is dropped here: the caller raises the first one."""
+    opened = _open()
+    while opened:
+        graph, stream, pool = opened.pop()
+        with torch.cuda.stream(stream), _no_empty_warning():
+            try:
+                graph.capture_end()
+            except Exception:  # noqa: BLE001 - ended either way
+                _release_pool(pool, stream.device)
+
+
+def _release_pool(pool, device) -> None:
+    """Take a capture's pool out of the allocator's routing, which an
+    invalidated ``capture_end`` raises before doing."""
+    try:
+        torch._C._cuda_endAllocateToPool(device.index, pool)
+    except Exception:  # noqa: BLE001 - it was taken out already
+        pass
+
+
+def moves(items) -> list:
+    """``x.to(device)`` for each ``(x, device)`` of ``items``: one group of
+    copies between the positions of a one-process mesh, each from its
+    caller's position to another (``parallel.collectives`` and the split
+    LK launches move every shard through here). While a body over several
+    cards is captured, the group cuts the graphs of the cards it touches
+    (``_Recording.cut``); in the CPU form of such a capture it is recorded
+    as a step of the tape (``_Tape.cut``)."""
+    rec = getattr(_THREAD, "recording", None)
+    if rec is None or not items:
+        return [x.to(d) for x, d in items]
+    return rec.cut([(x, torch.device(d)) for x, d in items])
+
+
+class _Recording:
+    """The graphs of one capture and the order they replay in.
+
+    On one card: one graph. Over several cards (a one-process mesh row or
+    solver axis across cards, ``devices`` its cards in order) every card
+    captures its own work into a graph of its own, on its own stream, all
+    at once; a group of copies between cards (``moves``) ends the graphs
+    of the cards it touches, and each of those cards begins a new one in
+    the same memory pool, where the copies' destinations are made. The
+    plan lists the graphs as they end and each group of copies after them,
+    so a replay runs every card's graphs in the order captured, on each
+    card's current stream, with the copies between them ordered on both
+    cards' streams as the eager copies are. The graphs over several cards
+    are kept uninstantiated (``keep_graph``) until every capture has
+    ended: CUDA refuses to instantiate a graph in this thread while
+    another capture is open in it."""
+
+    def __init__(self, devices, streams, generators):
+        self.devices = list(devices)
+        self.streams = streams
+        self.generators = generators
+        self.keep = len(self.devices) > 1
+        self.pools = {}
+        self.capturing = {}
+        self.plan = []      # CUDAGraphs, and lists of (dst, src) copies
+
+    def __enter__(self):
+        try:
+            for d in self.devices:
+                self._begin(d)
+        except BaseException:
+            end_captures()
+            raise
+        if self.keep:
+            _THREAD.recording = self
+        return self
+
+    def __exit__(self, kind, err, tb):
+        _THREAD.recording = None
+        if kind is not None:
+            end_captures()
+            return False
+        try:
+            for d in self.devices:
+                self._end(d)
+        except BaseException:
+            end_captures()
+            raise
+        if self.keep:
+            for g in self.plan:
+                if not isinstance(g, list):
+                    g.instantiate()
+        return False
+
+    def _begin(self, device) -> None:
+        graph = (torch.cuda.CUDAGraph(keep_graph=True) if self.keep
+                 else torch.cuda.CUDAGraph())
+        with torch.cuda.stream(self.streams[device]):
+            for g in self.generators:
+                if not self.keep or _indexed(g.device) == device:
+                    graph.register_generator_state(g)
+            if device not in self.pools:
+                self.pools[device] = torch.cuda.graph_pool_handle()
+        _begin(graph, self.streams[device], self.pools[device])
+        self.capturing[device] = graph
+
+    def _end(self, device) -> None:
+        graph = self.capturing.pop(device)
+        _end(graph, self.streams[device], self.pools[device])
+        self.plan.append(graph)
+
+    def cut(self, items) -> list:
+        cards = list(dict.fromkeys(
+            d for x, dst in items if x.device != dst for d in (x.device, dst)))
+        unknown = [str(d) for d in cards if d not in self.capturing]
+        if unknown:
+            raise ValueError(f"a move to or from {unknown}, outside the "
+                             f"cards of this capture {self.devices}")
+        for d in cards:
+            self._end(d)
+        for d in cards:
+            self._begin(d)
+        out, copies = [], []
+        for x, dst in items:
+            if x.device == dst:
+                out.append(x)
+                continue
+            with torch.cuda.stream(self.streams[dst]):
+                y = torch.empty_like(x, device=dst)
+            copies.append((y, x))
+            out.append(y)
+        self.plan.append(copies)
+        return out
+
+    def replay(self) -> None:
+        for step in self.plan:
+            if isinstance(step, list):
+                for dst, src in step:
+                    dst.copy_(src)
+            else:
+                step.replay()
+
+
+class _Tape(TorchDispatchMode):
+    """The CPU form of a capture over several positions (a one-process
+    mesh row or solver axis over devices named as distinct positions,
+    ``cpu:0``, ``cpu:1``, ...), which records what a card's capture
+    records and replays it as the cards replay their plan.
+
+    While active it records every operator the body runs (the LK
+    kernels' plain versions each as one step, ``kernel``), with its
+    operands and results, and each group of ``moves`` as a step of
+    copies into destinations made for them; a replay re-runs the steps in
+    order and writes each result into the tensor recorded for it, so the
+    body's later steps read it where they read it at capture. Like a
+    card's capture it refuses a value read back to the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.plan = [[]]    # lists of operator steps, and of (dst, src) copies
+        self.cuts = []      # the devices each group of moves reached
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in _HOST_READS:
+            raise RuntimeError(f"{func} reads a value back to the host "
+                               f"inside a captured body")
+        out = func(*args, **kwargs)
+        self._record(func, args, kwargs, out)
+        return out
+
+    def kernel(self, fn, args, kwargs):
+        with _disable_current_modes():
+            out = fn(*args, **kwargs)
+            self._record(fn, args, kwargs, out)
+        return out
+
+    def _record(self, fn, args, kwargs, out) -> None:
+        # Each tensor kept with the shape and strides it had here: an
+        # in-place view op (``squeeze_``) changes a tensor's own, here or
+        # at a replay.
+        self.plan[-1].append((fn, *tree_map_only(torch.Tensor, _Frozen,
+                                                 (args, kwargs, out))))
+
+    def cut(self, items) -> list:
+        with _disable_current_modes():
+            copies = [(torch.empty_like(x), x) for x, _ in items]
+        self.cuts.append([d for _, d in items])
+        self.plan += [copies, []]
+        return [y for y, _ in copies]
+
+    def replay(self) -> None:
+        for i, step in enumerate(self.plan):
+            if i % 2:
+                for dst, src in step:
+                    dst.copy_(src)
+                continue
+            for fn, args, kwargs, out in step:
+                args, kwargs, out = tree_map_only(
+                    _Frozen, _Frozen.view, (args, kwargs, out))
+                for rec, new in zip(_leaves(out), _leaves(fn(*args, **kwargs))):
+                    if (isinstance(rec, torch.Tensor)
+                            and rec.data_ptr() != new.data_ptr()):
+                        rec.copy_(new)
+
+
+#: the operators that read a tensor's value on the host (``item``,
+#: ``bool``, ``torch.equal``), which a card's capture refuses
+_HOST_READS = (torch.ops.aten._local_scalar_dense.default,
+               torch.ops.aten.is_nonzero.default, torch.ops.aten.equal.default)
+
+
+class _Frozen:
+    """A tensor as it was when a ``_Tape`` recorded it: ``view()`` is its
+    memory with that shape and those strides."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+        self.geometry = (t.shape, t.stride(), t.storage_offset())
+
+    def view(self) -> torch.Tensor:
+        return self.t.as_strided(*self.geometry)
+
+
+def _leaves(x) -> list:
+    if isinstance(x, (list, tuple)):
+        return [v for y in x for v in _leaves(y)]
+    return [] if x is None else [x]
+
+
+def kernel(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a kernel's plain version on the CPU; while
+    a ``_Tape`` records, one step of it (as a card's graph records one
+    kernel node), whatever the plain version reads on the host."""
+    rec = getattr(_THREAD, "recording", None)
+    if isinstance(rec, _Tape):
+        return rec.kernel(fn, args, kwargs)
+    return fn(*args, **kwargs)
+
+
+class _TapeCapture(_Capture):
+    """The CPU form of a capture over several positions: the warm-up as a
+    card's, then the body recorded on a ``_Tape``, whose draws and
+    launches are taken back as a card's capture makes none; each replay
+    replays the tape."""
+
+    def __init__(self, static, body):
+        _taken_back(static, body)
+        tape = _Tape()
+
+        def recorded():
+            _THREAD.recording = tape
+            try:
+                with tape:
+                    out = body()
+            finally:
+                _THREAD.recording = None
+            return out, launch_counts()
+
+        before = launch_counts()
+        packed, after = _taken_back(static, recorded)
+        super().__init__(static, tape, packed,
+                         {k: n - before[k] for k, n in after.items()
+                          if n != before[k]}, 0.0)
+
+
+def _capture(static, body, devices, label: str) -> _Capture:
     """Capture ``body()`` (a ``_StaticStep``'s ``body`` or a
-    ``_StaticLoop``'s ``step``) on a side stream, after one warm-up run of
-    it there whose draws are taken back; the generators of ``static`` are
-    registered with the graph. Nothing synchronises with the host."""
+    ``_StaticLoop``'s ``step``) over ``devices`` (its cards, the static
+    buffers' first) on a side stream of each, after one warm-up run of it
+    there whose draws are taken back; the generators of ``static`` are
+    registered with every graph on their card (``_Recording``). Nothing
+    synchronises with the host. A body or a ``capture_end`` that raises
+    ends every open capture (``end_captures``) before the error reaches
+    the caller; nothing steps eagerly in its place."""
     t0 = time.perf_counter()
-    saved = [g.get_state() for g in static.generators]
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    graph = torch.cuda.CUDAGraph()
+    currents = {d: torch.cuda.current_stream(d) for d in devices}
+    sides = {d: torch.cuda.Stream(d) for d in devices}
+    for d in devices:
+        sides[d].wait_stream(currents[d])
     counts = launch_counts()
     try:
-        with torch.cuda.stream(side):
+        with contextlib.ExitStack() as on_sides:
+            for d in reversed(devices):     # the first card ends current
+                on_sides.enter_context(torch.cuda.stream(sides[d]))
             # Warm-up: the body's first-use work happens here, not in the
-            # capture. Its draws are taken back.
-            body()
-            for g, s in zip(static.generators, saved):
-                g.set_state(s)
-            for g in static.generators:
-                graph.register_generator_state(g)
+            # capture.
+            _log.debug("warm-up of %s on %s", label, devices)
+            _taken_back(static, body)
             before = launch_counts()
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
+            _log.debug("capture of %s", label)
+            with _Recording(devices, sides, static.generators) as rec:
                 packed = body()
-            finally:
-                graph.capture_end()
+            _log.debug("captured %s: %d graphs", label,
+                       sum(not isinstance(g, list) for g in rec.plan))
             per_replay = {k: n - before[k]
                           for k, n in launch_counts().items()
                           if n != before[k]}
     finally:
         set_launch_counts(counts)
-    current.wait_stream(side)
-    return _Capture(static, graph, packed, per_replay,
+    for d in devices:
+        currents[d].wait_stream(sides[d])
+    return _Capture(static, rec, packed, per_replay,
                     time.perf_counter() - t0)
+
+
+def _make_capture(static, body, devices, replay_body, label) -> _Capture:
+    if not replay_body:
+        return _capture(static, body, devices, label)
+    if len(devices) > 1:
+        return _TapeCapture(static, body)
+    return _BodyCapture(static, body)
+
+
+def _label(fn) -> str:
+    """A step's or a loop body's name, for the capture log."""
+    fn = getattr(fn, "func", fn)
+    return getattr(fn, "__qualname__", type(fn).__name__)
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index: "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _cards(device, devices) -> list:
+    """The cards a body runs on, in order, each with its index (the
+    static buffers' ``device`` first): ``devices``, or ``device`` alone."""
+    return list(dict.fromkeys(_indexed(d) for d in [device, *(devices or ())]))
 
 
 class GraphedStage:
@@ -587,16 +940,21 @@ class GraphedStep:
     B), input shape and dtype, at its first call (or at ``capture``);
     ``captures`` lists them. The scan and the per-frame calls share them.
     Calls are serialised: the buffers hold one state at a time.
-    ``_replay_body`` is the CPU form (the tests'): the same static buffers
-    and loops, each replay the body itself.
+    ``devices`` are the cards the step runs on, where it spans several (a
+    mesh row split across cards; ``device``, where the buffers live, is
+    the first): each replay then runs each card's graphs in turn
+    (``_Recording``). ``_replay_body`` is the CPU form (the tests'): the
+    same static buffers and loops, each replay the body itself, or over
+    several positions the ``_Tape`` of it.
     """
 
-    def __init__(self, step, device, _replay_body=False):
+    def __init__(self, step, device, _replay_body=False, devices=None):
         device = torch.device(device)
         if not _replay_body:
             use_graph(device, True)
         self.step = step
         self.device = device
+        self.devices = _cards(device, devices)
         self.replay_body = _replay_body
         self.captures: dict = {}
         self._lock = threading.RLock()
@@ -654,9 +1012,9 @@ class GraphedStep:
         if cap is None:
             static = _StaticStep(self.step, state,
                                  *(x.to(self.device) for x in inputs))
-            cap = self.captures[key] = (
-                _BodyCapture(static, static.body) if self.replay_body
-                else _capture(static, static.body, self.device))
+            cap = self.captures[key] = _make_capture(
+                static, static.body, self.devices, self.replay_body,
+                _label(self.step))
         return cap
 
 
@@ -670,14 +1028,15 @@ class GraphedLoop:
     shape and dtype of the carry's tensors and value of its other leaves
     (a problem's intrinsics), at its first call, and the
     ``_MAX_LOOP_CAPTURES`` used last are kept. Calls are serialised.
-    ``_replay_body`` as ``GraphedStep``'s."""
+    ``devices`` and ``_replay_body`` as ``GraphedStep``'s."""
 
-    def __init__(self, body, device, _replay_body=False):
+    def __init__(self, body, device, _replay_body=False, devices=None):
         device = torch.device(device)
         if not _replay_body:
             use_graph(device, True)
         self.body = body
         self.device = device
+        self.devices = _cards(device, devices)
         self.replay_body = _replay_body
         self.captures: collections.OrderedDict = collections.OrderedDict()
         self._lock = threading.Lock()
@@ -691,9 +1050,9 @@ class GraphedLoop:
             cap = self.captures.get(key)
             if cap is None:
                 static = _StaticLoop(self.body, carry)
-                cap = self.captures[key] = (
-                    _BodyCapture(static, static.step) if self.replay_body
-                    else _capture(static, static.step, self.device))
+                cap = self.captures[key] = _make_capture(
+                    static, static.step, self.devices, self.replay_body,
+                    _label(self.body))
                 while len(self.captures) > _MAX_LOOP_CAPTURES:
                     self.captures.popitem(last=False)
             self.captures.move_to_end(key)
