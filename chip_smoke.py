@@ -227,7 +227,15 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    mesh shape (phase 12's batched runs; the solves and the loop closure
    on this card named once per rank, computed meanwhile), with each
    rank's launches per path, and on NCCL every chunk under sync debug
-   mode "error".
+   mode "error". With two cards or more, two NCCL ranks over cards 0 and
+   1 (``chip_smoke.py --cards-rank ...``, CARDS_RANK_TIMEOUT s) then run
+   ``sharded_ba_solve``, ``ring_ba_solve``, the edge-sharded pose graph
+   and the batched runner on CARDS_RANK_MESHES, eager and then replaying
+   graphs that hold their NCCL collectives: each path graphed bit for bit
+   its eager run with equal launches, the same on both ranks (the
+   ``ranks`` line of part ``nccl_across_cards``); on one card that line
+   says the check did not run, and why. ``chip_smoke.py
+   --nccl-across-cards`` runs that check alone.
 14. The bench harness (``bench`` lines): the port's ``vo bench --quick``
    (``visual_odom_tpu_torch.bench``: 65 frames of straight, turning and
    stress, the one-leg parity check, ``bench_lk``) in a subprocess on this
@@ -300,6 +308,7 @@ import functools
 import io
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -473,6 +482,11 @@ RANK_TIMEOUT = 240
 SEND_PROBE_TIMEOUT = 60
 #: phase 13's meshes of ranks, by world size
 RANK_MESHES = {2: ((2, 1), (1, 2)), 1: ((1, 1),)}
+#: phase 13 with two cards or more: two NCCL ranks over cards 0 and 1, the
+#: meshes they run (phase 4's first batched course pair, B = 2, on the
+#: quad route) and their time limit (s)
+CARDS_RANK_MESHES = ((2, 1), (1, 2))
+CARDS_RANK_TIMEOUT = 300
 #: phase 14: the bench's quick gauntlet (``vo bench --quick``): frames per
 #: course (phase 4's straight, turning and stress courses have as many),
 #: its courses, its scan chunk, and the quads its ``bench_lk`` launches (one
@@ -3234,6 +3248,150 @@ def rank_main(argv) -> int:
     return 0
 
 
+def cards_rank_main(argv) -> int:
+    """One of the two NCCL ranks of phase 13's check across cards
+    (``chip_smoke.py --cards-rank RANK PORT DIR``), rank r on ``cuda:r``:
+    ``sharded_ba_solve`` (SHARDED_BA_PROBLEMS[0]), ``ring_ba_solve``
+    (phase 12's problem, RING_GRAPH_ROUNDS rounds), the edge-sharded pose
+    graph of a 64-keyframe circle and ``run_sequences_batched`` of
+    ``batch.npy``'s first two courses on CARDS_RANK_MESHES, each over the
+    two ranks, first eager (``dispatch(False)``) and then by default,
+    replaying CUDA graphs that hold the NCCL collectives. Saves each run's
+    results, launches and ms, and the graphs built, to DIR."""
+    import torch
+
+    from visual_odom_tpu_torch.ba import posegraph, problem
+    from visual_odom_tpu_torch.config import VOConfig
+    from visual_odom_tpu_torch.parallel.batch_eval import run_sequences_batched
+    from visual_odom_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                     make_mesh,
+                                                     visible_devices)
+    from visual_odom_tpu_torch.parallel.ring_ba import ring_ba_solve
+    from visual_odom_tpu_torch.parallel.sharded_ba import sharded_ba_solve
+    from visual_odom_tpu_torch.utils import cudagraph
+
+    rank, port, where = int(argv[0]), argv[1], argv[2]
+    dev = torch.device("cuda", rank)
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, device=dev)
+    ranks = visible_devices()
+    p = problem.synthetic_ba_problem(num_poses=SHARDED_BA_PROBLEMS[0][0],
+                                     num_landmarks=SHARDED_BA_PROBLEMS[0][1],
+                                     seed=7, device=dev)[0]
+    ring = _ring_problem(dev)
+    graph = posegraph.build_keyframe_graph(*_circle_chain(), device=dev)
+    seqs = [[(f[0], f[1]) for f in c]
+            for c in np.load(os.path.join(where, "batch.npy"))[:2]]
+    config = VOConfig.for_image(H, W)
+    intr = kitti_intrinsics(H, W)
+    paths = {
+        "sharded_ba": lambda: sharded_ba_solve(
+            p, make_mesh({"data": 1, "model": 2}, ranks),
+            iterations=SHARDED_BA_ITERS)[:2],
+        "ring": lambda: ring_ba_solve(
+            ring, make_mesh({"seq": 2}, ranks), halo=RING_HALO,
+            rounds=RING_GRAPH_ROUNDS, cg_iters=RING_CG_ITERS)[:2],
+        "posegraph": lambda: (posegraph.sharded_posegraph_solve(
+            graph, make_mesh({"model": 2}, ranks)).nodes,)}
+    for rows, cols in CARDS_RANK_MESHES:
+        paths[f"batch_{rows}x{cols}"] = lambda rows=rows, cols=cols: tuple(
+            torch.from_numpy(x) for x in run_sequences_batched(
+                seqs, config, intr, chunk=MESH_CHUNK, mesh=make_mesh(
+                    {"data": rows, "model": cols}, ranks))[0])
+    out = {}
+    for mode in ("eager", "graph"):
+        for name, fn in paths.items():
+            torch.distributed.barrier()
+            torch.cuda.synchronize(dev)
+            before = read_counts()
+            t = time.perf_counter()
+            with (cudagraph.dispatch(False) if mode == "eager"
+                  else contextlib.nullcontext()):
+                got = fn()
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t)
+            after = read_counts()
+            out[f"{mode}_{name}"] = {
+                "out": [x.cpu().numpy() for x in got], "ms": ms,
+                "launches": {k: after[k] - before[k] for k in after}}
+    built = [c.label for g in list(cudagraph._GRAPHED)
+             for c in g.captures.values() if c.collectives]
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(where, f"cards-rank-{rank}.pkl"), "wb") as f:
+        pickle.dump({"runs": out, "graphs_built": built}, f)
+    return 0
+
+
+def nccl_across_cards(root) -> dict:
+    """Phase 13 on two cards or more: two NCCL ranks over cards 0 and 1
+    (``cards_rank_main``, on ``root``'s ``batch.npy``), each path's graphed
+    run held bit for bit to its eager run with equal launches, and every
+    path's results held equal on both ranks. Prints the ``ranks`` line of
+    part ``nccl_across_cards`` and returns it; on one card the line says
+    the check did not run, and why."""
+    import socket
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        line = {"part": "nccl_across_cards", "run": False,
+                "reason": f"{n} card visible: two NCCL ranks need two cards"}
+        print("ranks", json.dumps(line))
+        return line
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.monotonic()
+    procs = []
+    for r in range(2):
+        log = open(os.path.join(root, f"cards-rank-{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cards-rank",
+             str(r), str(port), root], stdout=log,
+            stderr=subprocess.STDOUT), log))
+    bad = _wait_ranks(procs, t0 + CARDS_RANK_TIMEOUT)
+    if bad:
+        raise AssertionError(f"phase 13: NCCL ranks across cards failed or "
+                             f"timed out: {bad}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(root, f"cards-rank-{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    names = [k[len("graph_"):] for k in res[0]["runs"] if
+             k.startswith("graph_")]
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+
+    graphed_eq = {f"{name}_rank{r}": (
+        same(x["runs"][f"graph_{name}"]["out"], x["runs"][f"eager_{name}"]
+             ["out"]) and x["runs"][f"graph_{name}"]["launches"]
+        == x["runs"][f"eager_{name}"]["launches"])
+        for name in names for r, x in enumerate(res)}
+    ranks_eq = {name: same(res[0]["runs"][f"graph_{name}"]["out"],
+                           res[1]["runs"][f"graph_{name}"]["out"])
+                for name in names}
+    line = {"part": "nccl_across_cards", "run": True, "world": 2,
+            "cards": ["cuda:0", "cuda:1"],
+            "graphs_built": [len(x["graphs_built"]) for x in res],
+            "graphed_equals_eager": graphed_eq,
+            "ranks_equal": ranks_eq,
+            "ms_graph": {name: [x["runs"][f"graph_{name}"]["ms"]
+                                for x in res] for name in names},
+            "ms_eager": {name: [x["runs"][f"eager_{name}"]["ms"]
+                                for x in res] for name in names},
+            "launches": {name: res[0]["runs"][f"graph_{name}"]["launches"]
+                         for name in names},
+            "wall_s": time.monotonic() - t0}
+    print("ranks", json.dumps(line))
+    if not (all(graphed_eq.values()) and all(ranks_eq.values())
+            and all(line["graphs_built"])):
+        raise AssertionError(f"phase 13: NCCL ranks across cards: graphed "
+                             f"differs from eager or between ranks: {line}")
+    return line
+
+
 def _ring_problem(dev):
     """Phase 12's ring problem, as ``ring_phase`` builds it."""
     from visual_odom_tpu_torch.ba import problem
@@ -4779,6 +4937,7 @@ def run_phases(stack) -> int:
         rank_launches = ranks_phase(lposes, lframes, loop_read,
                                     mesh_loop_launches, courses, mesh_refs,
                                     config, intr, dev, root)
+        nccl_across_cards(root)
         print(f"phase 13: {time.perf_counter() - t:.1f} s")
 
         # ---- phase 14: the bench harness, vo bench --quick ---------------
@@ -4908,9 +5067,37 @@ def run_phases(stack) -> int:
     return 0
 
 
+def across_cards_main() -> int:
+    """``chip_smoke.py --nccl-across-cards``: phase 13's check across cards
+    alone (the kernels built, phase 4's batched courses rendered first);
+    needs two cards."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke: --nccl-across-cards needs two cards",
+              file=sys.stderr)
+        return 2
+    from visual_odom_tpu_torch.ops import lk_cuda
+
+    lk_cuda._library()
+    courses = render_courses([(k[0], k[1], MESH_STEPS + 1)
+                              for k in BATCH_COURSES[:2]], H, W)
+    with tempfile.TemporaryDirectory() as root:
+        np.save(os.path.join(root, "batch.npy"), np.stack([
+            np.stack([np.stack(f) for f in courses[k][0]])
+            for k in BATCH_COURSES[:2]]))
+        nccl_across_cards(root)
+    print(card_line())
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cards-rank"]:
+        sys.exit(cards_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--nccl-across-cards"]:
+        sys.exit(across_cards_main())
     if sys.argv[1:2] == ["--gloo-send-probe"]:
         sys.exit(send_probe_main(sys.argv[2:]))
     sys.exit(main())

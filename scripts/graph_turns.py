@@ -4,7 +4,8 @@ step, in turns, on one GPU.
 
     python3 scripts/graph_turns.py [--steps 64] [--mono-steps 32]
                                    [--batch-steps 16] [--rounds 10]
-                                   [--doors | --mesh] [--out DIR]
+                                   [--doors | --mesh] [--cases NAME ...]
+                                   [--out DIR]
 
 Renders the "straight" course at 1241x376 (the bench's camera) and the
 batched path's other courses (checker texture, "turning", "stress"), and
@@ -55,7 +56,9 @@ graphed against eager the same way:
   ``posegraph_across_4`` (with four): the same solves, one shard, window
   or edge slice per card.
 
-The multi-card times of one rank per card are ``scripts/rank_times.py
+``--cases`` runs only the cases whose names contain one of the given
+strings (``--mesh --cases across``: the cases over distinct cards). The
+multi-card times of one rank per card are ``scripts/rank_times.py
 --mesh``'s. Their profiles cover one door run over 4 frames (the state's
 first pyramids included), one mesh run of 4 steps, or one solve. Scan-family graphed runs
 replay the step's graph (the default on a card); eager
@@ -335,6 +338,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--doors", action="store_true")
     ap.add_argument("--mesh", action="store_true")
+    ap.add_argument("--cases", nargs="+", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -393,6 +397,9 @@ def main() -> int:
         cases = {"quad": scan_case(*single(config, args.steps)),
                  "mono": scan_case(*single(mconfig, args.mono_steps)),
                  **{f"b{B}": scan_case(*batched(B)) for B in (1, 4, 11)}}
+    if args.cases:
+        cases = {k: v for k, v in cases.items()
+                 if any(c in k for c in args.cases)}
     lines = []
     for name, (run, profiler, B) in cases.items():
         refs = [run(g)[2] for g in (True, False)]   # capture, first use

@@ -35,12 +35,10 @@ eager graph, ...) after one warm call each way, in both forms, and
 iterations (ms per iteration or round). From one process the (2, 1) mesh
 of 2 cards replays each row's graph on its own card, and a row or a
 solver axis across cards replays each card's graphs in turn, with the
-copies between cards between them (``utils.cudagraph._Recording``); every
-rank of the rank-per-card form (a rank of a world of more than one rank)
-steps eagerly by rule (``parallel.collectives.graph_place``), so its two
-modes are two eager runs. Lines carry ``mode`` ("graph" or "eager") and
-go to ``DIR/rank_times_mesh.json``. This mode has not yet completed on
-four cards.
+copies between cards between them (``utils.cudagraph._Recording``); in
+the rank-per-card form every NCCL rank replays its own graphs, its
+collectives inside them. Lines carry ``mode`` ("graph" or "eager") and go
+to ``DIR/rank_times_mesh.json``.
 """
 
 from __future__ import annotations

@@ -4,10 +4,15 @@ and the plan of a capture over several positions.
 - The rule (``parallel.collectives.graph_place``, the group's backend and
   world size monkeypatched as tests/test_torch_graph_mesh.py's
   ``_nccl_axis`` does): a one-process axis across cards and an NCCL rank
-  axis at world size 1 replay graphs, a graph asked for there is
-  accepted; an NCCL rank axis in a world of 2 or 4 and a gloo rank axis
-  step eagerly and refuse one; ``graph_devices`` names the cards a graph
-  records work on.
+  axis in a world of 1, 2 or 4 ranks replay graphs, a graph asked for
+  there is accepted; a gloo rank axis steps eagerly and refuses one;
+  ``graph_devices`` names the cards a graph records work on.
+- Graphs that hold collectives: a capture lists the collectives of
+  process groups it issued (``cudagraph.note_collective``);
+  ``cudagraph.release`` drops the captures holding a group's and keeps
+  the others; once a capture holds one,
+  ``torch.distributed.destroy_process_group`` releases them before it
+  destroys the group.
 - On the card (``cuda`` marker, skipped here): a capture that fails on
   one card and over two (the second card's capture open) raises, leaves
   no stream of any card capturing, and the next capture replays bit for
@@ -82,26 +87,19 @@ def _rank_axis(monkeypatch, backend, n, world, index):
                                            (2, 4, 0), (4, 4, 3)])
 def test_nccl_rank_axes_graphed_at_world_size_one_only(monkeypatch, n,
                                                        world, index):
-    """An NCCL rank axis keeps its graph on its own rank's card and records
-    work there alone. At world size 1 it replays graphs by default and
-    inside ``dispatch(True)``; in a larger world it steps eagerly by rule
-    (its captured collectives failed across cards) and a graph asked for
-    raises. ``dispatch(False)`` steps either eagerly."""
+    """An NCCL rank axis, in a world of any size, keeps its graph on its
+    own rank's card and records work there alone; it replays graphs by
+    default, ``dispatch(False)`` steps it eagerly and ``dispatch(True)`` is
+    accepted."""
     axis = _rank_axis(monkeypatch, "nccl", n, world, index)
     dev = torch.device("cuda", index)
-    place, eager = collectives.graph_place(axis)
-    assert place == dev and collectives.graph_devices(axis) == (dev,)
-    if world == 1:
-        assert eager is None and collectives.use_graph_on(axis)
-        with cudagraph.dispatch(True):
-            assert collectives.use_graph_on(axis)
-    else:
-        assert f"a world of {world} ranks" in eager
-        assert not collectives.use_graph_on(axis)
-        with pytest.raises(ValueError, match="not yet held"):
-            collectives.use_graph_on(axis, True)
+    assert collectives.graph_place(axis) == (dev, None)
+    assert collectives.graph_devices(axis) == (dev,)
+    assert collectives.use_graph_on(axis)
     with cudagraph.dispatch(False):
         assert not collectives.use_graph_on(axis)
+    with cudagraph.dispatch(True):
+        assert collectives.use_graph_on(axis)
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])
@@ -135,6 +133,100 @@ def test_one_process_axis_across_cards_is_graphed(cards):
     assert not collectives.use_graph_on(cpu)
     with pytest.raises(ValueError, match="CUDA graph needs a card"):
         collectives.use_graph_on(cpu, True)
+
+
+# --- graphs that hold collectives ------------------------------------------
+
+
+class _Group:
+    """A stand-in for a process group: collectives are noted by group."""
+
+
+def _noting_body(group, ranks=(0, 1)):
+    """A loop body that notes an all-gather over ``group`` (None: notes
+    nothing) and doubles its carry."""
+    def body(carry):
+        (x,) = carry
+        if group is not None:
+            cudagraph.note_collective("all_gather", group, ranks, x)
+        return (x * 2.0,)
+
+    return body
+
+
+def test_captures_list_the_collectives_they_issue():
+    """A capture lists the collectives its body issued, in order, with the
+    group's ranks, the shape and dtype sent and a ppermute's pairs; a body
+    run outside a capture (a replay of the CPU form, an eager call) notes
+    none."""
+    group = _Group()
+
+    def body(carry):
+        (x,) = carry
+        cudagraph.note_collective("all_gather", group, (0, 1), x)
+        cudagraph.note_collective("ppermute", group, (0, 1), x[:1],
+                                  [(0, 1), (1, 0)])
+        return (x + 1.0,)
+
+    loop = cudagraph.GraphedLoop(body, "cpu", _replay_body=True)
+    loop((torch.zeros(3),), 4)
+    (cap,) = loop.captures.values()
+    assert [c[:5] for c in cap.collectives] == [
+        ("all_gather", (0, 1), (3,), torch.float32, ()),
+        ("ppermute", (0, 1), (1,), torch.float32, ((0, 1), (1, 0)))]
+    assert all(c.group is group for c in cap.collectives)
+    assert cap.replays == 4
+    body((torch.zeros(3),))
+    assert len(cap.collectives) == 2
+
+
+def test_release_drops_only_the_captures_holding_the_group():
+    """``release([group])`` drops every capture holding a collective of
+    ``group`` and keeps the rest; the loop's next call captures again and
+    replays bit for bit. ``release()`` drops every capture holding any."""
+    a, b = _Group(), _Group()
+    loops = {name: cudagraph.GraphedLoop(_noting_body(g), "cpu",
+                                         _replay_body=True)
+             for name, g in (("a", a), ("b", b), ("none", None))}
+    x = (torch.arange(4.0),)
+    for loop in loops.values():
+        loop(x, 2)
+    assert cudagraph.release([a]) == 1
+    assert [bool(loops[k].captures) for k in ("a", "b", "none")] == [
+        False, True, True]
+    assert _equal(loops["a"](x, 3), (torch.arange(4.0) * 8,))
+    assert cudagraph.release() >= 2
+    assert [bool(loops[k].captures) for k in ("a", "b", "none")] == [
+        False, False, True]
+    assert cudagraph.release([a, b]) == 0
+
+
+@pytest.mark.parametrize("which", ["default", "subgroup"])
+def test_destroy_process_group_releases_first(monkeypatch, which):
+    """Once a capture holds collectives, ``torch.distributed.
+    destroy_process_group`` first releases the captures holding the
+    groups it destroys (every group's for the default group, the named
+    group's for a subgroup), then destroys them, as it did before."""
+    c10d = torch.distributed.distributed_c10d
+    calls = []
+    a, b = _Group(), _Group()
+    loops = [cudagraph.GraphedLoop(_noting_body(g), "cpu", _replay_body=True)
+             for g in (a, b)]
+
+    def destroy(group=None):
+        calls.append((group, [bool(lp.captures) for lp in loops]))
+
+    monkeypatch.setattr(c10d, "destroy_process_group", destroy)
+    monkeypatch.setattr(torch.distributed, "destroy_process_group", destroy)
+    for loop in loops:
+        loop((torch.ones(2),), 1)
+    assert torch.distributed.destroy_process_group.releases_graphs
+    if which == "default":
+        torch.distributed.destroy_process_group()
+        assert calls == [(None, [False, False])]
+    else:
+        torch.distributed.destroy_process_group(b)
+        assert calls == [(b, [True, False])]
 
 
 # --- a capture that fails -----------------------------------------------------

@@ -18,13 +18,16 @@ On the CPU, where there are no graphs:
   RANSAC draws, against JAX's jitted sharded batched step on a (2, 1)
   CPU mesh (tests/test_torch_batch_mesh.py's course, state and bounds);
 - the dispatch rule (``parallel.collectives.graph_place``): a gloo
-  ``RankAxis`` and an NCCL ``RankAxis`` in a world of more than one rank
-  step eagerly, and a graph asked for there raises; an NCCL rank at world
-  size 1 and a one-process row across cards replay graphs; every batched
-  step carries ``capture``;
-- 2 gloo ranks (``tests/torch_dist_worker.py``, scenario ``graph``): by
-  default they build no graph and give the one-process eager results bit
-  for bit; in the CPU form of the graph paths, the same.
+  ``RankAxis`` steps eagerly, and a graph asked for there raises; an NCCL
+  ``RankAxis`` in a world of 1, 2 or 4 ranks and a one-process row across
+  cards replay graphs; every batched step carries ``capture``;
+- 2 and 4 gloo ranks (``tests/torch_dist_worker.py``, scenario
+  ``graph``): by default they build no graph and give the one-process
+  eager results bit for bit; in the CPU form of the graph paths, the same;
+  there every path's captures issue the same collectives in the same
+  order on every rank of each group (a graph whose collectives differ
+  between ranks hangs on NCCL), and destroying the process group first
+  releases every capture that holds its collectives.
 
 On the card (``cuda`` marker, skipped here): each path graphed against
 ``dispatch(False)`` bit for bit on this card named 2 and 4 times, the
@@ -32,11 +35,11 @@ first call of each under sync-debug "error"; one NCCL rank at world size
 1; across 2 and 4 cards (they skip with fewer) one process (rows of one
 card graphed on their own card, rows and solvers across cards graphed
 card by card) and one rank per card (scenario ``card_graph``, the kernels
-built before the ranks start; eager by rule, no graph built). The card
+built before the ranks start; graphs built on every rank). The card
 has no JAX: this file imports the JAX package only inside the test that
 compares with it.
 
-Alone on the CPU this file takes ~100 s (one core).
+Alone on the CPU this file takes ~140 s (one core).
 """
 
 
@@ -295,16 +298,25 @@ def _nccl_axis(monkeypatch, n, world, index=0):
         torch.device("cuda", i) for i in range(n)), index=index, group=None)
 
 
+def _graphed_on_own_card(axis, index):
+    """``axis`` (an NCCL rank axis whose rank is shard ``index``) is graphed
+    on its own rank's card and records work there alone; ``dispatch(False)``
+    steps it eagerly and ``dispatch(True)`` is accepted."""
+    dev = torch.device("cuda", index)
+    assert collectives.graph_place(axis) == (dev, None)
+    assert collectives.graph_devices(axis) == (dev,)
+    assert collectives.use_graph_on(axis)
+    with cudagraph.dispatch(False):
+        assert not collectives.use_graph_on(axis)
+    with cudagraph.dispatch(True):
+        assert collectives.use_graph_on(axis)
+    assert collectives.use_graph_on(axis, True)
+
+
 def test_nccl_rank_at_world_size_one_is_graphed(monkeypatch):
     """An NCCL rank at world size 1 replays graphs on its card by
     default."""
-    axis = _nccl_axis(monkeypatch, 1, 1)
-    assert collectives.graph_place(axis) == (torch.device("cuda", 0), None)
-    assert collectives.use_graph_on(axis)
-    with cudagraph.dispatch(True):
-        assert collectives.use_graph_on(axis)
-    with cudagraph.dispatch(False):
-        assert not collectives.use_graph_on(axis)
+    _graphed_on_own_card(_nccl_axis(monkeypatch, 1, 1), 0)
 
 
 @pytest.mark.parametrize("n,world", [(1, 2), (2, 2), (4, 4)],
@@ -312,18 +324,10 @@ def test_nccl_rank_at_world_size_one_is_graphed(monkeypatch):
 def test_nccl_ranks_of_a_larger_world_step_eagerly_by_rule(monkeypatch, n,
                                                            world):
     """An NCCL rank axis in a world of more than one rank (a rank alone in
-    its row's model group too) steps eagerly by rule, on its own rank's
-    card; asking for a graph there raises."""
-    axis = _nccl_axis(monkeypatch, n, world, index=n - 1)
-    dev, eager = collectives.graph_place(axis)
-    assert dev == torch.device("cuda", n - 1)
-    assert f"a world of {world} ranks" in eager
-    assert not collectives.use_graph_on(axis)
-    with pytest.raises(ValueError, match="not yet held to their eager run"):
-        collectives.use_graph_on(axis, True)
-    with cudagraph.dispatch(True), pytest.raises(ValueError,
-                                                 match=f"{world} ranks"):
-        collectives.use_graph_on(axis)
+    its row's model group too) replays graphs on its own rank's card, as
+    at world size 1: no rule keeps it eager."""
+    _graphed_on_own_card(_nccl_axis(monkeypatch, n, world, index=n - 1),
+                         n - 1)
 
 
 def test_rows_of_one_card_are_graphed_rows_across_cards_are_not():
@@ -427,6 +431,62 @@ def test_gloo_rank_graph_path_equals_its_eager_run(gloo_ranks, path):
 def test_gloo_ranks_build_no_graph_by_default(gloo_ranks):
     ranks, _ = gloo_ranks
     assert [r["graphs_built"] for r in ranks] == [[], []]
+
+
+@pytest.fixture(scope="module", params=[2, 4])
+def graph_ranks(request, tmp_path_factory):
+    """Scenario ``graph``'s ranks over 2 gloo ranks (``gloo_ranks``) and
+    over 4."""
+    if request.param == 2:
+        return request.getfixturevalue("gloo_ranks")[0]
+    where = str(tmp_path_factory.mktemp("graph4"))
+    return wk.run_ranks("graph", 4, where)[0]
+
+
+def _by_group(issued, rank) -> dict:
+    """A rank's collectives split by their group: {group ranks: [(kind,
+    shape, dtype, pairs), ...]}, for the groups ``rank`` belongs to."""
+    out = {}
+    for kind, ranks, shape, dtype, pairs in issued:
+        assert rank in ranks
+        out.setdefault(ranks, []).append((kind, shape, dtype, pairs))
+    return out
+
+
+def test_ranks_capture_the_same_collectives_in_the_same_order(graph_ranks):
+    """In the CPU form of the graph paths, every path's captures (the mesh
+    steps and scans, the three solvers) issue collectives, and every rank
+    of each group issues that group's collectives in the same order, with
+    the same shapes and dtypes: NCCL waits in a graph whose collectives
+    differ between ranks. Ranks of different rows issue lists of the same
+    form."""
+    paths = graph_ranks[0]["issued"].keys()
+    assert set(paths) == set(graph_ranks[0]["body"])
+    for path in paths:
+        lists = [r["issued"][path] for r in graph_ranks]
+        assert lists[0], path
+        groups = {}
+        for rank, issued in enumerate(lists):
+            for ranks, got in _by_group(issued, rank).items():
+                groups.setdefault(ranks, []).append((rank, got))
+        for ranks, got in groups.items():
+            assert [r for r, _ in got] == list(ranks), (path, ranks)
+            assert all(g == got[0][1] for _, g in got), (path, ranks)
+        assert all([(k, len(g), s, d) for k, g, s, d, _ in x]
+                   == [(k, len(g), s, d) for k, g, s, d, _ in lists[0]]
+                   for x in lists), path
+
+
+def test_destroying_the_group_releases_the_captures_holding_it(graph_ranks):
+    """Each rank's captures that hold collectives of its groups are
+    released when the rank destroys its process group
+    (``torch.distributed.destroy_process_group``, wrapped once a capture
+    holds collectives): NCCL destroys a communicator only after every
+    graph holding its work is gone."""
+    for r in graph_ranks:
+        assert r["held_before_teardown"] > 0
+        assert r["held_after_teardown"] == 0
+        assert r["teardown_releases"]
 
 
 # --- on the card --------------------------------------------------------------
@@ -554,16 +614,18 @@ def test_nccl_rank_graphed_equals_eager_on_one_card(cuda_device, tmp_path):
 @pytest.mark.parametrize("n", [2, 4])
 def test_rank_graphs_across_cards_equal_eager(cuda_device, tmp_path, n):
     """One NCCL rank per card on 2 cards ((2, 1), (1, 2) meshes) and on 4
-    ((2, 2), (1, 4)), both routes, and the solvers over n ranks: each
-    rank's default run equals its eager run bit for bit, and every rank
-    gets the same results. A rank of a world of more than one rank steps
-    eagerly by rule: no graph is built, and a graph asked for on the line
-    of n ranks raises."""
+    ((2, 2), (1, 4)), both routes, and the solvers over n ranks: every rank
+    builds graphs and replays them by default, each rank's graphed run
+    equals its eager run bit for bit with its launches, every rank gets
+    the same solver outputs, and the line of n ranks accepts a graph. Each
+    rank then destroys its group, which releases the graphs holding its
+    collectives first."""
     ranks = _card_graph_ranks(tmp_path, n)
     for r in ranks:
+        assert r["graphs_built"]
         assert _equal(r["graphed"], r["eager"])
-        assert r["graphs_built"] == []
-        assert r["line_refuses_graph"]
+        assert r["line_accepts_graph"]
+        assert r["held_after_teardown"] == 0
     for r in ranks[1:]:
         for path in r["graphed"]:
             if not path.startswith(("step", "scan")):

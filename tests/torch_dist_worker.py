@@ -23,10 +23,16 @@ batched scenario also reads the JAX package's state and RANSAC draws from
 - ``graph`` (gloo, the CPU): the mesh step, the chunked scan and the
   solvers (``graph_paths``) by default, where gloo ranks step eagerly by
   rule, with the graphs built counted, and in the CPU form of their graph
-  paths (``body_form``); ``card_graph`` (NCCL, one rank per card, and at
-  world size 1 on one card): the same paths inside
-  ``utils.cudagraph.dispatch(False)`` and by default, replayed from CUDA
-  graphs, every capture logged (tests/test_torch_graph_mesh.py).
+  paths (``body_form``), with the collectives each path's captures issued
+  and the captures holding collectives before and after the group is
+  destroyed; ``card_graph`` (NCCL, one rank per card, and at world size 1
+  on one card): the same paths inside ``utils.cudagraph.dispatch(False)``
+  and by default, replayed from CUDA graphs, every capture and replay
+  logged (tests/test_torch_graph_mesh.py, scripts/nccl_graph_probe.py).
+
+Each rank destroys its process group before it saves its results (the
+graph scenarios with the teardown's seconds and the captures still holding
+collectives after it).
 """
 
 import contextlib
@@ -422,14 +428,43 @@ def _state_summary(state) -> dict:
                            for g in cudagraph.generators(r)]}
 
 
-def _counted(fn) -> dict:
-    """``fn()``'s result with the LK launches it counted."""
+def _counted(fn, issued=None, name=None) -> dict:
+    """``fn()``'s result with the LK launches it counted; with ``issued``
+    (a dict) also ``issued[name]``, the collectives of the captures ``fn``
+    replayed (``captured_collectives``)."""
     before = cudagraph.launch_counts()
+    seen = _replays_by_capture()
     out = fn()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     after = cudagraph.launch_counts()
+    if issued is not None:
+        issued[name] = captured_collectives(seen)
     return {"out": out, "launches": {k: after[k] - before[k] for k in after}}
+
+
+def _captures():
+    return [c for g in list(cudagraph._GRAPHED) for c in g.captures.values()]
+
+
+def _replays_by_capture() -> dict:
+    return {id(c): c.replays for c in _captures()}
+
+
+def captured_collectives(seen: dict) -> list:
+    """The collectives (kind, group ranks, shape, dtype, ppermute pairs) of
+    every capture replayed since ``seen`` (``_replays_by_capture``), in
+    capture order, captures ordered by label and then by their lists."""
+    caps = [c for c in _captures() if c.replays > seen.get(id(c), 0)]
+    lists = sorted((c.label, [(x.kind, x.ranks, x.shape, str(x.dtype),
+                               x.pairs) for x in c.collectives])
+                   for c in caps)
+    return [x for _, issued in lists for x in issued]
+
+
+def held_captures() -> int:
+    """The captures alive that hold collectives of a process group."""
+    return sum(bool(c.collectives) for c in _captures())
 
 
 def mesh_step_run(config, sequences, mesh, steps=GRAPH_STEPS,
@@ -460,35 +495,39 @@ def mesh_scan_run(config, sequences, mesh, steps=GRAPH_STEPS) -> dict:
     return {"outputs": [_own(x) for x in out], **_state_summary(st)}
 
 
-def graph_solvers(devices, D: int, device="cpu") -> dict:
+def graph_solvers(devices, D: int, device="cpu", issued=None) -> dict:
     """The three solvers over a line of D ``devices``: landmark shards on a
     (1, D) mesh, the ring (halo 2; auto halo with Huber) on a "seq" axis,
-    the graph's edges over a "model" axis; problems on ``device``."""
+    the graph's edges over a "model" axis; problems on ``device``.
+    ``issued`` as ``_counted``'s, by path name."""
     out = {}
     p = problem.synthetic_ba_problem(device=device, **BA)[0]
     got = _counted(lambda: sharded_ba_solve(
         p, make_mesh({"data": 1, "model": D}, devices),
-        iterations=GRAPH_ITERS))
+        iterations=GRAPH_ITERS), issued, "sharded_ba")
     out["sharded_ba"] = dict(got, out=[_own(x) for x in got["out"][:2]])
     seq = make_mesh({"seq": D}, devices)
     for name, prob in ring_problems().items():
         prob = prob._replace(**{k: getattr(prob, k).to(device) for k in (
             "poses", "landmarks", "observations", "mask")})
         kw = dict(RING_RUNS[name], rounds=GRAPH_ITERS)
-        got = _counted(lambda: ring_ba_solve(prob, seq, **kw))
+        got = _counted(lambda: ring_ba_solve(prob, seq, **kw), issued,
+                       f"ring_{name}")
         out[f"ring_{name}"] = dict(got, out=[_own(x) for x in got["out"][:2]])
     g = circle_graph()
     g = g._replace(**{k: getattr(g, k).to(device) for k in g._fields})
     got = _counted(lambda: posegraph.sharded_posegraph_solve(
-        g, make_mesh({"model": D}, devices), iterations=GRAPH_ITERS))
+        g, make_mesh({"model": D}, devices), iterations=GRAPH_ITERS),
+        issued, "posegraph")
     out["posegraph"] = dict(got, out=[_own(got["out"].nodes)])
     return out
 
 
-def graph_paths(devices, world: int, device="cpu", routes=("pallas",)) -> dict:
+def graph_paths(devices, world: int, device="cpu", routes=("pallas",),
+                issued=None) -> dict:
     """The mesh step and the chunked scan on GRAPH_MESHES[world] (and each
     LK route of ``routes``) and the solvers, each with the launches it
-    counted, by path name."""
+    counted, by path name; ``issued`` as ``_counted``'s."""
     sequences = graph_sequences()
     out = {}
     for shape in GRAPH_MESHES[world]:
@@ -497,10 +536,10 @@ def graph_paths(devices, world: int, device="cpu", routes=("pallas",)) -> dict:
             mesh = make_mesh({"data": shape[0], "model": shape[1]}, devices)
             name = f"{shape[0]}x{shape[1]}_{route}"
             out[f"step_{name}"] = _counted(lambda: mesh_step_run(
-                cfg, sequences, mesh, device=device))
+                cfg, sequences, mesh, device=device), issued, f"step_{name}")
             out[f"scan_{name}"] = _counted(lambda: mesh_scan_run(
-                cfg, sequences, mesh))
-    out.update(graph_solvers(devices, world, device))
+                cfg, sequences, mesh), issued, f"scan_{name}")
+    out.update(graph_solvers(devices, world, device, issued))
     return out
 
 
@@ -604,10 +643,14 @@ def main() -> int:
     elif scenario == "graph":
         with graphs_built() as built:
             default = graph_paths(devices, world)
-        with body_form():
-            body = graph_paths(devices, world)
+        issued = {}
+        # ``made`` keeps the body form's graph objects, and so their
+        # captures, alive up to the teardown
+        with body_form() as made:
+            body = graph_paths(devices, world, issued=issued)
         res = {"default": default, "graphs_built": list(built),
-               "body": body}
+               "body": body, "issued": issued,
+               "held_before_teardown": held_captures()}
     elif scenario == "card_graph":
         # each capture's warm-up, capture and end in the rank's log, so
         # that a hang names the body whose collectives it waits in
@@ -619,25 +662,30 @@ def main() -> int:
         dev = devices[rank].device
         with cudagraph.dispatch(False):
             eager = graph_paths(devices, world, dev, ROUTES)
+        issued = {}
         with graphs_built() as built:
-            graphed = graph_paths(devices, world, dev, ROUTES)
+            graphed = graph_paths(devices, world, dev, ROUTES, issued)
         line = mesh_axis(make_mesh({"x": world}, devices), "x")
-        try:
-            with cudagraph.dispatch(True):
-                collectives.use_graph_on(line)
-            refused = False
-        except ValueError:
-            refused = True
-        res = {"eager": eager, "graphed": graphed,
-               "graphs_built": list(built), "line_refuses_graph": refused}
+        with cudagraph.dispatch(True):
+            accepts = collectives.use_graph_on(line)
+        res = {"eager": eager, "graphed": graphed, "issued": issued,
+               "graphs_built": list(built), "line_accepts_graph": accepts,
+               "held_before_teardown": held_captures()}
     elif scenario == "batch":
         res = {"runs": run_batch(devices, batch_sequences()),
                "jax_fed": jax_fed_steps(devices, os.path.join(
                    where, "jax_batch.npz"))}
     else:
         raise ValueError(f"unknown scenario {scenario!r}")
-    torch.save(res, os.path.join(where, f"{scenario}-rank{rank}.pt"))
+    t = time.monotonic()
     torch.distributed.destroy_process_group()
+    if scenario in ("graph", "card_graph"):
+        res.update(teardown_s=time.monotonic() - t,
+                   held_after_teardown=held_captures(),
+                   teardown_releases=getattr(
+                       torch.distributed.destroy_process_group,
+                       "releases_graphs", False))
+    torch.save(res, os.path.join(where, f"{scenario}-rank{rank}.pt"))
     print(f"rank {rank} OK", flush=True)
     return 0
 

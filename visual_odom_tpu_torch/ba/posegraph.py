@@ -241,9 +241,9 @@ def sharded_posegraph_solve(graph: PoseGraph, mesh, iterations: int = 10,
     the same solved nodes. On a card each iteration replays its CUDA graph
     (``utils.cudagraph.GraphedLoop``: on an axis of one card the whole
     update, across cards in one process each card's graphs in turn, on an
-    NCCL rank at world size 1 its own with the all-gathers inside), bit
-    for bit the eager loop; gloo ranks and the ranks of a larger world
-    iterate eagerly by rule (``parallel.collectives.graph_place``)."""
+    NCCL rank its own with the all-gathers inside), bit for bit the eager
+    loop; gloo ranks iterate eagerly by rule
+    (``parallel.collectives.graph_place``)."""
     from visual_odom_tpu_torch.parallel.collectives import (axis_key,
                                                             axis_size, shards,
                                                             use_graph_on)

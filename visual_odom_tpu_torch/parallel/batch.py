@@ -48,12 +48,12 @@ single-sequence doors); a row of one card named several times, the graph
 of its split step (``_graphed_split_step``); a row across distinct
 cards in one process, the graphs of its split step on each card in turn,
 cut at the copies between cards (``utils.cudagraph._Recording``); an
-NCCL rank at world size 1, the graph of its row's split step with the
-model group's all-gather inside. Every row's replay is issued before any
-output moves to the home device, so that rows on different cards
-overlap. A rank over gloo and a rank of a larger world step eagerly by
-rule (``parallel.collectives.graph_place``), as does a call given
-``uniforms``.
+NCCL rank, the graph of its row's split step with the model group's
+all-gather inside (the data group's all-gather of the outputs stays
+outside it). Every row's replay is issued before any output moves to the
+home device, so that rows on different cards overlap. A rank over gloo
+steps eagerly by rule (``parallel.collectives.graph_place``), as does a
+call given ``uniforms``.
 """
 
 from __future__ import annotations
@@ -162,7 +162,7 @@ def _graphed_split_step(config: VOConfig, intrinsics: CameraIntrinsics,
                         slots, _replay_body: bool = False) -> GraphedStep:
     """The batched step of a mesh row whose LK launches split their slots
     over ``slots`` (a tuple of devices: one card named several times, or
-    distinct cards; or an NCCL ``RankAxis`` of one rank) as a
+    distinct cards; or this rank's NCCL model ``RankAxis``) as a
     ``GraphedStep``, one per (config, intrinsics, slots) in a process."""
     dev = graph_place(slots)[0]
     return GraphedStep(make_step_fn(

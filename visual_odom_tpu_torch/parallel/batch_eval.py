@@ -123,8 +123,8 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
     ``make_batched_step_fn`` for ``chunk == 0``, whose graphs are captured
     before the wall): the batched step's on one card, each data row's on
     a one-process mesh (a row across cards, each card's graphs in turn),
-    each rank's on a mesh of one NCCL rank (world size 1). Gloo ranks and
-    the ranks of a larger world step eagerly
+    each rank's on a mesh of NCCL ranks (every rank captures before the
+    wall, together). Gloo ranks step eagerly
     (``parallel.collectives.graph_place``).
     """
     if mesh is not None and device is not None:

@@ -22,6 +22,10 @@ issues, and each function below maps such a list to another. The axis
   ``broadcast`` but not in ``send``/``recv`` (its TCP pairs write from the
   host), so a gloo ``ppermute`` of CUDA tensors goes through the host.
 
+Every collective of the process form is noted to ``utils.cudagraph``
+(``note_collective``): inside a capture it joins the capture's list, and
+the graph is released before its group is destroyed.
+
 Both forms give the same bits: ``psum`` gathers every shard and adds them
 in shard order, shard 0 + shard 1 + ... + shard D-1, where NCCL's
 ``all_reduce`` would add them in its own ring or tree order. Scalars stay
@@ -73,25 +77,17 @@ def graph_place(axis) -> tuple:
     one-process row or axis, a list or tuple of devices; or a
     ``RankAxis``) keeps its static buffers, and whether it may be
     captured: (the device, why ``axis`` steps eagerly by rule or None).
-    A rank axis' device is its own rank's; a one-process axis', its first
-    device's, and a one-process axis across cards captures every card's
-    work (``graph_devices``). Eager by rule:
-
-    - a rank axis over gloo: its collectives run on the host;
-    - a rank axis of a world of more than one rank: NCCL collectives
-      inside a capture are held to their eager run at world size 1 only;
-      captured across 2 and 4 cards they failed (ROADMAP queue 3).
+    A rank axis' device is its own rank's, and an NCCL rank axis, in a
+    world of any size, captures its collectives inside its graph; a
+    one-process axis' device is its first device's, and a one-process axis
+    across cards captures every card's work (``graph_devices``). Eager by
+    rule: a rank axis over gloo, whose collectives run on the host.
     """
     if isinstance(axis, RankAxis):
         dev = torch.device(axis.devices[axis.index])
         backend = _dist().get_backend(axis.group)
         if backend != "nccl":
             return dev, f"{backend}'s collectives run on the host"
-        world = _dist().get_world_size()
-        if world > 1:
-            return dev, (f"a rank of a world of {world} ranks: NCCL "
-                         f"collectives inside a capture are not yet held "
-                         f"to their eager run across cards")
         return dev, None
     return graph_devices(axis)[0], None
 
@@ -132,6 +128,7 @@ def gather(parts: Sequence[torch.Tensor], axis, sizes=None) -> list:
     if send.dtype == torch.bool:
         send = send.to(torch.uint8)
     out = [torch.empty_like(send) for _ in axis.ranks]
+    cudagraph.note_collective("all_gather", axis.group, axis.ranks, send)
     _dist().all_gather(out, send, group=axis.group)
     group_rank = [_dist().get_group_rank(axis.group, r) for r in axis.ranks]
     got = [out[g].to(x.dtype) for g in group_rank]
@@ -168,6 +165,7 @@ def broadcast(x: torch.Tensor, axis) -> list:
     shard 0's ``x`` on this rank, sent from shard 0's rank."""
     if isinstance(axis, RankAxis):
         y = x.contiguous().clone()
+        cudagraph.note_collective("broadcast", axis.group, axis.ranks, y)
         _dist().broadcast(y, src=axis.ranks[0], group=axis.group)
         return [y]
     devs = [torch.device(d) for d in axis]
@@ -200,6 +198,7 @@ def ppermute(parts: Sequence[torch.Tensor], perm, axis=None) -> list:
                 for p, o in zip(parts, out)]
     (x,) = parts
     me = axis.index
+    cudagraph.note_collective("ppermute", axis.group, axis.ranks, x, perm)
     gloo = _dist().get_backend(axis.group) == "gloo"
     if gloo and (me, me) in perm:
         return [x.clone()]        # gloo's pairs do not reach their own rank

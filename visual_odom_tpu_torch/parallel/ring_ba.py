@@ -336,9 +336,9 @@ def ring_ba_solve(
     the eager round: on an axis of one card the whole round; on an axis
     across cards in one process each card's graphs in turn, cut at the
     copies between windows (``utils.cudagraph._Recording``); on an NCCL
-    rank at world size 1 its own window's with the ``ppermute``s and
-    all-gathers inside. Gloo ranks and the ranks of a larger world iterate
-    eagerly by rule (``parallel.collectives.graph_place``).
+    rank its own window's with the ``ppermute``s and all-gathers inside.
+    Gloo ranks iterate eagerly by rule
+    (``parallel.collectives.graph_place``).
     """
     ax = mesh_axis(mesh, axis)
     mine = shards(ax)

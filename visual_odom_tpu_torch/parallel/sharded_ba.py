@@ -23,8 +23,8 @@ JAX package's ``jit`` of a ``lax.scan`` over the iterations: on an axis of
 one card (named once per shard) the whole iteration, on an axis across
 cards in one process each card's graphs in turn, cut at the ``psum``'s
 copies between cards (``utils.cudagraph._Recording``), on an NCCL rank
-at world size 1 the rank's iteration with its all-gathers inside. Gloo
-ranks and the ranks of a larger world iterate eagerly by rule
+(in a world of any size) the rank's iteration with its all-gathers
+inside. Gloo ranks iterate eagerly by rule
 (``parallel.collectives.graph_place``).
 """
 

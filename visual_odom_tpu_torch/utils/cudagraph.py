@@ -30,17 +30,17 @@ the pipe and the solvers build on it. On a card they are the default of:
   (``parallel.batch``), and ``sharded_ba_solve``, ``ring_ba_solve`` (one
   GN round a replay) and ``sharded_posegraph_solve`` replay their
   iteration, on one card or, across cards, each card's graphs in turn
-  (``_Recording``); an NCCL rank at world size 1 replays its own, the
-  NCCL collectives of the step (the split LK launches' all-gather) or of
-  the iteration (``psum``, ``gather``, ``ppermute``) captured inside the
-  graph.
+  (``_Recording``); an NCCL rank, in a world of any size, replays its
+  own, the NCCL collectives of the step (the split LK launches'
+  all-gather) or of the iteration (``psum``, ``gather``, ``ppermute``)
+  captured inside the graph.
 
 The CPU has no graphs: there every path runs eagerly. ``use_graph`` picks
 by device; ``dispatch`` is the switch: inside ``dispatch(False)`` every
 path runs eagerly on a card too (the reference a graph is held to),
 inside ``dispatch(True)`` replays graphs, which raises on the CPU and where
 the caller's place steps eagerly by rule (``parallel.collectives.
-graph_place``: a gloo rank axis, a rank of a world of several ranks).
+graph_place``: a gloo rank axis).
 ``make_scan_step_fn`` and
 ``VisualOdometry`` also take a private ``_graph`` that overrides both.
 
@@ -86,6 +86,17 @@ each, cut into graphs at its copies between cards (``_Recording``,
 ``moves``). Nothing synchronises with the host. A capture that fails
 ends every capture this thread has open, on every card
 (``end_captures``), and raises; nothing falls back to the eager path.
+Every capture and every replay is logged at DEBUG on this module's logger.
+
+Collectives of a process group inside a capture (``parallel.collectives``
+notes each: ``note_collective``) are listed on the capture
+(``_Capture.collectives``), and the graph then holds the group's NCCL
+communicator: NCCL destroys a communicator only once every graph holding
+its work is gone, and waits for them until then. So the first such
+capture wraps ``torch.distributed.destroy_process_group`` (and the
+process' exit) to release those graphs first (``release``: each card
+synchronised, the graphs destroyed, the captures dropped); a caller
+destroys its groups as it always does.
 
 Launch counts: the LK wrappers count the kernels they launch
 (``lk_circular_quad.launches`` and ``lk_track_pyramid.launches``, and
@@ -97,12 +108,16 @@ replay then adds its launches to the counts.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
+import functools
 import logging
 import threading
 import time
 import warnings
+import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -476,22 +491,35 @@ def _key(state, *inputs) -> tuple:
 class _Capture:
     """One captured graph, its static step and its launches per replay.
     ``graph`` is what replays: a ``_Recording`` on a card, a ``_Tape`` in
-    the CPU form of a body over several positions."""
+    the CPU form of a body over several positions. ``collectives`` lists
+    the collectives of process groups the capture issued, in order
+    (``Collective``)."""
 
     def __init__(self, static, graph, packed, per_replay: dict,
-                 seconds: float):
+                 seconds: float, label: str = "", collectives=()):
         self.static = static
         self.graph = graph
         self.packed = packed
         self.per_replay = per_replay
         self.seconds = seconds
+        self.label = label
+        self.collectives = list(collectives)
         self.replays = 0
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
         self.replays += 1
+        _log.debug("replay %d of %s", self.replays, self.label)
         add_launches(self.per_replay)
         return self.packed
+
+    def release(self) -> None:
+        """Wait for the work of the cards the graph runs on, and destroy
+        its graphs (a ``_Recording``'s; the CPU forms hold none to
+        destroy). The capture replays no more."""
+        if isinstance(self.graph, _Recording):
+            self.graph.release()
+        self.graph = None
 
 
 def _taken_back(static, body):
@@ -510,15 +538,18 @@ def _taken_back(static, body):
 class _BodyCapture(_Capture):
     """The CPU form of a capture: after the same warm-up, whose draws and
     launches are taken back, each replay runs the body itself (and counts
-    the launches it makes)."""
+    the launches it makes). The collectives the warm-up issued are the
+    capture's."""
 
-    def __init__(self, static, body):
-        _taken_back(static, body)
-        super().__init__(static, None, None, {}, 0.0)
+    def __init__(self, static, body, label=""):
+        with _issuing() as issued:
+            _taken_back(static, body)
+        super().__init__(static, None, None, {}, 0.0, label, issued)
         self.body = body
 
     def replay(self):
         self.replays += 1
+        _log.debug("replay %d of %s", self.replays, self.label)
         return self.body()
 
 
@@ -581,6 +612,94 @@ def _release_pool(pool, device) -> None:
         torch._C._cuda_endAllocateToPool(device.index, pool)
     except Exception:  # noqa: BLE001 - it was taken out already
         pass
+
+
+class Collective(NamedTuple):
+    """A collective of a process group issued inside a capture: its kind
+    ("all_gather", "broadcast", "ppermute"), the ranks of its group, the
+    shape and dtype of the tensor this rank sends, the pairs of a
+    ``ppermute`` (shard indices), and the group."""
+
+    kind: str
+    ranks: tuple
+    shape: tuple
+    dtype: torch.dtype
+    pairs: tuple
+    group: object
+
+
+@contextlib.contextmanager
+def _issuing():
+    """Collect the collectives noted on this thread inside the block
+    (``note_collective``) into the list it yields."""
+    prev, _THREAD.issued = getattr(_THREAD, "issued", None), []
+    try:
+        yield _THREAD.issued
+    finally:
+        _THREAD.issued = prev
+
+
+def note_collective(kind: str, group, ranks, tensor: torch.Tensor,
+                    pairs=()) -> None:
+    """Note a collective over ``group`` (``parallel.collectives`` notes
+    every one of a rank axis): inside a capture it is listed on the
+    capture, in order, and logged."""
+    issued = getattr(_THREAD, "issued", None)
+    if issued is None:
+        return
+    issued.append(Collective(kind, tuple(ranks), tuple(tensor.shape),
+                             tensor.dtype, tuple(pairs), group))
+    _log.debug("captured %s over ranks %s: %s %s", kind, tuple(ranks),
+               tuple(tensor.shape), tensor.dtype)
+
+
+#: every GraphedStep and GraphedLoop alive (``release`` looks at them)
+_GRAPHED = weakref.WeakSet()
+
+
+def release(groups=None) -> int:
+    """Release every capture that holds collectives of a process group in
+    ``groups`` (a list; None: of any group): wait for the cards it runs on,
+    destroy its graphs and drop it, so that its next call captures again.
+    Returns the number released. ``torch.distributed.destroy_process_group``
+    calls it first once a graph holds a group's collectives
+    (``_guard_teardown``)."""
+    n = 0
+    for graphed in list(_GRAPHED):
+        with graphed._lock:
+            for key, cap in list(graphed.captures.items()):
+                if any(groups is None or any(c.group is g for g in groups)
+                       for c in cap.collectives):
+                    cap.release()
+                    del graphed.captures[key]
+                    n += 1
+    if n:
+        _log.debug("released %d captures holding collectives", n)
+    return n
+
+
+def _guard_teardown() -> None:
+    """Make ``torch.distributed.destroy_process_group`` release the graphs
+    that hold the collectives of the groups it destroys (every group's for
+    the default one) before it destroys them, and the process' exit
+    release every such graph; once. NCCL's communicator destroy waits
+    until no graph holds its work, so a graph kept past it would hold the
+    rank there for good."""
+    c10d = torch.distributed.distributed_c10d
+    destroy = c10d.destroy_process_group
+    if getattr(destroy, "releases_graphs", False):
+        return
+
+    @functools.wraps(destroy)
+    def destroy_process_group(group=None):
+        every = group is None or group == c10d.GroupMember.WORLD
+        release(None if every else [group])
+        return destroy(group)
+
+    destroy_process_group.releases_graphs = True
+    c10d.destroy_process_group = destroy_process_group
+    torch.distributed.destroy_process_group = destroy_process_group
+    atexit.register(release)
 
 
 def moves(items) -> list:
@@ -699,6 +818,16 @@ class _Recording:
             else:
                 step.replay()
 
+    def release(self) -> None:
+        """Wait for every card of the recording, then destroy its
+        graphs."""
+        for d in self.devices:
+            torch.cuda.synchronize(d)
+        for g in self.plan:
+            if not isinstance(g, list):
+                g.reset()
+        self.plan = []
+
 
 class _Tape(TorchDispatchMode):
     """The CPU form of a capture over several positions (a one-process
@@ -803,7 +932,7 @@ class _TapeCapture(_Capture):
     launches are taken back as a card's capture makes none; each replay
     replays the tape."""
 
-    def __init__(self, static, body):
+    def __init__(self, static, body, label=""):
         _taken_back(static, body)
         tape = _Tape()
 
@@ -817,10 +946,11 @@ class _TapeCapture(_Capture):
             return out, launch_counts()
 
         before = launch_counts()
-        packed, after = _taken_back(static, recorded)
+        with _issuing() as issued:
+            packed, after = _taken_back(static, recorded)
         super().__init__(static, tape, packed,
                          {k: n - before[k] for k, n in after.items()
-                          if n != before[k]}, 0.0)
+                          if n != before[k]}, 0.0, label, issued)
 
 
 def _capture(static, body, devices, label: str) -> _Capture:
@@ -848,7 +978,8 @@ def _capture(static, body, devices, label: str) -> _Capture:
             _taken_back(static, body)
             before = launch_counts()
             _log.debug("capture of %s", label)
-            with _Recording(devices, sides, static.generators) as rec:
+            with _issuing() as issued, _Recording(
+                    devices, sides, static.generators) as rec:
                 packed = body()
             _log.debug("captured %s: %d graphs", label,
                        sum(not isinstance(g, list) for g in rec.plan))
@@ -860,15 +991,21 @@ def _capture(static, body, devices, label: str) -> _Capture:
     for d in devices:
         currents[d].wait_stream(sides[d])
     return _Capture(static, rec, packed, per_replay,
-                    time.perf_counter() - t0)
+                    time.perf_counter() - t0, label, issued)
 
 
 def _make_capture(static, body, devices, replay_body, label) -> _Capture:
+    """The capture of ``body`` on a card or in a CPU form; the teardown is
+    guarded once it holds collectives."""
     if not replay_body:
-        return _capture(static, body, devices, label)
-    if len(devices) > 1:
-        return _TapeCapture(static, body)
-    return _BodyCapture(static, body)
+        cap = _capture(static, body, devices, label)
+    elif len(devices) > 1:
+        cap = _TapeCapture(static, body, label)
+    else:
+        cap = _BodyCapture(static, body, label)
+    if cap.collectives:
+        _guard_teardown()
+    return cap
 
 
 def _label(fn) -> str:
@@ -958,6 +1095,7 @@ class GraphedStep:
         self.replay_body = _replay_body
         self.captures: dict = {}
         self._lock = threading.RLock()
+        _GRAPHED.add(self)
 
     def __call__(self, state, *inputs):
         layout, new, row = self._frame(state, inputs, fetch=False)
@@ -1040,6 +1178,7 @@ class GraphedLoop:
         self.replay_body = _replay_body
         self.captures: collections.OrderedDict = collections.OrderedDict()
         self._lock = threading.Lock()
+        _GRAPHED.add(self)
 
     def __call__(self, carry, iterations: int):
         if iterations <= 0:
