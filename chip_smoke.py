@@ -3899,15 +3899,41 @@ def graph_phase(frames, courses, ref, xref, config, xconfig, intr, dev,
             captures.append(dict(config=name, frames=list(key[2]),
                                  seconds=cap.seconds,
                                  per_replay=cap.per_replay,
-                                 replays=cap.replays))
+                                 replays=_replays_of(cap)))
     print("graph_captures", json.dumps(captures))
     return launches
+
+
+def _count_replays():
+    """The replays each capture made, by capture: the captures keep no
+    count, so the ``replay`` of each of ``utils.cudagraph``'s capture forms
+    is wrapped to count them, once in a process (``run_phases`` does it
+    before any capture)."""
+    import weakref
+
+    from visual_odom_tpu_torch.utils import cudagraph
+
+    if hasattr(cudagraph._Capture.replay, "counts"):
+        return cudagraph._Capture.replay.counts
+    counts = weakref.WeakKeyDictionary()
+    for cls in (cudagraph._Capture, cudagraph._BodyCapture):
+        def counted(self, _replay=cls.__dict__["replay"]):
+            counts[self] = counts.get(self, 0) + 1
+            return _replay(self)
+        counted.counts = counts
+        cls.replay = counted
+    return counts
 
 
 def _replays(*graphed) -> int:
     """The replays made so far by every capture of these ``GraphedStep``s
     and ``GraphedLoop``s."""
-    return sum(c.replays for g in graphed for c in g.captures.values())
+    counts = _count_replays()
+    return sum(counts.get(c, 0) for g in graphed for c in g.captures.values())
+
+
+def _replays_of(capture) -> int:
+    return _count_replays().get(capture, 0)
 
 
 def door_turns(label, run, graphed_objs, rounds, per_replay=1):
@@ -4128,7 +4154,7 @@ def doors_graph_phase(frames, courses, lframes, lposes, lsnaps, config, intr,
                gn_iteration_ms_graph=iter_ms["graph"],
                gn_iteration_ms_eager=iter_ms["eager"],
                captures=[dict(shape=[list(s) for s, _ in key[0][0]][:2],
-                              seconds=c.seconds, replays=c.replays)
+                              seconds=c.seconds, replays=_replays_of(c))
                          for key, c in ba_loop.captures.items()],
                bit_exact={
                    "smoothed": _bits(smoothed["graph"], smoothed["eager"]),
@@ -4460,8 +4486,7 @@ def _failed_capture_line(dev):
         res[fail] = dict(raised=raised, captures_kept=len(loop.captures),
                          streams_capturing=sum(capturing),
                          open_captures=len(cudagraph._open()),
-                         next_capture_replays=sum(
-                             c.replays for c in again.captures.values()),
+                         next_capture_replays=_replays(again),
                          next_capture_bit_exact=_bits(got[0].cpu(),
                                                       want[0].cpu()))
     print("mesh_graph", json.dumps(res))
@@ -4709,6 +4734,7 @@ def run_phases(stack) -> int:
     from visual_odom_tpu_torch.ops import _nvcc, lk_cuda
     from visual_odom_tpu_torch.ops.lk import LKParams
 
+    _count_replays()
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()

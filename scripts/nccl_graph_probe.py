@@ -11,8 +11,7 @@ mesh step and scan on both LK routes and the three solvers, eager inside
 ``utils.cudagraph.dispatch(False)`` and then by default, where every rank
 captures and replays its graphs with its NCCL collectives inside them),
 then destroying its process group. Each rank logs each capture's warm-up,
-capture, collectives and end and each replay (the ``cudagraph`` logger at
-DEBUG), and runs with ``NCCL_DEBUG=INFO`` and
+capture, collectives and end (the ``cudagraph`` logger at DEBUG), and runs with ``NCCL_DEBUG=INFO`` and
 ``NCCL_DEBUG_SUBSYS=INIT,COLL``. A rank still running ``--limit`` - 10
 seconds after its start prints every thread's Python stack and exits
 (``faulthandler``); after ``--limit`` seconds what is left is killed.

@@ -13,8 +13,6 @@ The counterparts of tests/test_eval.py and tests/test_devkit.py:
   device node;
 - ``Frame`` triangulates as JAX's, within tests/test_torch_geometry.py's
   triangulation bound;
-- ``StageTimer`` times, and ``stage`` names appear in a ``torch.profiler``
-  trace written by ``trace_to``;
 - the public helpers at 120x160: ``pyr_down``, ``build_pyramid``,
   ``build_pyramid_with_derivs`` and ``scharr_derivatives`` within the
   pyramid tolerance of tests/test_torch_ops.py; ``euler_to_rotation``,
@@ -49,7 +47,7 @@ from visual_odom_tpu_torch.core.frame import Frame
 from visual_odom_tpu_torch.eval import devkit, kitti_eval
 from visual_odom_tpu_torch.io import camera, gyro, kitti
 from visual_odom_tpu_torch.ops import pyramid
-from visual_odom_tpu_torch.utils import notify, profiling
+from visual_odom_tpu_torch.utils import notify
 
 torch.set_num_threads(1)
 
@@ -305,23 +303,6 @@ def test_frame_triangulation_matches_jax():
     gw, jw = fr.points_world(device="cpu"), jfr.points_world()
     assert rel(gw - world[:3, 3], jw - world[:3, 3]).max() < TRI_REL
     assert fr.valid.all() and fr.valid.shape == (64,)
-
-
-def test_stage_timer_and_profiler_trace(tmp_path):
-    timer = profiling.StageTimer()
-    with timer("lk"):
-        torch.ones(64).sum()
-    with timer("pnp"):
-        pass
-    assert timer.last_ms("lk") > 0.0 and timer.last_ms("missing") == 0.0
-    assert set(timer.report()) == {"lk", "pnp"}
-    with profiling.trace_to(str(tmp_path / "trace")) as prof:
-        with profiling.stage("vo_stage_lk"):
-            torch.ones(256).cumsum(0)
-    names = {e.key for e in prof.key_averages()}
-    assert "vo_stage_lk" in names
-    with open(tmp_path / "trace" / "trace.json") as f:
-        assert "vo_stage_lk" in f.read()
 
 
 def _image(seed=3, shape=(120, 160)):

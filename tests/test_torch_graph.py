@@ -380,7 +380,7 @@ def test_each_replay_adds_its_launches():
         assert after["level_batched"] == before["level_batched"] + 160
         assert after["quad_batched"] == before["quad_batched"]
         assert after["level"] == before["level"]
-        assert fake.replays == cap.replays == 5
+        assert fake.replays == 5
     finally:
         cudagraph.set_launch_counts(before)
     assert cudagraph.launch_counts() == before

@@ -175,7 +175,7 @@ def test_captures_list_the_collectives_they_issue():
         ("all_gather", (0, 1), (3,), torch.float32, ()),
         ("ppermute", (0, 1), (1,), torch.float32, ((0, 1), (1, 0)))]
     assert all(c.group is group for c in cap.collectives)
-    assert cap.replays == 4
+    assert wk.REPLAYS[cap] == 4
     body((torch.zeros(3),))
     assert len(cap.collectives) == 2
 
@@ -278,7 +278,7 @@ def test_failing_capture_raises_and_the_next_one_replays(n):
     got = loop(_carry(axis), 3)
     want = _eager_loop(_psum_body(axis)[0], _carry(axis), 3)
     assert _equal(got, want)
-    assert [c.replays for c in loop.captures.values()] == [3]
+    assert wk.replays([loop]) == [3]
 
 
 def test_tape_refuses_a_host_read():

@@ -27,8 +27,7 @@ batched scenario also reads the JAX package's state and RANSAC draws from
   and the captures holding collectives before and after the group is
   destroyed; ``card_graph`` (NCCL, one rank per card, and at world size 1
   on one card): the same paths inside ``utils.cudagraph.dispatch(False)``
-  and by default, replayed from CUDA graphs, every capture and replay
-  logged (tests/test_torch_graph_mesh.py, scripts/nccl_graph_probe.py).
+  and by default, replayed from CUDA graphs, every capture logged (tests/test_torch_graph_mesh.py, scripts/nccl_graph_probe.py).
 
 Each rank destroys its process group before it saves its results (the
 graph scenarios with the teardown's seconds and the captures still holding
@@ -43,6 +42,7 @@ import socket
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -371,10 +371,31 @@ def body_form():
             setattr(m, name, value)
 
 
+def _count_replays():
+    """The replays each capture made, by capture: the captures keep no
+    count, so the ``replay`` of each of ``utils.cudagraph``'s capture forms
+    is wrapped to count them, once in a process."""
+    if hasattr(cudagraph._Capture.replay, "counts"):
+        return cudagraph._Capture.replay.counts
+    counts = weakref.WeakKeyDictionary()
+    for cls in (cudagraph._Capture, cudagraph._BodyCapture):
+        def counted(self, _replay=cls.__dict__["replay"]):
+            counts[self] = counts.get(self, 0) + 1
+            return _replay(self)
+        counted.counts = counts
+        cls.replay = counted
+    return counts
+
+
+#: the replays each capture made (``_count_replays``)
+REPLAYS = _count_replays()
+
+
 def replays(graphs) -> list:
     """The replays each of ``graphs`` (``GraphedStep``s or
     ``GraphedLoop``s) made, over all its captures."""
-    return [sum(c.replays for c in g.captures.values()) for g in graphs]
+    return [sum(REPLAYS.get(c, 0) for c in g.captures.values())
+            for g in graphs]
 
 
 @contextlib.contextmanager
@@ -448,14 +469,15 @@ def _captures():
 
 
 def _replays_by_capture() -> dict:
-    return {id(c): c.replays for c in _captures()}
+    return {id(c): REPLAYS.get(c, 0) for c in _captures()}
 
 
 def captured_collectives(seen: dict) -> list:
     """The collectives (kind, group ranks, shape, dtype, ppermute pairs) of
     every capture replayed since ``seen`` (``_replays_by_capture``), in
     capture order, captures ordered by label and then by their lists."""
-    caps = [c for c in _captures() if c.replays > seen.get(id(c), 0)]
+    caps = [c for c in _captures()
+            if REPLAYS.get(c, 0) > seen.get(id(c), 0)]
     lists = sorted((c.label, [(x.kind, x.ranks, x.shape, str(x.dtype),
                                x.pairs) for x in c.collectives])
                    for c in caps)

@@ -23,6 +23,7 @@ to rebuild a snapshot's pyramids.
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 import time
@@ -45,6 +46,7 @@ from visual_odom_tpu_torch.runner.pipeline import (_ChunkUploader, _concat,
                                                    _fetch, _fetch_chunks,
                                                    _on_current_stream, _sync,
                                                    chain_poses_host)
+from visual_odom_tpu_torch.utils import profiling
 from visual_odom_tpu_torch.utils.checkpoint import (BATCH_OUTPUTS,
                                                     CorruptCheckpoint,
                                                     load_batch_checkpoint,
@@ -126,6 +128,13 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
     each rank's on a mesh of NCCL ranks (every rank captures before the
     wall, together). Gloo ranks step eagerly
     (``parallel.collectives.graph_place``).
+
+    The call is a ``runner.call`` span (``utils.profiling``) holding
+    ``runner.setup`` (the initial state, the step's graphs, the first
+    chunk's read and upload), ``runner.loop`` (``wall_seconds``; inside it
+    each ``runner.wait_upload`` on the uploader, ``runner.enqueue`` of a
+    chunk's or step's replays and ``runner.fetch``) and ``runner.chain``
+    (the poses and stats); its uploader's spans join its request.
     """
     if mesh is not None and device is not None:
         raise ValueError("run_sequences_batched takes a device or a mesh, "
@@ -153,14 +162,22 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
         return (np.stack([np.asarray(f[0]) for f in fr]),
                 np.stack([np.asarray(f[1]) for f in fr]))
 
-    if chunk:
-        parts, wall = _run_chunked(stacked, B, n_steps, config, intrinsics,
-                                   seed, chunk, checkpoint_path,
-                                   checkpoint_every, verbose, snapshot_stats,
-                                   dev, mesh)
-    else:
-        parts, wall = _run_stepwise(stacked, n_steps, config, intrinsics,
-                                    seed, dev, mesh)
+    with profiling.span("runner.call"):
+        if chunk:
+            parts, wall = _run_chunked(stacked, B, n_steps, config,
+                                       intrinsics, seed, chunk,
+                                       checkpoint_path, checkpoint_every,
+                                       verbose, snapshot_stats, dev, mesh)
+        else:
+            parts, wall = _run_stepwise(stacked, n_steps, config, intrinsics,
+                                        seed, dev, mesh)
+        with profiling.span("runner.chain"):
+            poses, stats = _chained(parts, lengths, B, n_steps)
+    return poses, stats, wall
+
+
+def _chained(parts, lengths, B, n_steps) -> tuple:
+    """(poses, stats) of each sequence from the fetched outputs."""
     if parts:
         out = _concat([(p,) for p in parts])[0]
         out = _BatchOut(*(x[:n_steps] for x in out))
@@ -176,7 +193,7 @@ def run_sequences_batched(sequences: Sequence, config: VOConfig,
             "mean_inliers": float(out.num_inliers[:nb, b].mean()) if nb else 0.0,
             "fallback_frames": int(out.fallback[:nb, b].sum()),
         })
-    return poses, stats, wall
+    return poses, stats
 
 
 def _kept(out) -> _BatchOut:
@@ -190,30 +207,43 @@ def _on(dev, mesh):
 
 def _run_stepwise(stacked, n_steps, config, intrinsics, seed, dev, mesh):
     """One batched step per frame; returns ([fetched _BatchOut], wall)."""
-    state = batched_init_state(config, *stacked(0), seed=seed,
-                               **_on(dev, mesh))
-    step = make_batched_step_fn(config, intrinsics, **_on(dev, mesh))
-    if n_steps:
-        # The graphs are captured here, outside the wall (a no-op once they
-        # are, or where the step is eager; every rank of a mesh of ranks
-        # captures here together).
-        step.capture(state, *stacked(1))
     outs = []
     with ThreadPoolExecutor(max_workers=1) as ex:
-        pending = ex.submit(stacked, 1) if n_steps else None
-        _sync_all(dev, mesh)
-        t0 = time.perf_counter()
-        for i in range(1, n_steps + 1):
-            lefts, rights = pending.result()
-            if i < n_steps:
-                pending = ex.submit(stacked, i + 1)
-            state, out = step(state, torch.from_numpy(lefts).to(dev),
-                              torch.from_numpy(rights).to(dev))
-            outs.append(_kept(out))
-        parts = ([_fetch(_BatchOut(*(torch.stack(x) for x in zip(*outs))))]
-                 if outs else [])
-        wall = time.perf_counter() - t0
-    return parts, wall
+        with profiling.span("runner.setup"):
+            state = batched_init_state(config, *stacked(0), seed=seed,
+                                       **_on(dev, mesh))
+            step = make_batched_step_fn(config, intrinsics, **_on(dev, mesh))
+            if n_steps:
+                # The graphs are captured here, outside the wall (a no-op
+                # once they are, or where the step is eager; every rank of
+                # a mesh of ranks captures here together).
+                step.capture(state, *stacked(1))
+            read = functools.partial(_stacked_in_span, stacked,
+                                     profiling.current_request())
+            pending = ex.submit(read, 1) if n_steps else None
+            _sync_all(dev, mesh)
+        with profiling.span("runner.loop") as loop:
+            for i in range(1, n_steps + 1):
+                with profiling.span("runner.wait_upload"):
+                    lefts, rights = pending.result()
+                if i < n_steps:
+                    pending = ex.submit(read, i + 1)
+                with profiling.span("runner.enqueue"):
+                    state, out = step(state, torch.from_numpy(lefts).to(dev),
+                                      torch.from_numpy(rights).to(dev))
+                outs.append(_kept(out))
+            with profiling.span("runner.fetch"):
+                parts = ([_fetch(_BatchOut(*(torch.stack(x)
+                                             for x in zip(*outs))))]
+                         if outs else [])
+    return parts, loop.seconds
+
+
+def _stacked_in_span(stacked, request: int, i: int):
+    """``stacked(i)`` on the prefetch thread, as an ``upload.stack`` span of
+    the runner call's ``request``."""
+    with profiling.span("upload.stack", request=request):
+        return stacked(i)
 
 
 def _run_chunked(stacked, B, n_steps, config, intrinsics, seed, chunk,
@@ -221,36 +251,9 @@ def _run_chunked(stacked, B, n_steps, config, intrinsics, seed, chunk,
                  dev, mesh):
     """The chunked loop with its snapshots; returns ([fetched _BatchOut per
     part], wall)."""
-    scan = make_batched_scan_fn(config, intrinsics, chunk, **_on(dev, mesh))
     n_chunks = -(-n_steps // chunk)
     ck_chunks = (max(1, -(-checkpoint_every // chunk)) if checkpoint_every
                  else 1)
-
-    start_chunk, prev, state = 0, None, None
-    if checkpoint_path and os.path.exists(checkpoint_path):
-        try:
-            ck = load_batch_checkpoint(checkpoint_path, B, device=dev)
-            steps_done = int(ck["frames_done"])
-            if steps_done % chunk or steps_done > n_steps:
-                raise CorruptCheckpoint(
-                    f"cursor {steps_done} not a chunk-{chunk} boundary "
-                    f"within {n_steps} steps")
-            start_chunk = steps_done // chunk
-            prev = _BatchOut(*(ck["out_" + k] for k in BATCH_OUTPUTS))
-            if start_chunk < n_chunks:
-                state = restore_batched_state(config, ck,
-                                              *stacked(steps_done),
-                                              **_on(dev, mesh))
-            if verbose:
-                print(f"resumed batched scan from {checkpoint_path} "
-                      f"at step {steps_done}")
-        except CorruptCheckpoint as e:
-            print(f"warning: rejecting corrupt checkpoint: {e}",
-                  file=sys.stderr)
-            start_chunk, prev, state = 0, None, None
-    if state is None and start_chunk < n_chunks:
-        state = batched_init_state(config, *stacked(0), seed=seed,
-                                   **_on(dev, mesh))
 
     def chunk_at(c):
         # (chunk, B, H, W); the tail repeats the final frame, whose steps
@@ -259,47 +262,94 @@ def _run_chunked(stacked, B, n_steps, config, intrinsics, seed, chunk,
         return (np.stack([f[0] for f in fr]), np.stack([f[1] for f in fr]),
                 chunk)
 
-    done = [prev] if prev is not None else []    # fetched, per part
+    done = []                                    # fetched, per part
     pending = []                                 # on the device, per chunk
 
     def fetch_pending():
-        done.extend(c[0] for c in _fetch_chunks(pending))
-        pending.clear()
+        with profiling.span("runner.fetch"):
+            done.extend(c[0] for c in _fetch_chunks(pending))
+            pending.clear()
 
-    up = _ChunkUploader((chunk_at(c) for c in range(start_chunk, n_chunks)),
-                        dev, maxsize=2)
+    with profiling.span("runner.setup"):
+        scan = make_batched_scan_fn(config, intrinsics, chunk,
+                                    **_on(dev, mesh))
+        start_chunk, prev, state = 0, None, None
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            start_chunk, prev, state = _resume(
+                checkpoint_path, stacked, B, n_steps, n_chunks, config,
+                chunk, verbose, dev, mesh)
+        if state is None and start_chunk < n_chunks:
+            state = batched_init_state(config, *stacked(0), seed=seed,
+                                       **_on(dev, mesh))
+        if prev is not None:
+            done.append(prev)
+        up = _ChunkUploader((chunk_at(c)
+                             for c in range(start_chunk, n_chunks)),
+                            dev, maxsize=2)
+        try:
+            cur = up.get()
+            _sync_all(dev, mesh)
+        except BaseException:
+            up.cancel()
+            raise
     chunks_done = start_chunk
     try:
-        cur = up.get()
-        _sync_all(dev, mesh)
-        t0 = time.perf_counter()
-        while cur is not None:
-            state, out = scan(state, _on_current_stream(cur[0]),
-                              _on_current_stream(cur[1]))
-            pending.append((_kept(out),))
-            chunks_done += 1
-            if (checkpoint_path and chunks_done < n_chunks
-                    and (chunks_done - start_chunk) % ck_chunks == 0):
-                ts = time.perf_counter()
-                arrays = batched_state_arrays(state)
-                fetch_pending()
-                steps_now = chunks_done * chunk
-                outs = _concat([(p,) for p in done])[0]
-                size = save_batch_checkpoint(
-                    checkpoint_path, steps_now, arrays,
-                    {k: v[:steps_now] for k, v in outs._asdict().items()},
-                    device=dev)
-                if snapshot_stats is not None:
-                    snapshot_stats.append({
-                        "step": steps_now, "bytes": size,
-                        "ms": 1e3 * (time.perf_counter() - ts)})
-                if verbose:
-                    print(f"batched checkpoint @ step {steps_now}")
-            cur = up.get()
-        fetch_pending()
-        wall = time.perf_counter() - t0
+        with profiling.span("runner.loop") as loop:
+            while cur is not None:
+                with profiling.span("runner.enqueue"):
+                    state, out = scan(state, _on_current_stream(cur[0]),
+                                      _on_current_stream(cur[1]))
+                pending.append((_kept(out),))
+                chunks_done += 1
+                if (checkpoint_path and chunks_done < n_chunks
+                        and (chunks_done - start_chunk) % ck_chunks == 0):
+                    ts = time.perf_counter()
+                    arrays = batched_state_arrays(state)
+                    fetch_pending()
+                    steps_now = chunks_done * chunk
+                    outs = _concat([(p,) for p in done])[0]
+                    size = save_batch_checkpoint(
+                        checkpoint_path, steps_now, arrays,
+                        {k: v[:steps_now] for k, v in outs._asdict().items()},
+                        device=dev)
+                    if snapshot_stats is not None:
+                        snapshot_stats.append({
+                            "step": steps_now, "bytes": size,
+                            "ms": 1e3 * (time.perf_counter() - ts)})
+                    if verbose:
+                        print(f"batched checkpoint @ step {steps_now}")
+                with profiling.span("runner.wait_upload"):
+                    cur = up.get()
+            fetch_pending()
     except BaseException:
         up.cancel()
         raise
     up.finish()
-    return done, wall
+    return done, loop.seconds
+
+
+def _resume(checkpoint_path, stacked, B, n_steps, n_chunks, config, chunk,
+            verbose, dev, mesh) -> tuple:
+    """(first chunk to run, the outputs fetched before it, the state) from
+    the snapshot at ``checkpoint_path``; (0, None, None), with a warning,
+    for one that cannot be trusted."""
+    try:
+        ck = load_batch_checkpoint(checkpoint_path, B, device=dev)
+        steps_done = int(ck["frames_done"])
+        if steps_done % chunk or steps_done > n_steps:
+            raise CorruptCheckpoint(
+                f"cursor {steps_done} not a chunk-{chunk} boundary "
+                f"within {n_steps} steps")
+        start_chunk = steps_done // chunk
+        prev = _BatchOut(*(ck["out_" + k] for k in BATCH_OUTPUTS))
+        state = None
+        if start_chunk < n_chunks:
+            state = restore_batched_state(config, ck, *stacked(steps_done),
+                                          **_on(dev, mesh))
+        if verbose:
+            print(f"resumed batched scan from {checkpoint_path} "
+                  f"at step {steps_done}")
+        return start_chunk, prev, state
+    except CorruptCheckpoint as e:
+        print(f"warning: rejecting corrupt checkpoint: {e}", file=sys.stderr)
+        return 0, None, None

@@ -69,6 +69,7 @@ from visual_odom_tpu_torch.frontend.matching import (commit_tracked_state,
                                                      skip_mode_match)
 from visual_odom_tpu_torch.io.kitti import PoseWriter, save_poses_kitti
 from visual_odom_tpu_torch.ops.lk import LKImage, LKParams, prepare_lk_image
+from visual_odom_tpu_torch.utils import profiling
 from visual_odom_tpu_torch.utils.checkpoint import (CorruptCheckpoint,
                                                     load_checkpoint,
                                                     load_scan_checkpoint,
@@ -453,6 +454,36 @@ def _stream_for(dev: torch.device):
     return torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
 
+class _UploadStats(dict):
+    """One uploader thread's ``stats_out`` keys, summed from its spans:
+    ``decode_s`` (its ``upload.stack`` spans), ``upload_s`` (its
+    ``upload.copy`` spans), ``upload_bytes``, ``chunks`` and
+    ``thread_wall_s``, from its first span's start to its last one's
+    end."""
+
+    def __init__(self):
+        super().__init__(decode_s=0.0, upload_s=0.0, upload_bytes=0,
+                         thread_wall_s=0.0, chunks=0)
+        self.first_ns = self.last_ns = None
+
+    def add(self, sp, key: Optional[str] = None) -> None:
+        if key is not None:
+            self[key] += sp.seconds
+        if self.first_ns is None:
+            self.first_ns = sp.start_ns
+        self.last_ns = sp.end_ns
+        self["thread_wall_s"] = (self.last_ns - self.first_ns) / 1e9
+
+    def busy_frac(self) -> float:
+        busy = self["decode_s"] + self["upload_s"]
+        return (busy / self["thread_wall_s"] if self["thread_wall_s"] > 0
+                else 0.0)
+
+
+def _mb_s(nbytes, seconds) -> float:
+    return nbytes / 1e6 / seconds if seconds > 0 else 0.0
+
+
 class _ParallelChunkUploader:
     """N threads that upload chunks and deliver them to the scan loop
     strictly in order.
@@ -461,10 +492,13 @@ class _ParallelChunkUploader:
     lock, uploads it on its own stream and puts it in a stash keyed by seq;
     ``get`` pops by seq. A thread whose chunk would stand more than
     ``max_ahead`` chunks past the consumer waits, so host and device hold
-    O(threads + max_ahead) chunks. ``stats_out`` gets the single uploader's
-    keys summed over threads, ``threads``, ``pool_wall_s``, ``per_thread``
-    rows, ``busy_frac`` (the busiest thread's) and ``agg_upload_mb_s``
-    (bytes over the pool's wall: the concurrent upload rate).
+    O(threads + max_ahead) chunks. Each thread records its spans as the
+    single uploader's do, in the request of the caller that made the
+    pool. ``stats_out`` gets the single uploader's keys summed over
+    threads, ``threads``, ``pool_wall_s`` (from the threads' first span's
+    start to their last one's end), ``per_thread`` rows, ``busy_frac``
+    (the busiest thread's) and ``agg_upload_mb_s`` (bytes over the pool's
+    wall: the concurrent upload rate).
     """
 
     def __init__(self, chunks, device: torch.device, threads: int = 3,
@@ -482,7 +516,7 @@ class _ParallelChunkUploader:
         self._err: list = []
         self._stats_out = stats_out
         self._tstats: list = []
-        self._t0 = time.perf_counter()
+        self._request = profiling.current_request()
         self._threads = [threading.Thread(target=self._run, args=(k,),
                                           daemon=True, name=f"vo-upload-{k}")
                          for k in range(max(1, threads))]
@@ -490,33 +524,37 @@ class _ParallelChunkUploader:
             t.start()
 
     def _run(self, k: int):
-        stats = {"decode_s": 0.0, "upload_s": 0.0, "upload_bytes": 0,
-                 "thread_wall_s": 0.0, "chunks": 0}
-        t_start = time.perf_counter()
+        stats = _UploadStats()
+        req = self._request
         try:
             stream = _stream_for(self._dev)
             while not self._cancel.is_set():
-                t0 = time.perf_counter()
-                with self._lock:
-                    seq = self._next_seq
-                    nxt = next(self._chunks, None)
-                    if nxt is None:
-                        with self._cond:
-                            if self._eos_seq is None or seq < self._eos_seq:
-                                self._eos_seq = seq
-                            self._cond.notify_all()
-                        return
-                    self._next_seq += 1
-                stats["decode_s"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                dl, dr = _upload(nxt[:2], self._dev, stream)
-                stats["upload_s"] += time.perf_counter() - t0
+                with profiling.span("upload.stack", request=req) as sp:
+                    with self._lock:
+                        seq = self._next_seq
+                        nxt = next(self._chunks, None)
+                        if nxt is not None:
+                            self._next_seq += 1
+                stats.add(sp, "decode_s")
+                if nxt is None:
+                    with self._cond:
+                        if self._eos_seq is None or seq < self._eos_seq:
+                            self._eos_seq = seq
+                        self._cond.notify_all()
+                    return
+                with profiling.span("upload.copy", request=req) as sp:
+                    dl, dr = _upload(nxt[:2], self._dev, stream)
+                stats.add(sp, "upload_s")
                 stats["upload_bytes"] += nxt[0].nbytes + nxt[1].nbytes
                 stats["chunks"] += 1
                 with self._cond:
-                    while (seq - self._next_get >= self._max_ahead
-                           and not self._cancel.is_set()):
-                        self._cond.wait(timeout=0.2)
+                    if seq - self._next_get >= self._max_ahead:
+                        with profiling.span("upload.queue_full",
+                                            request=req) as sp:
+                            while (seq - self._next_get >= self._max_ahead
+                                   and not self._cancel.is_set()):
+                                self._cond.wait(timeout=0.2)
+                        stats.add(sp)
                     if self._cancel.is_set():
                         return
                     self._stash[seq] = (dl, dr, nxt[2])
@@ -526,7 +564,6 @@ class _ParallelChunkUploader:
             with self._cond:
                 self._cond.notify_all()
         finally:
-            stats["thread_wall_s"] = time.perf_counter() - t_start
             self._tstats.append(stats)
 
     def get(self):
@@ -561,27 +598,24 @@ class _ParallelChunkUploader:
         self._finalize_stats()
 
     def _finalize_stats(self):
-        if self._stats_out is None or not self._tstats:
+        run = [s for s in self._tstats if s.first_ns is not None]
+        if self._stats_out is None or not run:
             return
-        wall = time.perf_counter() - self._t0
+        wall = (max(s.last_ns for s in run)
+                - min(s.first_ns for s in run)) / 1e9
         agg = {k: sum(s[k] for s in self._tstats)
                for k in ("decode_s", "upload_s", "upload_bytes", "chunks")}
         per_thread = [
-            {**s, "busy_frac": ((s["decode_s"] + s["upload_s"])
-                                / s["thread_wall_s"]
-                                if s["thread_wall_s"] > 0 else 0.0),
-             "upload_mb_s": (s["upload_bytes"] / 1e6 / s["upload_s"]
-                             if s["upload_s"] > 0 else 0.0)}
+            {**s, "busy_frac": s.busy_frac(),
+             "upload_mb_s": _mb_s(s["upload_bytes"], s["upload_s"])}
             for s in self._tstats]
         self._stats_out.update(
             agg, threads=len(self._threads), pool_wall_s=wall,
             per_thread=per_thread,
             busy_frac=max(t["busy_frac"] for t in per_thread),
             # per-stream rate, and the concurrent rate over the pool's wall
-            upload_mb_s=(agg["upload_bytes"] / 1e6 / agg["upload_s"]
-                         if agg["upload_s"] > 0 else 0.0),
-            agg_upload_mb_s=(agg["upload_bytes"] / 1e6 / wall
-                             if wall > 0 else 0.0))
+            upload_mb_s=_mb_s(agg["upload_bytes"], agg["upload_s"]),
+            agg_upload_mb_s=_mb_s(agg["upload_bytes"], wall))
 
 
 class _ChunkUploader:
@@ -589,14 +623,19 @@ class _ChunkUploader:
     iterator into a bounded queue (host memory stays O(chunk)); a None ends
     the stream.
 
+    - Spans (``utils.profiling``), in the request of the caller that made
+      the uploader: ``upload.stack`` (pulling and stacking a chunk's frames
+      from the source), ``upload.copy`` (pinning, copying and waiting for
+      the copies) and ``upload.queue_full`` (a put blocked on the full
+      queue, i.e. on the step).
     - ``cancel()``: if the consumer dies mid-loop the thread must not sit on
       a full queue holding chunks: every put is a bounded retry under a
       cancellation flag, and cancel() drains the queue and joins.
-    - ``stats_out``: ``decode_s`` (pulling and stacking frames from the
-      source), ``upload_s`` (pinning, copying and waiting for the copies),
-      ``upload_bytes``, ``thread_wall_s``, ``chunks``, ``busy_frac`` (the
-      share of the thread's wall not spent waiting on a full queue, i.e.
-      on the step) and ``upload_mb_s``.
+    - ``stats_out``, from the spans: ``decode_s`` (Σ ``upload.stack``),
+      ``upload_s`` (Σ ``upload.copy``), ``upload_bytes``,
+      ``thread_wall_s`` (the first span's start to the last one's end),
+      ``chunks``, ``busy_frac`` (the share of the thread's wall not spent
+      waiting on a full queue, i.e. on the step) and ``upload_mb_s``.
     - ``finish()``: join, and re-raise the thread's error on the caller.
     """
 
@@ -608,52 +647,64 @@ class _ChunkUploader:
         self._err: list = []
         self._cancel = threading.Event()
         self._stats_out = stats_out
+        self._stats = _UploadStats()
+        self._request = profiling.current_request()
         self._th = threading.Thread(target=self._run, daemon=True,
                                     name="vo-upload-0")
         self._th.start()
 
     def _put(self, item) -> bool:
-        while not self._cancel.is_set():
-            try:
-                self.queue.put(item, timeout=0.2)
-                return True
-            except queue.Full:
-                continue
-        return False
+        """Put ``item``, retrying while the queue is full (an
+        ``upload.queue_full`` span) until it goes in or the uploader is
+        cancelled; returns whether it went in."""
+        if self._cancel.is_set():
+            return False
+        try:
+            self.queue.put_nowait(item)
+            return True
+        except queue.Full:
+            pass
+        put = False
+        with profiling.span("upload.queue_full",
+                            request=self._request) as sp:
+            while not put and not self._cancel.is_set():
+                try:
+                    self.queue.put(item, timeout=0.2)
+                    put = True
+                except queue.Full:
+                    pass
+        self._stats.add(sp)
+        return put
+
+    def _next(self):
+        with profiling.span("upload.stack", request=self._request) as sp:
+            nxt = next(self._chunks, None)
+        self._stats.add(sp, "decode_s")
+        return nxt
 
     def _run(self):
-        stats = {"decode_s": 0.0, "upload_s": 0.0, "upload_bytes": 0,
-                 "thread_wall_s": 0.0, "chunks": 0}
-        t_start = time.perf_counter()
+        stats = self._stats
         try:
             stream = _stream_for(self._dev)
-            t0 = time.perf_counter()
-            nxt = next(self._chunks, None)
-            stats["decode_s"] += time.perf_counter() - t0
+            nxt = self._next()
             while nxt is not None and not self._cancel.is_set():
-                t0 = time.perf_counter()
-                dl, dr = _upload(nxt[:2], self._dev, stream)
-                stats["upload_s"] += time.perf_counter() - t0
+                with profiling.span("upload.copy",
+                                    request=self._request) as sp:
+                    dl, dr = _upload(nxt[:2], self._dev, stream)
+                stats.add(sp, "upload_s")
                 stats["upload_bytes"] += nxt[0].nbytes + nxt[1].nbytes
                 stats["chunks"] += 1
                 if not self._put((dl, dr, nxt[2])):
                     return
-                t0 = time.perf_counter()
-                nxt = next(self._chunks, None)
-                stats["decode_s"] += time.perf_counter() - t0
+                nxt = self._next()
         except BaseException as e:
             self._err.append(e)
         finally:
-            stats["thread_wall_s"] = time.perf_counter() - t_start
             if self._stats_out is not None:
-                busy = stats["decode_s"] + stats["upload_s"]
                 self._stats_out.update(
-                    stats,
-                    busy_frac=(busy / stats["thread_wall_s"]
-                               if stats["thread_wall_s"] > 0 else 0.0),
-                    upload_mb_s=(stats["upload_bytes"] / 1e6
-                                 / stats["upload_s"]
-                                 if stats["upload_s"] > 0 else 0.0))
+                    stats, busy_frac=stats.busy_frac(),
+                    upload_mb_s=_mb_s(stats["upload_bytes"],
+                                      stats["upload_s"]))
             self._put(None)
 
     def get(self):
@@ -1065,7 +1116,7 @@ class FrameResult(NamedTuple):
     num_inliers: int
     num_matched: int
     num_bucketed: int
-    frame_time_ms: float
+    frame_time_ms: float      # its vo.process_frame span
 
 
 class VisualOdometry:
@@ -1091,6 +1142,12 @@ class VisualOdometry:
     buffers at the next frame. ``_graph`` as ``make_scan_step_fn``'s: None
     picks by device, False steps eagerly on a card, True on the CPU
     raises.
+
+    Spans (``utils.profiling``): each frame is a ``vo.process_frame`` span,
+    whose length is its ``frame_time_ms``; inside it, on a card, the
+    graph's ``graph.input``, ``graph.replay``, ``graph.fetch`` and
+    ``graph.snapshot`` spans, then ``vo.chain`` (the float64 pose).
+    ``initialize`` is a ``vo.initialize`` span.
     """
 
     def __init__(self, config: VOConfig, intrinsics: CameraIntrinsics,
@@ -1114,36 +1171,38 @@ class VisualOdometry:
 
     def initialize(self, left0, right0) -> None:
         """Load frame 0 (reference src/main.cpp:110-113)."""
-        self.state = init_vo_state(self.config, self.intrinsics, left0,
-                                   right0, seed=self._seed,
-                                   device=self.device)
-        self.frame_pose = np.eye(4)
-        self.frame_id = 0
+        with profiling.span("vo.initialize"):
+            self.state = init_vo_state(self.config, self.intrinsics, left0,
+                                       right0, seed=self._seed,
+                                       device=self.device)
+            self.frame_pose = np.eye(4)
+            self.frame_id = 0
 
     def process_frame(self, left, right) -> FrameResult:
         if self.state is None:
             raise RuntimeError("call initialize(left0, right0) first")
-        t0 = time.perf_counter()
-        self.frame_id += 1
-        if self._graphed is not None:
-            self.state, out, *tracks = self._graphed.fetched(self.state, left,
-                                                             right)
-        else:
-            self.state, *outs = self._step(self.state, left, right)
-            out, *tracks = _fetch_many(outs)
-        if self.with_tracks:
-            self.last_tracks = tracks[0]
-        accept = bool(out.accept)
-        if accept:
-            self.frame_pose = self.frame_pose @ np.asarray(out.T_inv,
-                                                           np.float64)
-        return FrameResult(
-            frame_id=self.frame_id, pose=self.frame_pose.copy(),
-            accept=accept, scale=float(out.scale),
-            num_inliers=int(out.num_inliers),
-            num_matched=int(out.num_matched),
-            num_bucketed=int(out.num_bucketed),
-            frame_time_ms=(time.perf_counter() - t0) * 1000.0)
+        with profiling.span("vo.process_frame") as frame:
+            self.frame_id += 1
+            if self._graphed is not None:
+                self.state, out, *tracks = self._graphed.fetched(
+                    self.state, left, right)
+            else:
+                self.state, *outs = self._step(self.state, left, right)
+                out, *tracks = _fetch_many(outs)
+            if self.with_tracks:
+                self.last_tracks = tracks[0]
+            with profiling.span("vo.chain"):
+                accept = bool(out.accept)
+                if accept:
+                    self.frame_pose = self.frame_pose @ np.asarray(
+                        out.T_inv, np.float64)
+                fields = dict(frame_id=self.frame_id,
+                              pose=self.frame_pose.copy(), accept=accept,
+                              scale=float(out.scale),
+                              num_inliers=int(out.num_inliers),
+                              num_matched=int(out.num_matched),
+                              num_bucketed=int(out.num_bucketed))
+        return FrameResult(**fields, frame_time_ms=frame.seconds * 1e3)
 
 
 def _print_frame(r: FrameResult) -> None:

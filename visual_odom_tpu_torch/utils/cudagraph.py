@@ -86,7 +86,9 @@ each, cut into graphs at its copies between cards (``_Recording``,
 ``moves``). Nothing synchronises with the host. A capture that fails
 ends every capture this thread has open, on every card
 (``end_captures``), and raises; nothing falls back to the eager path.
-Every capture and every replay is logged at DEBUG on this module's logger.
+Every capture is logged at DEBUG on this module's logger and recorded as
+a ``graph.capture`` span (``utils.profiling``); a per-frame call records
+its input, replay, fetch and snapshot spans (``_StaticStep.frame``).
 
 Collectives of a process group inside a capture (``parallel.collectives``
 notes each: ``note_collective``) are listed on the capture
@@ -127,6 +129,7 @@ from torch.utils._pytree import tree_map_only
 
 from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
 from visual_odom_tpu_torch.ops.lk_cuda import lk_circular_quad
+from visual_odom_tpu_torch.utils import profiling
 
 #: the LK wrappers' launch counts: (wrapper, attribute) by name
 _COUNTERS = {"quad": (lk_circular_quad, "launches"),
@@ -440,13 +443,20 @@ class _StaticStep:
     def frame(self, state, inputs, replay, fetch=False) -> tuple:
         """One step: (state, packed outputs), the outputs a copy of the
         replay's row on the device, or with ``fetch`` the row on the host
-        (numpy, one device-to-host copy)."""
-        self.load(state)
-        for d, x in zip(self.inputs, inputs, strict=True):
-            d.copy_(x)
-        packed = replay()
-        row = packed.cpu().numpy() if fetch else packed.clone()
-        return self.snapshot(state), row
+        (numpy, one device-to-host copy). Spans: ``graph.input`` (the
+        state's load and the inputs' copies), ``graph.replay``,
+        ``graph.fetch`` (the row's copy; with ``fetch`` it waits for the
+        device) and ``graph.snapshot``."""
+        with profiling.span("graph.input"):
+            self.load(state)
+            for d, x in zip(self.inputs, inputs, strict=True):
+                d.copy_(x)
+        with profiling.span("graph.replay"):
+            packed = replay()
+        with profiling.span("graph.fetch"):
+            row = packed.cpu().numpy() if fetch else packed.clone()
+        with profiling.span("graph.snapshot"):
+            return self.snapshot(state), row
 
 
 class _StaticLoop:
@@ -504,12 +514,9 @@ class _Capture:
         self.seconds = seconds
         self.label = label
         self.collectives = list(collectives)
-        self.replays = 0
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
-        self.replays += 1
-        _log.debug("replay %d of %s", self.replays, self.label)
         add_launches(self.per_replay)
         return self.packed
 
@@ -548,8 +555,6 @@ class _BodyCapture(_Capture):
         self.body = body
 
     def replay(self):
-        self.replays += 1
-        _log.debug("replay %d of %s", self.replays, self.label)
         return self.body()
 
 
@@ -995,14 +1000,18 @@ def _capture(static, body, devices, label: str) -> _Capture:
 
 
 def _make_capture(static, body, devices, replay_body, label) -> _Capture:
-    """The capture of ``body`` on a card or in a CPU form; the teardown is
-    guarded once it holds collectives."""
-    if not replay_body:
-        cap = _capture(static, body, devices, label)
-    elif len(devices) > 1:
-        cap = _TapeCapture(static, body, label)
-    else:
-        cap = _BodyCapture(static, body, label)
+    """The capture of ``body`` on a card or in a CPU form, as a
+    ``graph.capture`` span labelled ``label`` and a count of
+    ``graph.captures`` (``utils.profiling``); the teardown is guarded once
+    it holds collectives."""
+    with profiling.span("graph.capture", label=label):
+        if not replay_body:
+            cap = _capture(static, body, devices, label)
+        elif len(devices) > 1:
+            cap = _TapeCapture(static, body, label)
+        else:
+            cap = _BodyCapture(static, body, label)
+    profiling.count("graph.captures")
     if cap.collectives:
         _guard_teardown()
     return cap
