@@ -294,8 +294,26 @@ the CUDA toolkit. Phases (each raises on failure; nothing is caught):
    rank's scan on both routes and the three solvers, graphed (the NCCL
    collectives inside the graphs) against eager, the rank's ms a step both
    ways.
+18. PnP-RANSAC's refinement kernels (``pnp`` lines; ``backend.pnp``,
+   ``csrc/pnp_gn.cu``): built, each held to its plain twin at the main
+   path's shapes (PNP_N slots, PNP_HYPS hypotheses of PNP_SAMPLE points,
+   PNP_ITERS iterations and twice as many for the polish) at each B of
+   PNP_B (``io.pnp_scene``'s scene, the card tests' criteria): no pose
+   finite on one side alone; the polish within PNP_POLISH_TOL of the plain
+   twin; the hypotheses' distance to the float64 plain twin, at
+   PNP_HYP_QUANTILES, at most PNP_HYP_FACTOR x the plain twin's; each
+   launch's device ms eagerly and in a graph's replay (equal to the eager
+   launch bit for bit) beside the plain twin's replay and its latency
+   bound; ``pnp_ransac`` on the card launching each kernel once.
+   ``chip_smoke.py --pnp`` runs this phase alone.
 
-Prints the ``{"kernels": [...]}`` line, the card line, and last
+Every run whose launches a phase checks is held to one launch of each PnP
+kernel a step as well (``check_counts``; every counter of
+``utils.cudagraph`` is set to 0 before the run and read after it), and
+each profiled replay shows each PnP kernel once a step.
+
+Prints the ``{"kernels": [...]}`` line (the PnP kernels' rows with their
+launches on each path driven), the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
 the port is not beside this script.
 """
@@ -525,6 +543,49 @@ MESH_GRAPH_STEPWISE = 4
 MESH_GRAPH_PROFILE_STEPS = 2
 RING_GRAPH_ROUNDS = 2
 SOLVE_GRAPH_ROUNDS = 2
+#: phase 18: PnP-RANSAC's refinement at the main path's shapes: 384 slots,
+#: 500 hypotheses of 6 points, 6 GN iterations and 12 for the polish over
+#: the slots, at B = 1 (the live door) and B = 11 (the batched runner)
+PNP_N = 384
+PNP_HYPS = 500
+PNP_SAMPLE = 6
+PNP_ITERS = 6
+PNP_B = (1, 11)
+#: KITTI 00's camera
+PNP_K = ((718.856, 0.0, 607.1928), (0.0, 718.856, 185.2157), (0.0, 0.0, 1.0))
+PNP_SOURCE = "visual_odom_tpu_torch/csrc/pnp_gn.cu"
+#: what the PnP kernels replace: no Pallas kernel, XLA's fused code
+PNP_REPLACES = "none (XLA-fused visual_odom_tpu/backend/pnp.py:64)"
+#: the PnP kernels' launch counters (``utils.cudagraph``), by kernel
+PNP_COUNTERS = {"pnp_hypotheses": "pnp_gn_hypotheses_kernel",
+                "pnp_polish": "pnp_gn_polish_kernel"}
+#: the PnP launches of the runs whose counts are checked, by counter and
+#: path (``tally_pnp``; phase 18's own calls are not among them), and the
+#: path they now belong to (``set_path``)
+PNP_LAUNCHES = {k: {} for k in PNP_COUNTERS}
+PNP_PATH = ["main_path"]
+#: phase 18 holds the kernels to their plain twins as the card tests do:
+#: the polish within PNP_POLISH_TOL of the plain twin, relative to
+#: 1 + |pose| (the two differ only in the order of the sums of the normal
+#: equations); the hypotheses, finite where the plain twin's are, by the
+#: distribution of their distance to the float64 twin, at each of
+#: PNP_HYP_QUANTILES at most PNP_HYP_FACTOR x the plain twin's (+ 1e-7)
+PNP_POLISH_TOL = 1e-5
+PNP_HYP_QUANTILES = (0.5, 0.9)
+PNP_HYP_FACTOR = 2.0
+#: a lower bound, counted by hand in csrc/pnp_gn.cu, of the dependent
+#: float32 operations on a thread's path through one GN iteration, each
+#: counted as one (a division, square root or sine too): the transform to
+#: the first Jacobian entry (11), the damping (1), the Cholesky (6 a
+#: column), the two triangular solves (3 a row each), the finiteness test
+#: (1), the Rodrigues update (10) and the 3x3 product (3). The normal
+#: equations add 2 for each point a thread sums, the polish's reduction
+#: 10 for the warp's shuffles, 2 for shared memory and 1 a further warp
+PNP_CHAIN_ITER = 98
+#: the first Rodrigues and the last inverse Rodrigues of a pose
+PNP_CHAIN_ENDS = 22
+#: the fewest cycles a dependent float32 operation takes on Hopper
+FP32_LATENCY_CYCLES = 4
 
 
 def kitti_intrinsics(height: int, width: int):
@@ -1164,41 +1225,58 @@ def ate_and_budget(poses, gt):
 
 
 def reset_counts():
-    """Both kernels' launch counts to 0, just before a run they measure:
-    the quad's on ``lk_circular_quad``, the level kernel's on
-    ``lk_track_pyramid``."""
-    from visual_odom_tpu_torch.ops import lk_cuda
-    from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
+    """Every kernel wrapper's launch count to 0 (``utils.cudagraph``'s
+    counters: the LK quad's and level kernel's, single and batched, and
+    PnP's two), just before a run they measure."""
+    from visual_odom_tpu_torch.utils import cudagraph
 
-    for fn in (lk_cuda.lk_circular_quad, lk_track_pyramid):
-        fn.launches = 0
-        fn.batched_launches = 0
+    cudagraph.set_launch_counts(dict.fromkeys(cudagraph.launch_counts(), 0))
 
 
 def read_counts() -> dict:
-    from visual_odom_tpu_torch.ops import lk_cuda
-    from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
+    """Every kernel wrapper's launch count, by ``utils.cudagraph``'s name."""
+    from visual_odom_tpu_torch.utils import cudagraph
 
-    return {"quad": lk_cuda.lk_circular_quad.launches,
-            "quad_batched": lk_cuda.lk_circular_quad.batched_launches,
-            "level": lk_track_pyramid.launches,
-            "level_batched": lk_track_pyramid.batched_launches}
+    return cudagraph.launch_counts()
 
 
+def pnp_steps(steps) -> dict:
+    """PnP's launches for ``steps`` steps: each step is one ``pnp_ransac``
+    call (one sequence or a batch), one launch of each kernel."""
+    return dict.fromkeys(PNP_COUNTERS, steps)
 
-def check_counts(label, config, counts, steps, batched):
-    """The route's kernel ran its launches per step, and no other kernel
-    launch was made. Returns the route's count."""
+
+def set_path(name):
+    """The path the runs checked from now on belong to (``tally_pnp``)."""
+    PNP_PATH[0] = name
+
+
+def tally_pnp(counts):
+    """Add a checked run's PnP launches to its path's (PNP_LAUNCHES); every
+    step launches both kernels, so their counts must agree."""
+    if len({counts[key] for key in PNP_LAUNCHES}) != 1:
+        raise AssertionError(f"{PNP_PATH[0]}: PnP launches {counts} differ "
+                             f"between the kernels")
+    for key, by_path in PNP_LAUNCHES.items():
+        by_path[PNP_PATH[0]] = by_path.get(PNP_PATH[0], 0) + counts[key]
+
+
+def check_counts(label, config, counts, steps, batched, tally=True):
+    """The route's LK kernel ran its launches per step, each PnP kernel one
+    launch per step, and no other kernel launch was made. Returns the
+    route's LK count; with ``tally``, adds the PnP launches to the path's."""
     kernel, per_step = (("quad", LAUNCHES_PER_FRAME)
                         if config.resolved_lk_backend() == "pallas"
                         else ("level", LEVEL_LAUNCHES_PER_FRAME))
     if batched:
         kernel += "_batched"
-    expected = dict.fromkeys(counts, 0)
+    expected = dict(dict.fromkeys(counts, 0), **pnp_steps(steps))
     expected[kernel] = per_step * steps
     if counts != expected:
         raise AssertionError(f"{label}: kernel launches {counts} for {steps} "
                              f"steps, expected {expected}")
+    if tally:
+        tally_pnp(counts)
     return counts[kernel]
 
 
@@ -1430,7 +1508,8 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
     where it is not captured yet), after two eager steps (for one sequence,
     three: the third a buffered step) that must not synchronise with the
     host. The route's LK kernels must appear by name inside the replays,
-    LAUNCHES_PER_FRAME (or LEVEL_LAUNCHES_PER_FRAME) a frame; the runtime
+    LAUNCHES_PER_FRAME (or LEVEL_LAUNCHES_PER_FRAME) a frame, and each PnP
+    kernel once a frame; the runtime
     calls the host made (kernel launches, copies, graph launches) are
     counted per frame. The busy share divides the device time by
     ``steady_ms``, the main path's ms/frame without the profiler (which
@@ -1489,9 +1568,12 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
                          if config.resolved_lk_backend() == "pallas"
                          else ("lk_level_kernel", LEVEL_LAUNCHES_PER_FRAME))
     lk = sum(c for _, k, c in rows if kernel in k) / n_frames
+    pnp_kernels = {name: sum(c for _, k, c in rows if name in k) / n_frames
+                   for name in PNP_COUNTERS.values()}
     res = {"frames": n_frames, "device_ms_per_frame": device_ms,
            "device_ops_per_frame": sum(r[2] for r in rows) / n_frames,
            "lk_kernel": kernel, "lk_kernels_per_frame": lk,
+           "pnp_kernels_per_frame": pnp_kernels,
            "host_runtime_calls_per_frame": host_calls(prof, n_frames),
            "steady_ms_per_frame": steady_ms,
            "device_busy_share": device_ms / steady_ms,
@@ -1502,6 +1584,9 @@ def profile_frames(frames, config, intr, dev, steady_ms, n_frames=4,
     if lk != per_frame:
         raise AssertionError(f"{label}: {lk} {kernel} a frame inside the "
                              f"replays, expected {per_frame}")
+    if any(v != 1 for v in pnp_kernels.values()):
+        raise AssertionError(f"{label}: PnP kernels a frame inside the "
+                             f"replays {pnp_kernels}, expected one each")
     return res
 
 
@@ -1741,11 +1826,13 @@ def backend_loops(frames, poses, gt, config, xconfig, intr, dev):
                    launch_counts=counts)
         print("backend", json.dumps(res))
         runs[route] = (res, new_poses, info)
-        expected = dict.fromkeys(counts, 0)
+        # a measurement is one step
+        expected = dict(dict.fromkeys(counts, 0), **pnp_steps(2 * m))
         if route == "pallas":
             expected["quad"] = 2 * m
         else:
             expected["level"] = 2 * m * LEG_STEP_LAUNCHES
+        tally_pnp(counts)
         if counts != expected or (quads and res["quad_start_levels"]
                                   != [cfg.lk_levels]):
             raise AssertionError(f"loop closure ({route}): launches {counts}, "
@@ -2843,9 +2930,14 @@ def posegraph_sharded_phase(frames, poses, gt, ref_poses, config, intr, dev):
                solve_ms=time_ms(lambda: posegraph.posegraph_solve(graph),
                                 reps=3, warm=1))
     print("posegraph_sharded", json.dumps(res))
+    # a loop measurement is one step, one quad launch
+    steps = counts["quad"]
     if not (res["max_abs_dpose_vs_single"] < NODE_CARD_CPU_TOL
-            and info.closure_after_m < info.closure_before_m):
+            and info.closure_after_m < info.closure_before_m
+            and counts == dict(dict.fromkeys(counts, 0), quad=steps,
+                               **pnp_steps(steps))):
         raise AssertionError(f"sharded pose graph: {res}")
+    tally_pnp(counts)
     return counts["quad"], sorted(read)
 
 
@@ -2939,7 +3031,10 @@ def batch_mesh_phase(courses, bposes, xbposes, config, xconfig, intr, dev):
                                     accept=st["accept_ratio"], ate_m=ate,
                                     ate_budget_m=budget,
                                     ate_gated=k[1] != "checker"))
-            expected = dict.fromkeys(counts, 0)
+            # each row steps its sequences: one pnp_ransac call a step
+            expected = dict(dict.fromkeys(counts, 0),
+                            **pnp_steps(rows * MESH_STEPS))
+            tally_pnp(counts)
             if route == "pallas":
                 expected["quad_batched"] = (LAUNCHES_PER_FRAME * rows * cols
                                             * MESH_STEPS)
@@ -3029,8 +3124,9 @@ def cli_mesh_phase(dirs, root, bposes, row_poses, config, dev):
     counts = read_counts()
     batched = counts["quad_batched"]
     eq["run_batch_mesh_launches"] = counts == dict(
-        dict.fromkeys(counts, 0),
+        dict.fromkeys(counts, 0), **pnp_steps(2 * MESH_STEPS),
         quad_batched=LAUNCHES_PER_FRAME * 2 * MESH_STEPS)
+    tally_pnp(counts)
     got = [load_poses(os.path.join(out_dir, "_".join(k) + ".txt"))
            for k in BATCH_COURSES]
     want = row_poses
@@ -3539,13 +3635,18 @@ def ranks_phase(lposes, lframes, loop_read, loop_launches, courses,
                 kernel = ("quad_batched" if route == "pallas"
                           else "level_batched")
                 eq[f"launches_{key}"] = counts == dict(
-                    dict.fromkeys(counts, 0), **{kernel: per})
+                    dict.fromkeys(counts, 0), **pnp_steps(MESH_STEPS),
+                    **{kernel: per})
+                tally_pnp(counts)
                 if backend == "nccl":
                     eq[f"no_host_sync_{key}"] = (
                         run["chunks_without_host_sync"]
                         == MESH_STEPS // MESH_CHUNK)
+            # a loop measurement is one step, one quad launch
             eq["loop_launches"] = res["loop_counts"] == dict(
-                dict.fromkeys(res["loop_counts"], 0), quad=loop_launches)
+                dict.fromkeys(res["loop_counts"], 0),
+                **pnp_steps(loop_launches), quad=loop_launches)
+            tally_pnp(res["loop_counts"])
             eq["ppermute_ring"] = res["ppermute_ring_ok"]
             line = dict(backend=res["backend"], world=world, rank=r,
                         device=str(dev), bit_for_bit=eq,
@@ -3631,7 +3732,8 @@ def bench_phase(courses, root):
     own = json.loads(out.getvalue().strip().splitlines()[-1])
     steps = BENCH_QUICK_FRAMES - 1
     scanned = steps + min(BENCH_CHUNK, steps)
-    expected = dict(dict.fromkeys(counts, 0),
+    tally_pnp(counts)
+    expected = dict(dict.fromkeys(counts, 0), **pnp_steps(scanned),
                     quad=LAUNCHES_PER_FRAME * scanned + BENCH_LK_QUADS,
                     level=LKParams().levels + 1)
     print("bench_in_process", json.dumps(dict(
@@ -3730,7 +3832,7 @@ def graph_vs_eager(case, frames, config, intr, dev, with_tracks=False,
     print("graph", json.dumps(res))
     for label, counts in (("eager", ec), ("graph", gc)):
         check_counts(f"graph {case} ({label})", config, counts, steps,
-                     batched)
+                     batched, tally=label == "graph")
     if not all(eq.values()):
         raise AssertionError(f"graph {case}: graphed and eager differ: {eq}")
     return res
@@ -4007,6 +4109,7 @@ def doors_graph_phase(frames, courses, lframes, lposes, lsnaps, config, intr,
     launches = dict.fromkeys(read_counts(), 0)
 
     def add(counts):
+        tally_pnp(counts)
         for k, v in counts.items():
             launches[k] += v
 
@@ -4312,6 +4415,7 @@ def mesh_graph_phase(courses, lframes, lposes, config, xconfig, intr, dev):
     launches = dict.fromkeys(read_counts(), 0)
 
     def add(counts):
+        tally_pnp(counts)
         for k, v in counts.items():
             launches[k] += v
 
@@ -4711,6 +4815,184 @@ def _nccl_rank_graph(seqs, first, chunk, config, xconfig, intr, dev):
     return launches
 
 
+def pnp_compare(name, got, plain, ref64) -> dict:
+    """The kernel's poses against the plain twin's on the card and against
+    the plain twin in float64, held as the card tests hold them: the
+    finiteness mismatches and the largest component differences over the
+    poses both leave finite; for the polish, the largest difference to the
+    plain twin relative to 1 + |pose| (PNP_POLISH_TOL); for the hypotheses,
+    each side's distance to float64 at PNP_HYP_QUANTILES (at most
+    PNP_HYP_FACTOR x the plain twin's). ``ok`` says whether it held."""
+    import torch
+
+    got, plain, ref64 = (a.detach().cpu().double() for a in (got, plain, ref64))
+    fin_g = torch.isfinite(got).all(-1)
+    fin_p = torch.isfinite(plain).all(-1)
+    both = fin_g & fin_p
+
+    def dist(a, b):
+        return (a - b).abs().amax(-1)[both]
+
+    def worst(a, b):
+        d = dist(a, b)
+        return float(d.max()) if d.numel() else 0.0
+
+    res = dict(poses=int(got.shape[0]), finite=int(both.sum()),
+               finite_mismatch=int((fin_g != fin_p).sum()),
+               max_abs_diff=worst(got, plain),
+               plain_vs_f64=worst(plain, ref64),
+               kernel_vs_f64=worst(got, ref64))
+    if "polish" in name:
+        rel = ((got - plain).abs() / (1.0 + plain.abs()))[both]
+        res.update(max_rel_diff=float(rel.max()) if rel.numel() else 0.0,
+                   tol_rel_diff=PNP_POLISH_TOL)
+        ok = (res["finite"] == res["poses"]
+              and res["max_rel_diff"] < PNP_POLISH_TOL)
+    else:
+        mine, twin = dist(got, ref64), dist(plain, ref64)
+        q = torch.tensor(PNP_HYP_QUANTILES, dtype=torch.float64)
+        qm, qt = ((torch.quantile(x, q).tolist() if x.numel()
+                   else [float("nan")] * len(q)) for x in (mine, twin))
+        res.update(quantiles=list(PNP_HYP_QUANTILES), kernel_vs_f64_q=qm,
+                   plain_vs_f64_q=qt, tol_factor=PNP_HYP_FACTOR,
+                   min_finite_share=0.9)
+        ok = (res["finite"] >= 0.9 * res["poses"]
+              and all(m <= PNP_HYP_FACTOR * t + 1e-7
+                      for m, t in zip(qm, qt)))
+    res["ok"] = bool(ok and not res["finite_mismatch"])
+    return res
+
+
+def _graph_of(fn):
+    """``fn`` captured in a CUDA graph (after one warm-up call on the
+    capture's stream)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def pnp_phase(dev) -> tuple:
+    """Phase 18: build ``csrc/pnp_gn.cu`` and hold both PnP refinement
+    kernels to the plain twin at the main path's shapes (PNP_B), each
+    launch timed on the device eagerly and in a graph's replay beside the
+    plain twin's replay and the launch's latency bound (PNP_CHAIN_*), and
+    ``pnp_ransac`` on the card launching each kernel once. One ``pnp`` line
+    per kernel and B; raises where a kernel misses its plain twin by more
+    than the card tests allow (``pnp_compare``). Returns the lines, by
+    kernel, and the launches made, by kernel."""
+    import torch
+
+    from visual_odom_tpu_torch.backend import pnp
+    from visual_odom_tpu_torch.io.pnp_scene import pnp_scene
+    from visual_odom_tpu_torch.ops import _nvcc
+
+    t = time.perf_counter()
+    path = _nvcc.build("pnp_gn")
+    print(f"pnp build: {time.perf_counter() - t:.2f} s")
+    with open(path + ".log") as f:
+        for line in f:
+            if "registers" in line or "spill" in line:
+                print("pnp ptxas:", line.strip())
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+    cycle_ms = 1e-3 / clock_mhz
+    before = (pnp.refine_hypotheses.launches, pnp.refine_polish.launches)
+    lines = {name: [] for name in PNP_COUNTERS.values()}
+    for B in PNP_B:
+        d = pnp_scene(dev, B, PNP_N, PNP_HYPS, PNP_SAMPLE, PNP_K, seed=B)
+        hyp_args = (d["pose0"], d["X"], d["x"], d["idx"], d["K"], PNP_ITERS)
+        pol_args = (d["polish"], d["X"], d["x"], d["w"], d["K"],
+                    2 * PNP_ITERS)
+        cpu64 = {k: v.cpu().double() if v.is_floating_point() else v.cpu()
+                 for k, v in d.items() if k != "valid"}
+        checks = {
+            "pnp_gn_hypotheses_kernel": (
+                lambda: pnp.refine_hypotheses(*hyp_args),
+                lambda: pnp._refine_hypotheses_plain(*hyp_args),
+                lambda: pnp._refine_hypotheses_plain(
+                    cpu64["pose0"], cpu64["X"], cpu64["x"], cpu64["idx"],
+                    cpu64["K"], PNP_ITERS),
+                PNP_ITERS * (PNP_CHAIN_ITER + 2 * PNP_SAMPLE)),
+            "pnp_gn_polish_kernel": (
+                lambda: pnp.refine_polish(*pol_args),
+                lambda: pnp._gn_refine(*pol_args),
+                lambda: pnp._gn_refine(
+                    cpu64["polish"], cpu64["X"], cpu64["x"], cpu64["w"],
+                    cpu64["K"], 2 * PNP_ITERS),
+                2 * PNP_ITERS * (PNP_CHAIN_ITER + 2 * -(-PNP_N // 256) + 12
+                                 + 256 // 32 - 1))}
+        for name, (kernel, plain, ref, chain) in checks.items():
+            got = kernel()
+            want = plain()
+            torch.cuda.synchronize()
+            cmp = pnp_compare(name, got, want, ref())
+            k_graph, k_out = _graph_of(kernel)
+            p_graph, _ = _graph_of(plain)
+            k_graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(k_out, got):
+                raise AssertionError(f"{name} B={B}: the graph's replay "
+                                     f"differs from the eager launch")
+            ms = device_ms(kernel)
+            graph_ms = device_ms(k_graph.replay)
+            plain_graph_ms = device_ms(p_graph.replay)
+            bound_ms = (chain + PNP_CHAIN_ENDS) * FP32_LATENCY_CYCLES * cycle_ms
+            line = dict(
+                kernel=name, source=PNP_SOURCE, B=B, hyps=PNP_HYPS,
+                sample=PNP_SAMPLE, slots=PNP_N, iters=PNP_ITERS * (
+                    2 if "polish" in name else 1),
+                ms=ms, graph_ms=graph_ms, plain_graph_ms=plain_graph_ms,
+                bound_ms=bound_ms, bound_by="latency",
+                share_of_bound=bound_ms / graph_ms, clock_mhz=clock_mhz,
+                **cmp)
+            print("pnp", json.dumps(line))
+            if not cmp["ok"]:
+                raise AssertionError(f"{name} B={B}: the kernel misses its "
+                                     f"plain twin: {cmp}")
+            lines[name].append(line)
+    # pnp_ransac on the card: one launch of each kernel a call
+    d = pnp_scene(dev, 1, PNP_N, PNP_HYPS, PNP_SAMPLE, PNP_K, seed=7)
+    counts = (pnp.refine_hypotheses.launches, pnp.refine_polish.launches)
+    pnp.pnp_ransac(d["X"][0], d["x"][0], d["valid"][0], d["K"],
+                   torch.zeros(3, device=dev), d["pose0"][0, 3:],
+                   generator=torch.Generator(device=dev).manual_seed(0),
+                   iterations=PNP_HYPS, sample_size=PNP_SAMPLE,
+                   refine_iters=PNP_ITERS)
+    torch.cuda.synchronize()
+    made = (pnp.refine_hypotheses.launches - counts[0],
+            pnp.refine_polish.launches - counts[1])
+    if made != (1, 1):
+        raise AssertionError(f"pnp_ransac launched {made} PnP kernels, "
+                             f"expected (1, 1)")
+    return lines, {"pnp_gn_hypotheses_kernel":
+                   pnp.refine_hypotheses.launches - before[0],
+                   "pnp_gn_polish_kernel":
+                   pnp.refine_polish.launches - before[1]}
+
+
+def pnp_main() -> int:
+    """``chip_smoke.py --pnp``: phase 18 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    print("card:", card_line())
+    print("pnp launches", json.dumps(pnp_phase(torch.device("cuda", 0))[1]))
+    print(card_line())
+    return 0
+
+
 def main() -> int:
     """Every phase; the render pool stops whatever happens."""
     with contextlib.ExitStack() as stack:
@@ -4871,6 +5153,7 @@ def run_phases(stack) -> int:
 
     # ---- phase 4: the main path, on both routes --------------------------
     t = time.perf_counter()
+    set_path("main_path")
     xconfig = VOConfig.for_image(H, W, lk_backend="xla")
     cframes, cgt = courses[("straight", "checker")]
     runs, xruns, refs, xrefs = [], [], [], []
@@ -4904,6 +5187,7 @@ def run_phases(stack) -> int:
 
     # ---- phase 7: the back end on the loop course -------------------------
     t = time.perf_counter()
+    set_path("backend")
     lframes, lgt = courses[("loop", "value")]
     scan, lposes, snaps = backend_scan(lframes, lgt, config, intr, dev)
     tracks_cost(lframes, config, intr, dev)
@@ -4914,6 +5198,7 @@ def run_phases(stack) -> int:
 
     # ---- phase 8: resume, mono rotation, Shi-Tomasi, on "straight" -----
     t = time.perf_counter()
+    set_path("resume_variants")
     resume_launches, straight_tracks = resume_check(frames, config, intr,
                                                     dev)
     variants = {name: variant_check(name, opts, frames, gt, intr, dev,
@@ -4926,6 +5211,7 @@ def run_phases(stack) -> int:
 
     # ---- phase 9: the front doors, on phase 4's frames -------------------
     t = time.perf_counter()
+    set_path("front_doors")
     door_launches = front_doors(frames, cframes, refs[0], refs[1], config,
                                 xconfig, intr, dev)
     print(f"phase 9: {time.perf_counter() - t:.1f} s")
@@ -4933,10 +5219,12 @@ def run_phases(stack) -> int:
     # ---- phases 10-11: KITTI PNG input, the command line, the pipe --------
     with tempfile.TemporaryDirectory() as root, image_packages_hidden():
         t = time.perf_counter()
+        set_path("kitti")
         kitti_launches, dirs, scores = kitti_phase(
             courses, refs[0], bposes, bstats, config, intr, dev, root)
         print(f"phase 10: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
+        set_path("cli_pipe")
         cli_launches = cli_phase(courses, dirs, scores, refs[0],
                                  straight_tracks, bposes, config, intr, dev,
                                  root)
@@ -4946,6 +5234,7 @@ def run_phases(stack) -> int:
 
         # ---- phase 12: the multi-device paths, on meshes of this card -----
         t = time.perf_counter()
+        set_path("meshes")
         sharded_ba_phase(dev)
         ring_phase(straight_tracks, refs[0][0], intr, dev)
         mesh_loop_launches, loop_read = posegraph_sharded_phase(
@@ -4960,6 +5249,7 @@ def run_phases(stack) -> int:
 
         # ---- phase 13: the same paths across processes, on this card -----
         t = time.perf_counter()
+        set_path("ranks")
         rank_launches = ranks_phase(lposes, lframes, loop_read,
                                     mesh_loop_launches, courses, mesh_refs,
                                     config, intr, dev, root)
@@ -4968,17 +5258,20 @@ def run_phases(stack) -> int:
 
         # ---- phase 14: the bench harness, vo bench --quick ---------------
         t = time.perf_counter()
+        set_path("bench")
         bench_launches = bench_phase(courses, root)
         print(f"phase 14: {time.perf_counter() - t:.1f} s")
 
     # ---- phase 15: the step as one CUDA graph, against eager -------------
     t = time.perf_counter()
+    set_path("graph")
     graph_launches = graph_phase(frames, courses, refs[0], xrefs[0], config,
                                  xconfig, intr, dev, profiles, sweep)
     print(f"phase 15: {time.perf_counter() - t:.1f} s")
 
     # ---- phase 16: the doors, the pipe and the solves as CUDA graphs ------
     t = time.perf_counter()
+    set_path("doors_graph")
     door_graph_launches = doors_graph_phase(frames, courses, lframes, lposes,
                                             snaps, config, intr, dev)
     del snaps
@@ -4986,9 +5279,20 @@ def run_phases(stack) -> int:
 
     # ---- phase 17: the multi-device paths as CUDA graphs -----------------
     t = time.perf_counter()
+    set_path("mesh_graph")
     mesh_graph_launches = mesh_graph_phase(courses, lframes, lposes, config,
                                            xconfig, intr, dev)
     print(f"phase 17: {time.perf_counter() - t:.1f} s")
+
+    # ---- phase 18: PnP-RANSAC's refinement kernels -----------------------
+    t = time.perf_counter()
+    pnp_lines, pnp_made = pnp_phase(dev)
+    print("pnp launches", json.dumps(pnp_made))
+    print(f"phase 18: {time.perf_counter() - t:.1f} s")
+    print("pnp launches_by_path", json.dumps(PNP_LAUNCHES))
+    if not all(PNP_LAUNCHES[k] == PNP_LAUNCHES["pnp_hypotheses"]
+               and sum(PNP_LAUNCHES[k].values()) > 0 for k in PNP_LAUNCHES):
+        raise AssertionError(f"PnP launches by path: {PNP_LAUNCHES}")
 
     default = lk_cuda.variant()
 
@@ -5035,6 +5339,27 @@ def run_phases(stack) -> int:
 
     def finest(qs):
         return next(q for q in qs if q[default]["level"] == 0)
+
+    def pnp_row(key):
+        """A PnP kernel's row: its launches on each path driven (the runs
+        whose counts were checked), its time in a graph's replay beside the
+        plain twin's and its latency bound at B = PNP_B[0] (phase 18), and
+        each B's."""
+        name = PNP_COUNTERS[key]
+        lines = pnp_lines[name]
+        lead = lines[0]
+        paths = dict(PNP_LAUNCHES[key])
+        return {"name": name, "route": "cuda", "source": PNP_SOURCE,
+                "replaces": PNP_REPLACES, "launches": sum(paths.values()),
+                "launches_by_path": paths,
+                "max_abs_err": max(ln["max_abs_diff"] for ln in lines),
+                "ms": lead["graph_ms"], "plain_ms": lead["plain_graph_ms"],
+                "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+                "library_ms": None,
+                "timed": f"B={lead['B']}, a graph's replay",
+                "batches": [{k: ln[k] for k in (
+                    "B", "ms", "graph_ms", "plain_graph_ms", "bound_ms",
+                    "share_of_bound", "max_abs_diff")} for ln in lines]}
 
     print("total:", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -5085,7 +5410,8 @@ def run_phases(stack) -> int:
              "rank_batch_mesh": rank_launches["rank_batch_mesh_level"],
              "mesh_graph": mesh_graph_launches["level_batched"]},
             blevels,
-            finest(blevels), True, finest(wlevels))]}))
+            finest(blevels), True, finest(wlevels)),
+        *(pnp_row(key) for key in PNP_COUNTERS)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5126,4 +5452,6 @@ if __name__ == "__main__":
         sys.exit(across_cards_main())
     if sys.argv[1:2] == ["--gloo-send-probe"]:
         sys.exit(send_probe_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--pnp"]:
+        sys.exit(pnp_main())
     sys.exit(main())

@@ -33,8 +33,10 @@ import pytest
 import torch
 
 from visual_odom_tpu_torch.ba import posegraph, problem, schur
+from visual_odom_tpu_torch.backend import pnp
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
-from visual_odom_tpu_torch.core.lie import rodrigues
+from visual_odom_tpu_torch.core.lie import rodrigues, rodrigues_inverse
+from visual_odom_tpu_torch.io.pnp_scene import pnp_scene
 from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
 from visual_odom_tpu_torch.ops import lk_cuda
 from visual_odom_tpu_torch.ops.lk import (LKImage, LKParams, lk_track_pyramid,
@@ -571,6 +573,213 @@ def test_step_never_waits_for_the_card(cuda_device, mode):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(out.T_inv).all())
+
+
+# --- PnP-RANSAC's refinement kernels (csrc/pnp_gn.cu) ------------------------
+
+KITTI_K = ((718.856, 0.0, 607.1928), (0.0, 718.856, 185.2157),
+           (0.0, 0.0, 1.0))
+SMALL_K = ((SMALL["fx"], 0.0, SMALL["cx"]), (0.0, SMALL["fy"], SMALL["cy"]),
+           (0.0, 0.0, 1.0))
+#: (B, slots, hypotheses, sample size, GN iterations, camera): the main path
+#: at B = 1 (the live door) and B = 11 (the batched runner), and the
+#: 200-iteration configuration of ``_small`` with another sample size and
+#: iteration count
+PNP_SHAPES = {"b1": (1, 384, 500, 6, 6, KITTI_K),
+              "b11": (11, 384, 500, 6, 6, KITTI_K),
+              "small": (2, 256, 200, 8, 4, SMALL_K)}
+#: the polish against its plain twin, relative to 1 + |pose|: the two differ
+#: only in the order of the sums of G and g, a few ulps of the normal
+#: equations, and a converged GN moves the pose by the conditioning times
+#: that (6.4e-7 at most on an H100, B = 1 and 11)
+POLISH_TOL = 1e-5
+
+
+def _f64(t):
+    return t.cpu().double() if t.is_floating_point() else t.cpu()
+
+
+def _pnp_errors(got, plain, ref):
+    """The same poses finite on both sides; then each side's largest
+    component distance to the float64 evaluation, over those poses."""
+    got, plain, ref = (t.cpu().double() for t in (got, plain, ref))
+    finite = torch.isfinite(got).all(-1)
+    assert torch.equal(finite, torch.isfinite(plain).all(-1))
+    return ((got - ref).abs().amax(-1)[finite],
+            (plain - ref).abs().amax(-1)[finite])
+
+
+@pytest.mark.parametrize("shape", sorted(PNP_SHAPES))
+def test_pnp_hypotheses_kernel_matches_plain(cuda_device, shape):
+    """One launch refines every hypothesis of every sequence as the plain
+    twin on the card does. The two are float32 evaluations of one function
+    that differ only in the order of the sums (G's and g's, the transform's
+    three terms, the 3x3 products), so they leave the same poses non-finite
+    and lie alike from the float64 evaluation: at the median and the 90th
+    percentile of the hypotheses the kernel's distance is at most twice
+    the plain twin's. Single hypotheses are not held: the ~1 % whose GN
+    diverges on an outlier sample amplify any rounding without bound (the
+    plain twins on the CPU and on the card differ there as much)."""
+    B, n, H, k, iters, cam = PNP_SHAPES[shape]
+    d = pnp_scene(cuda_device, B, n, H, k, cam, seed=B)
+    args = (d["pose0"], d["X"], d["x"], d["idx"], d["K"])
+    got = pnp.refine_hypotheses(*args, iters)
+    plain = pnp._refine_hypotheses_plain(*args, iters)
+    ref = pnp._refine_hypotheses_plain(*map(_f64, args), iters)
+    assert got.shape == (B * H, 6)
+    mine, twin = _pnp_errors(got, plain, ref)
+    assert mine.numel() >= 0.9 * B * H
+    for q in (0.5, 0.9):
+        assert (torch.quantile(mine, q) <= 2 * torch.quantile(twin, q) + 1e-7
+                ), (q, torch.quantile(mine, q), torch.quantile(twin, q))
+
+
+@pytest.mark.parametrize("shape", sorted(PNP_SHAPES))
+def test_pnp_polish_kernel_matches_plain(cuda_device, shape):
+    """One launch polishes each sequence's pose on its weighted slots
+    (twice the hypotheses' iterations), within POLISH_TOL of the plain
+    twin on the card."""
+    B, n, H, k, iters, cam = PNP_SHAPES[shape]
+    d = pnp_scene(cuda_device, B, n, H, k, cam, seed=B)
+    args = (d["polish"], d["X"], d["x"], d["w"], d["K"], 2 * iters)
+    got = pnp.refine_polish(*args)
+    plain = pnp._gn_refine(*args)
+    assert bool(torch.isfinite(plain).all())
+    err = (got - plain).abs() / (1.0 + plain.abs())
+    assert float(err.max()) < POLISH_TOL, float(err.max())
+
+
+def _degenerate(dev, case):
+    """Hypotheses (and a polish) all on slots 0-5, made degenerate: points
+    at z = 0 or ~1e-12 in the camera (the Jacobians overflow, so no step is
+    finite), a NaN point (the normal equations are NaN), or a NaN warm
+    start (the even hypotheses start and stay NaN)."""
+    d = pnp_scene(dev, 1, 64, 8, 6, KITTI_K, seed=5)
+    d["pose0"][:, :3] = 0.0
+    d["idx"] = torch.arange(6, device=dev).expand(1, 8, 6).contiguous()
+    if case in ("z0", "z_tiny"):
+        d["pose0"][:, 3:] = 0.0
+        d["X"][0, :6, 2] = 0.0 if case == "z0" else 1e-12
+    elif case == "nan_point":
+        d["X"][0, 3] = float("nan")
+    else:
+        d["pose0"][:] = float("nan")
+    d["w"] = (torch.arange(64, device=dev) < 6).to(torch.float32)[None]
+    d["polish"] = d["pose0"].clone()
+    return d
+
+
+@pytest.mark.parametrize("case", ["z0", "z_tiny", "nan_point", "nan_start"])
+def test_pnp_kernels_leave_degenerate_poses_where_plain_does(cuda_device,
+                                                             case):
+    """On a degenerate sample no step is taken, by either kernel or by the
+    plain twin: the pose comes back where it started, bit for bit the plain
+    twin's; a NaN start stays NaN (the odd hypotheses, started from the
+    identity, then move as the plain twin's do: finite)."""
+    d = _degenerate(cuda_device, case)
+    hyp = (d["pose0"], d["X"], d["x"], d["idx"], d["K"], 6)
+    pol = (d["polish"], d["X"], d["x"], d["w"], d["K"], 12)
+    for got, plain in ((pnp.refine_hypotheses(*hyp),
+                        pnp._refine_hypotheses_plain(*hyp)),
+                       (pnp.refine_polish(*pol), pnp._gn_refine(*pol))):
+        even = (torch.arange(got.shape[0], device=cuda_device) % 2 == 0)
+        start = torch.where(even[:, None], d["pose0"], 0.0)
+        if case == "nan_start":
+            for side in (got, plain):
+                assert torch.equal(torch.isnan(side).all(-1), even)
+                assert bool(torch.isfinite(side[~even]).all())
+            got, plain, start = got[even], plain[even], start[even]
+        assert torch.allclose(got, plain, rtol=0, atol=0, equal_nan=True), (
+            got, plain)
+        assert torch.allclose(got, start, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("kind", ["small", "generic", "near_pi"])
+def test_pnp_kernel_rodrigues_round_trip_matches_plain(cuda_device, kind):
+    """With no iteration a pose is its Rodrigues round trip, through the
+    log map's near-pi branch where theta is within 1e-3 of pi; relative to
+    1 + |w|, 1e-5 off pi and 2e-3 near it, where the log map is
+    ill-conditioned (d theta ~ dR / sin theta), as the CPU tests hold the
+    port to the JAX package."""
+    rng = np.random.default_rng(4)
+    axis = rng.normal(size=(64, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    angle = {"small": rng.uniform(0, 1e-5, 64),
+             "generic": rng.uniform(0.01, 3.0, 64),
+             "near_pi": np.pi - rng.uniform(0, 5e-4, 64)}[kind]
+    pose = np.concatenate([axis * angle[:, None], rng.normal(size=(64, 3))],
+                          axis=-1)
+    pose = torch.tensor(pose, dtype=torch.float32, device=cuda_device)
+    d = pnp_scene(cuda_device, 64, 1, 1, 1, KITTI_K, seed=6)
+    args = (pose, d["X"], d["x"], d["w"], d["K"], 0)
+    got, plain = pnp.refine_polish(*args), pnp._gn_refine(*args)
+    tol = 2e-3 if kind == "near_pi" else 1e-5
+    assert float(((got - plain).abs() / (1.0 + plain.abs())).max()) < tol
+    assert torch.equal(got[:, 3:], pose[:, 3:])
+    if kind == "near_pi":
+        trip = rodrigues_inverse(rodrigues(pose[:, :3]))
+        assert bool((trip.norm(dim=-1) > np.pi - 1e-3).all())
+
+
+def test_pnp_graph_replay_equals_eager_launch(cuda_device):
+    """Both launches captured in one CUDA graph: a replay gives the eager
+    launches' poses bit for bit (the polish sums in a fixed order)."""
+    d = pnp_scene(cuda_device, 11, 384, 500, 6, KITTI_K, seed=11)
+    hyp = (d["pose0"], d["X"], d["x"], d["idx"], d["K"], 6)
+    pol = (d["polish"], d["X"], d["x"], d["w"], d["K"], 12)
+    eager = (pnp.refine_hypotheses(*hyp), pnp.refine_polish(*pol))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pnp.refine_hypotheses(*hyp)
+        pnp.refine_polish(*pol)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = (pnp.refine_hypotheses(*hyp), pnp.refine_polish(*pol))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
+def test_pnp_ransac_launches_each_kernel_once(cuda_device):
+    """A ``pnp_ransac`` call on the card, single or batched, is one launch
+    of each kernel and never the plain twin."""
+    d = pnp_scene(cuda_device, 3, 384, 500, 6, KITTI_K, seed=3)
+    before = (pnp.refine_hypotheses.launches, pnp.refine_polish.launches)
+    zero3 = torch.zeros(3, device=cuda_device)
+    gens = [torch.Generator(device=cuda_device).manual_seed(b)
+            for b in range(3)]
+    single = pnp.pnp_ransac(d["X"][0], d["x"][0], d["valid"][0], d["K"],
+                            zero3, d["pose0"][0, 3:], generator=gens[0],
+                            refine_iters=6)
+    batched = pnp.pnp_ransac(d["X"], d["x"], d["valid"], d["K"], zero3,
+                             d["pose0"][:, 3:], generator=gens,
+                             refine_iters=6)
+    torch.cuda.synchronize()
+    assert (pnp.refine_hypotheses.launches - before[0],
+            pnp.refine_polish.launches - before[1]) == (2, 2)
+    assert int(single.num_inliers) > 100
+    assert bool((batched.num_inliers > 100).all())
+
+
+def test_pnp_kernels_on_another_card(cuda_device):
+    """Operands on a card other than the current one launch there, with the
+    results of the same launches on the first card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    outs = []
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        d = pnp_scene(dev, 11, 384, 500, 6, KITTI_K, seed=11)
+        outs.append((pnp.refine_hypotheses(d["pose0"], d["X"], d["x"],
+                                           d["idx"], d["K"], 6),
+                     pnp.refine_polish(d["polish"], d["X"], d["x"], d["w"],
+                                       d["K"], 12)))
+        assert outs[-1][0].device == dev
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(*outs))
 
 
 class _Flaky:

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from visual_odom_tpu_torch.backend import pnp
 from visual_odom_tpu_torch.config import CameraIntrinsics, VOConfig
 from visual_odom_tpu_torch.io.synthetic import SyntheticStereoSequence
 from visual_odom_tpu_torch.ops import lk_cuda
@@ -361,23 +362,28 @@ class _FakeGraph:
 
 
 def test_each_replay_adds_its_launches():
-    """The launches a capture recorded per replay are added to the LK
+    """The launches a capture recorded per replay are added to the kernel
     wrappers' counts at each replay, and only there."""
     before = cudagraph.launch_counts()
     assert before == {"quad": lk_cuda.lk_circular_quad.launches,
                       "quad_batched": lk_cuda.lk_circular_quad.batched_launches,
                       "level": lk_track_pyramid.launches,
-                      "level_batched": lk_track_pyramid.batched_launches}
+                      "level_batched": lk_track_pyramid.batched_launches,
+                      "pnp_hypotheses": pnp.refine_hypotheses.launches,
+                      "pnp_polish": pnp.refine_polish.launches}
     fake = _FakeGraph()
     packed = torch.zeros(3, dtype=torch.uint8)
     cap = cudagraph._Capture(None, fake, packed,
-                             {"quad": 3, "level_batched": 32}, 0.0)
+                             {"quad": 3, "level_batched": 32,
+                              "pnp_hypotheses": 1, "pnp_polish": 1}, 0.0)
     try:
         for _ in range(5):
             assert cap.replay() is packed
         after = cudagraph.launch_counts()
         assert after["quad"] == before["quad"] + 15
         assert after["level_batched"] == before["level_batched"] + 160
+        assert after["pnp_hypotheses"] == before["pnp_hypotheses"] + 5
+        assert after["pnp_polish"] == before["pnp_polish"] + 5
         assert after["quad_batched"] == before["quad_batched"]
         assert after["level"] == before["level"]
         assert fake.replays == 5
@@ -431,7 +437,10 @@ def test_graphed_scan_equals_eager_on_card(setup, cuda_device, batched):
     assert _same_outputs(eo, go)
     assert all(_equal(x, y) for x, y in zip(cudagraph.state_tensors(es),
                                             cudagraph.state_tensors(gs)))
-    assert ec == gc and sum(ec.values()) == 3 * (N_FRAMES - 1)
+    assert ec == gc
+    lk = ec["quad_batched" if batched else "quad"]
+    assert lk == 3 * (N_FRAMES - 1) and sum(ec.values()) == 5 * (N_FRAMES - 1)
+    assert ec["pnp_hypotheses"] == ec["pnp_polish"] == N_FRAMES - 1
 
 
 @pytest.mark.cuda

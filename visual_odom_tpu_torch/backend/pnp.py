@@ -12,10 +12,22 @@ with twice the steps.
 Random draws come from an explicit ``torch.Generator``; ``uniforms``
 replaces the draw with given (iterations, N) numbers, so a test can feed the
 port the exact draws the JAX package made.
+
+The refinement runs in two entry points, each one kernel launch on CUDA
+(``csrc/pnp_gn.cu``; its source note says why and what bounds it):
+``refine_hypotheses`` refines every hypothesis of every sequence (a thread
+each, gathering its own sample), ``refine_polish`` the best one of each
+sequence on its inliers (a block each). For CPU tensors each takes the
+plain twin, ``_refine_hypotheses_plain`` and ``_gn_refine``; there is no
+fallback from one to the other. Each counts its kernel launches on itself
+(``refine_hypotheses.launches``, ``refine_polish.launches``), and
+``utils.cudagraph`` adds a graph's launches at each replay.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -92,6 +104,153 @@ def _gn_refine(pose6, X, x_obs, w, K, iters: int, damping: float = 1e-3):
     return torch.cat([rodrigues_inverse(R), t], dim=-1)
 
 
+def _refine_hypotheses_plain(pose0, points3d, points2d, sample_idx, K,
+                             iters: int, damping: float = 1e-3):
+    """``refine_hypotheses``' plain twin: the (B * H, 6) poses of
+    ``_gn_refine`` on every hypothesis' sample, weight 1, started from
+    pose0[b] (even h) or the identity (odd h)."""
+    B, H, k = sample_idx.shape
+    dev = points3d.device
+    even = (torch.arange(H, device=dev) % 2 == 0)[:, None]
+    starts = torch.where(even, pose0[:, None, :],
+                         torch.zeros_like(pose0)[:, None, :])     # (B, H, 6)
+    idx = sample_idx[..., None]
+    BH = B * H
+    return _gn_refine(
+        starts.reshape(BH, 6),
+        torch.take_along_dim(points3d[:, None], idx, dim=2).reshape(BH, k, 3),
+        torch.take_along_dim(points2d[:, None], idx, dim=2).reshape(BH, k, 2),
+        torch.ones((BH, k), device=dev), K, iters, damping)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The kernels' library, built and loaded once, with the C signatures
+    of ``pnp_gn_hypotheses_launch`` and ``pnp_gn_polish_launch``."""
+    from visual_odom_tpu_torch.ops import _nvcc
+
+    lib = _nvcc.load("pnp_gn")
+    lib.pnp_gn_hypotheses_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.pnp_gn_polish_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_void_p])
+    for fn in (lib.pnp_gn_hypotheses_launch, lib.pnp_gn_polish_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_launch(t: torch.Tensor, iters: int):
+    """Operands on a card, and ``iters`` >= 0."""
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    if t.device.type != "cuda":
+        raise ValueError(f"the PnP refinement kernels take CUDA tensors, got "
+                         f"one on {t.device}")
+
+
+def _refine_hypotheses_cuda(pose0, points3d, points2d, sample_idx, K,
+                            iters: int, damping: float):
+    """Launch ``pnp_gn_hypotheses_kernel`` on the current stream. Raises if
+    the kernel does not take the inputs or the launch fails."""
+    if sample_idx.dim() != 3 or points3d.dim() != 3:
+        raise ValueError(f"sample_idx (B, H, k) and points3d (B, N, 3) "
+                         f"expected, got {tuple(sample_idx.shape)} and "
+                         f"{tuple(points3d.shape)}")
+    B, H, k = sample_idx.shape
+    N = points3d.shape[1]
+    if min(B, H, k, N) < 1:
+        raise ValueError(f"empty refinement: B {B}, H {H}, k {k}, N {N}")
+    dev = points3d.device
+    _check(pose0, "pose0", torch.float32, (B, 6), dev)
+    _check(points3d, "points3d", torch.float32, (B, N, 3), dev)
+    _check(points2d, "points2d", torch.float32, (B, N, 2), dev)
+    _check(sample_idx, "sample_idx", torch.int64, (B, H, k), dev)
+    _check(K, "K", torch.float32, (3, 3), dev)
+    _check_launch(points3d, iters)
+    out = torch.empty((B * H, 6), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):    # launch on the operands' device
+        err = _library().pnp_gn_hypotheses_launch(
+            pose0.data_ptr(), points3d.data_ptr(), points2d.data_ptr(),
+            sample_idx.data_ptr(), K.data_ptr(), out.data_ptr(), B, H, N, k,
+            iters, damping, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pnp_gn_hypotheses_kernel launch failed: CUDA "
+                           f"error {err}")
+    refine_hypotheses.launches += 1
+    return out
+
+
+def _refine_polish_cuda(pose6, X, x_obs, w, K, iters: int, damping: float):
+    """Launch ``pnp_gn_polish_kernel`` on the current stream. Raises if the
+    kernel does not take the inputs or the launch fails."""
+    if X.dim() != 3:
+        raise ValueError(f"X: expected (P, M, 3), got {tuple(X.shape)}")
+    P, M = X.shape[:2]
+    if min(P, M) < 1:
+        raise ValueError(f"empty refinement: P {P}, M {M}")
+    dev = X.device
+    _check(pose6, "pose6", torch.float32, (P, 6), dev)
+    _check(X, "X", torch.float32, (P, M, 3), dev)
+    _check(x_obs, "x_obs", torch.float32, (P, M, 2), dev)
+    _check(w, "w", torch.float32, (P, M), dev)
+    _check(K, "K", torch.float32, (3, 3), dev)
+    _check_launch(X, iters)
+    out = torch.empty((P, 6), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):    # launch on the operands' device
+        err = _library().pnp_gn_polish_launch(
+            pose6.data_ptr(), X.data_ptr(), x_obs.data_ptr(), w.data_ptr(),
+            K.data_ptr(), out.data_ptr(), P, M, iters, damping,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pnp_gn_polish_kernel launch failed: CUDA error "
+                           f"{err}")
+    refine_polish.launches += 1
+    return out
+
+
+def refine_hypotheses(pose0, points3d, points2d, sample_idx, K, iters: int,
+                      damping: float = 1e-3) -> torch.Tensor:
+    """``iters`` damped GN steps on each of the B * H hypotheses: pose0
+    (B, 6) warm starts, points3d (B, N, 3), points2d (B, N, 2), sample_idx
+    (B, H, k) int64 indices into each sequence's N points. Returns (B * H,
+    6) poses, hypothesis h of sequence b at row b * H + h, started from
+    pose0[b] (even h) or the identity (odd h). One kernel launch on CUDA,
+    the plain twin on the CPU."""
+    if points3d.device.type == "cuda":
+        return _refine_hypotheses_cuda(pose0, points3d, points2d, sample_idx,
+                                       K, iters, damping)
+    if points3d.device.type == "cpu":
+        return _refine_hypotheses_plain(pose0, points3d, points2d, sample_idx,
+                                        K, iters, damping)
+    raise ValueError(f"no PnP refinement for device {points3d.device}")
+
+
+def refine_polish(pose6, X, x_obs, w, K, iters: int,
+                  damping: float = 1e-3) -> torch.Tensor:
+    """``_gn_refine``: ``iters`` weighted damped GN steps on each of P poses
+    (P, 6) over its own M points, X (P, M, 3), x_obs (P, M, 2), w (P, M).
+    One kernel launch on CUDA, the plain twin on the CPU."""
+    if X.device.type == "cuda":
+        return _refine_polish_cuda(pose6, X, x_obs, w, K, iters, damping)
+    if X.device.type == "cpu":
+        return _gn_refine(pose6, X, x_obs, w, K, iters, damping)
+    raise ValueError(f"no PnP refinement for device {X.device}")
+
+
+refine_hypotheses.launches = 0
+refine_polish.launches = 0
+
+
 def pnp_ransac(points3d: torch.Tensor, points2d: torch.Tensor,
                valid: torch.Tensor, K: torch.Tensor, rvec0: torch.Tensor,
                tvec0: torch.Tensor, generator=None,
@@ -122,6 +281,7 @@ def pnp_ransac(points3d: torch.Tensor, points2d: torch.Tensor,
         return PnPResult(*(x[0] for x in res))
     B, N = points3d.shape[:2]
     dev = points3d.device
+    points3d, points2d = points3d.contiguous(), points2d.contiguous()
     pose0 = torch.cat([rvec0.expand(B, 3), tvec0], dim=-1).to(torch.float32)
     if uniforms is None:
         uniforms = torch.stack([torch.rand((iterations, N), generator=g,
@@ -131,19 +291,8 @@ def pnp_ransac(points3d: torch.Tensor, points2d: torch.Tensor,
     sample_ok = torch.take_along_dim(valid[:, None, :], sample_idx,
                                      dim=2).all(dim=-1)
 
-    even = (torch.arange(iterations, device=dev) % 2 == 0)[:, None]
-    starts = torch.where(even, pose0[:, None, :],
-                         torch.zeros_like(pose0)[:, None, :])     # (B, H, 6)
-    idx = sample_idx[..., None]
-    BH = B * iterations
-    poses = _gn_refine(
-        starts.reshape(BH, 6),
-        torch.take_along_dim(points3d[:, None], idx, dim=2).reshape(
-            BH, sample_size, 3),
-        torch.take_along_dim(points2d[:, None], idx, dim=2).reshape(
-            BH, sample_size, 2),
-        torch.ones((BH, sample_size), device=dev), K,
-        refine_iters).reshape(B, iterations, 6)
+    poses = refine_hypotheses(pose0, points3d, points2d, sample_idx, K,
+                              refine_iters).reshape(B, iterations, 6)
 
     thr2 = reproj_threshold * reproj_threshold
 
@@ -168,9 +317,9 @@ def pnp_ransac(points3d: torch.Tensor, points2d: torch.Tensor,
                                         dim=1)[:, 0]
     best_count = torch.take_along_dim(counts, best, dim=1)[:, 0]
 
-    polished = _gn_refine(best_pose, points3d, points2d,
-                          best_inliers.to(torch.float32), K,
-                          refine_iters * 2)                       # (B, 6)
+    polished = refine_polish(best_pose, points3d, points2d,
+                             best_inliers.to(torch.float32), K,
+                             refine_iters * 2)                    # (B, 6)
     final_inliers, final_count = score(polished[:, None])
     use_polished = (torch.isfinite(polished).all(dim=-1)
                     & (final_count[:, 0] >= best_count))

@@ -100,9 +100,10 @@ process' exit) to release those graphs first (``release``: each card
 synchronised, the graphs destroyed, the captures dropped); a caller
 destroys its groups as it always does.
 
-Launch counts: the LK wrappers count the kernels they launch
+Launch counts: the kernel wrappers count the kernels they launch
 (``lk_circular_quad.launches`` and ``lk_track_pyramid.launches``, and
-their ``batched_launches``). A capture records each count's growth as the
+their ``batched_launches``; PnP's ``refine_hypotheses.launches`` and
+``refine_polish.launches``). A capture records each count's growth as the
 graph's launches per replay, and takes back what the warm-up and the
 capture added, since they build the graph as a JAX trace does. Each
 replay then adds its launches to the counts.
@@ -127,15 +128,18 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
 from torch.utils._pytree import tree_map_only
 
+from visual_odom_tpu_torch.backend.pnp import refine_hypotheses, refine_polish
 from visual_odom_tpu_torch.ops.lk import lk_track_pyramid
 from visual_odom_tpu_torch.ops.lk_cuda import lk_circular_quad
 from visual_odom_tpu_torch.utils import profiling
 
-#: the LK wrappers' launch counts: (wrapper, attribute) by name
+#: the kernel wrappers' launch counts: (wrapper, attribute) by name
 _COUNTERS = {"quad": (lk_circular_quad, "launches"),
              "quad_batched": (lk_circular_quad, "batched_launches"),
              "level": (lk_track_pyramid, "launches"),
-             "level_batched": (lk_track_pyramid, "batched_launches")}
+             "level_batched": (lk_track_pyramid, "batched_launches"),
+             "pnp_hypotheses": (refine_hypotheses, "launches"),
+             "pnp_polish": (refine_polish, "launches")}
 
 #: what ``_graph=None`` means inside ``dispatch``: None picks by device
 _DISPATCH = None
@@ -190,7 +194,7 @@ def use_graph(device, graphed=None, eager=None) -> bool:
 
 
 def launch_counts() -> dict:
-    """The LK wrappers' launch counts, by name."""
+    """The kernel wrappers' launch counts, by name."""
     return {k: getattr(fn, attr) for k, (fn, attr) in _COUNTERS.items()}
 
 
