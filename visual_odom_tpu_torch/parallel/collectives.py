@@ -24,7 +24,13 @@ issues, and each function below maps such a list to another. The axis
 
 Every collective of the process form is noted to ``utils.cudagraph``
 (``note_collective``): inside a capture it joins the capture's list, and
-the graph is released before its group is destroyed.
+the graph is released before its group is destroyed. Outside a capture it
+is a ``collective.<op>`` span (``gather``, ``broadcast``, ``ppermute``;
+``utils.profiling``) labelled with its bytes, and adds to the counters
+``collective.calls`` and ``collective.bytes``; inside one nothing is
+recorded, since the graph's replays issue it. Its bytes are those it
+writes on this rank: all D shards of a ``gather``, the broadcast tensor,
+a ``ppermute``'s received tensor.
 
 Both forms give the same bits: ``psum`` gathers every shard and adds them
 in shard order, shard 0 + shard 1 + ... + shard D-1, where NCCL's
@@ -35,11 +41,12 @@ tensors on their devices; a solver's guards are ``torch.where``s on them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Sequence
 
 import torch
 
-from visual_odom_tpu_torch.utils import cudagraph
+from visual_odom_tpu_torch.utils import cudagraph, profiling
 
 
 class RankAxis(NamedTuple):
@@ -112,6 +119,20 @@ def _dist():
     return torch.distributed
 
 
+@contextlib.contextmanager
+def _recorded(op: str, nbytes: int, captured: bool):
+    """The block issuing a process-form collective, as a
+    ``collective.<op>`` span and counts (see the module's doc); nothing
+    where the collective was ``captured``."""
+    if captured:
+        yield
+        return
+    with profiling.span("collective." + op, label=str(nbytes)):
+        yield
+    profiling.count("collective.calls")
+    profiling.count("collective.bytes", nbytes)
+
+
 def gather(parts: Sequence[torch.Tensor], axis, sizes=None) -> list:
     """Every shard's tensor, in shard order. One process: ``parts`` as
     they are. Process form: the D shards on this rank's device, through
@@ -128,8 +149,10 @@ def gather(parts: Sequence[torch.Tensor], axis, sizes=None) -> list:
     if send.dtype == torch.bool:
         send = send.to(torch.uint8)
     out = [torch.empty_like(send) for _ in axis.ranks]
-    cudagraph.note_collective("all_gather", axis.group, axis.ranks, send)
-    _dist().all_gather(out, send, group=axis.group)
+    captured = cudagraph.note_collective("all_gather", axis.group,
+                                         axis.ranks, send)
+    with _recorded("gather", send.nbytes * len(out), captured):
+        _dist().all_gather(out, send, group=axis.group)
     group_rank = [_dist().get_group_rank(axis.group, r) for r in axis.ranks]
     got = [out[g].to(x.dtype) for g in group_rank]
     if sizes is not None:
@@ -165,8 +188,10 @@ def broadcast(x: torch.Tensor, axis) -> list:
     shard 0's ``x`` on this rank, sent from shard 0's rank."""
     if isinstance(axis, RankAxis):
         y = x.contiguous().clone()
-        cudagraph.note_collective("broadcast", axis.group, axis.ranks, y)
-        _dist().broadcast(y, src=axis.ranks[0], group=axis.group)
+        captured = cudagraph.note_collective("broadcast", axis.group,
+                                             axis.ranks, y)
+        with _recorded("broadcast", y.nbytes, captured):
+            _dist().broadcast(y, src=axis.ranks[0], group=axis.group)
         return [y]
     devs = [torch.device(d) for d in axis]
     others = list(dict.fromkeys(d for d in devs if d != devs[0]))
@@ -198,7 +223,8 @@ def ppermute(parts: Sequence[torch.Tensor], perm, axis=None) -> list:
                 for p, o in zip(parts, out)]
     (x,) = parts
     me = axis.index
-    cudagraph.note_collective("ppermute", axis.group, axis.ranks, x, perm)
+    captured = cudagraph.note_collective("ppermute", axis.group,
+                                         axis.ranks, x, perm)
     gloo = _dist().get_backend(axis.group) == "gloo"
     if gloo and (me, me) in perm:
         return [x.clone()]        # gloo's pairs do not reach their own rank
@@ -215,8 +241,10 @@ def ppermute(parts: Sequence[torch.Tensor], perm, axis=None) -> list:
             ops.append(_dist().P2POp(_dist().irecv, recv, axis.ranks[src],
                                      axis.group))
     if ops:
-        for work in _dist().batch_isend_irecv(ops):
-            work.wait()
+        with _recorded("ppermute", 0 if recv is None else recv.nbytes,
+                       captured):
+            for work in _dist().batch_isend_irecv(ops):
+                work.wait()
     if recv is None:
         return [torch.zeros_like(x)]
     return [recv.to(x.device) if host else recv]

@@ -480,6 +480,14 @@ class _UploadStats(dict):
                 else 0.0)
 
 
+def _pinned_bytes(chunk) -> int:
+    """The bytes of a chunk's (lefts, rights) that an uploader pins and
+    copies, added to the counter ``upload.bytes`` (``utils.profiling``)."""
+    nbytes = chunk[0].nbytes + chunk[1].nbytes
+    profiling.count("upload.bytes", nbytes)
+    return nbytes
+
+
 def _mb_s(nbytes, seconds) -> float:
     return nbytes / 1e6 / seconds if seconds > 0 else 0.0
 
@@ -492,9 +500,9 @@ class _ParallelChunkUploader:
     lock, uploads it on its own stream and puts it in a stash keyed by seq;
     ``get`` pops by seq. A thread whose chunk would stand more than
     ``max_ahead`` chunks past the consumer waits, so host and device hold
-    O(threads + max_ahead) chunks. Each thread records its spans as the
-    single uploader's do, in the request of the caller that made the
-    pool. ``stats_out`` gets the single uploader's keys summed over
+    O(threads + max_ahead) chunks. Each thread records its spans and
+    ``upload.bytes`` as the single uploader's do, in the request of the
+    caller that made the pool. ``stats_out`` gets the single uploader's keys summed over
     threads, ``threads``, ``pool_wall_s`` (from the threads' first span's
     start to their last one's end), ``per_thread`` rows, ``busy_frac``
     (the busiest thread's) and ``agg_upload_mb_s`` (bytes over the pool's
@@ -545,7 +553,7 @@ class _ParallelChunkUploader:
                 with profiling.span("upload.copy", request=req) as sp:
                     dl, dr = _upload(nxt[:2], self._dev, stream)
                 stats.add(sp, "upload_s")
-                stats["upload_bytes"] += nxt[0].nbytes + nxt[1].nbytes
+                stats["upload_bytes"] += _pinned_bytes(nxt)
                 stats["chunks"] += 1
                 with self._cond:
                     if seq - self._next_get >= self._max_ahead:
@@ -636,6 +644,7 @@ class _ChunkUploader:
       ``thread_wall_s`` (the first span's start to the last one's end),
       ``chunks``, ``busy_frac`` (the share of the thread's wall not spent
       waiting on a full queue, i.e. on the step) and ``upload_mb_s``.
+    - Counter ``upload.bytes``: each chunk's pinned bytes.
     - ``finish()``: join, and re-raise the thread's error on the caller.
     """
 
@@ -692,7 +701,7 @@ class _ChunkUploader:
                                     request=self._request) as sp:
                     dl, dr = _upload(nxt[:2], self._dev, stream)
                 stats.add(sp, "upload_s")
-                stats["upload_bytes"] += nxt[0].nbytes + nxt[1].nbytes
+                stats["upload_bytes"] += _pinned_bytes(nxt)
                 stats["chunks"] += 1
                 if not self._put((dl, dr, nxt[2])):
                     return

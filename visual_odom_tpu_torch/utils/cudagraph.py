@@ -649,17 +649,18 @@ def _issuing():
 
 
 def note_collective(kind: str, group, ranks, tensor: torch.Tensor,
-                    pairs=()) -> None:
+                    pairs=()) -> bool:
     """Note a collective over ``group`` (``parallel.collectives`` notes
     every one of a rank axis): inside a capture it is listed on the
-    capture, in order, and logged."""
+    capture, in order, and logged. Returns whether it was."""
     issued = getattr(_THREAD, "issued", None)
     if issued is None:
-        return
+        return False
     issued.append(Collective(kind, tuple(ranks), tuple(tensor.shape),
                              tensor.dtype, tuple(pairs), group))
     _log.debug("captured %s over ranks %s: %s %s", kind, tuple(ranks),
                tuple(tensor.shape), tensor.dtype)
+    return True
 
 
 #: every GraphedStep and GraphedLoop alive (``release`` looks at them)

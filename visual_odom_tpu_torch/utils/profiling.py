@@ -14,7 +14,8 @@ per replay inside a chunk: the batched runner's set-up, loop, waits on its
 uploader, chunk launches, fetches and pose chaining; each uploader's
 stacking, copies and waits on a full queue; ``VisualOdometry``'s frames
 and, inside each, the graph's input copies, replay, fetch and state
-snapshot; each graph capture.
+snapshot; each graph capture; each collective between ranks issued
+outside a capture.
 
 The recorder is on by default, a flight recorder: closed spans go into a
 ring of ``RING`` records and are read back only when asked for
@@ -26,7 +27,9 @@ its name on its thread, recorded as an op (``_Range``), so the
 profiler's trace holds the program's spans on the clock of its kernels;
 with no profiler running no range is opened.
 
-Counters (``count``) are named integer adds, read through ``records``.
+Counters (``count``) are named integer adds, read through ``records``:
+``graph.captures``, ``upload.bytes`` (each chunk an uploader pinned),
+``collective.calls`` and ``collective.bytes``.
 """
 
 from __future__ import annotations
